@@ -1,0 +1,425 @@
+"""Core scheduling object model.
+
+Host-side, schema-level mirror of the scheduling-relevant slice of the reference
+API surface (reference: staging/src/k8s.io/api/core/v1/types.go — Pod, Node,
+NodeSelector, Taint/Toleration, Affinity, TopologySpreadConstraint). These are
+deliberately *not* the full Kubernetes objects: they carry exactly the fields the
+scheduler reads, in a form that encodes losslessly into flat device arrays
+(see state/encode.py).
+
+Design notes (TPU-first, not a port):
+  * All string worlds (label keys/values, taint keys, topology keys, resource
+    names, ports) are interned into integer vocabularies before reaching the
+    device; these dataclasses keep the strings for the host mirror only.
+  * Resource quantities are canonicalized at parse time: CPU in milliCPU,
+    memory/ephemeral-storage in KiB, extended/scalar resources in integer
+    counts — so device arrays are exact int32 and comparisons are bit-faithful
+    to the reference (predicates.go:789-845 PodFitsResources).
+"""
+
+from __future__ import annotations
+
+import enum
+import re
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional, Tuple
+
+
+# --------------------------------------------------------------------------- #
+# Operators and enums (reference: staging/src/k8s.io/api/core/v1/types.go)
+# --------------------------------------------------------------------------- #
+
+
+class Op(enum.IntEnum):
+    """Selector requirement operator.
+
+    NodeSelectorOperator (types.go:2560-2568) plus the label-selector operators
+    (metav1.LabelSelectorOperator); Gt/Lt are node-selector only.
+    """
+
+    IN = 0
+    NOT_IN = 1
+    EXISTS = 2
+    DOES_NOT_EXIST = 3
+    GT = 4
+    LT = 5
+
+
+class TaintEffect(enum.IntEnum):
+    """reference types.go:2771-2784."""
+
+    NO_SCHEDULE = 0
+    PREFER_NO_SCHEDULE = 1
+    NO_EXECUTE = 2
+
+
+class TolerationOp(enum.IntEnum):
+    """reference types.go:2817-2821."""
+
+    EXISTS = 0
+    EQUAL = 1
+
+
+class UnsatisfiableAction(enum.IntEnum):
+    """TopologySpreadConstraint.WhenUnsatisfiable (types.go ~3269)."""
+
+    DO_NOT_SCHEDULE = 0  # hard predicate (EvenPodsSpreadPredicate)
+    SCHEDULE_ANYWAY = 1  # soft score (even_pods_spread priority)
+
+
+# --------------------------------------------------------------------------- #
+# Resources
+# --------------------------------------------------------------------------- #
+
+_QTY_RE = re.compile(r"^([0-9.]+)\s*(m|k|Ki|M|Mi|G|Gi|T|Ti|P|Pi|E|Ei)?$")
+
+_SUFFIX = {
+    None: 1,
+    "": 1,
+    "k": 1000,
+    "M": 1000**2,
+    "G": 1000**3,
+    "T": 1000**4,
+    "P": 1000**5,
+    "E": 1000**6,
+    "Ki": 1024,
+    "Mi": 1024**2,
+    "Gi": 1024**3,
+    "Ti": 1024**4,
+    "Pi": 1024**5,
+    "Ei": 1024**6,
+}
+
+
+def parse_cpu_milli(q: str | int | float) -> int:
+    """Parse a CPU quantity into milliCPU (reference resource.Quantity.MilliValue)."""
+    if isinstance(q, (int, float)):
+        return int(round(float(q) * 1000))
+    m = _QTY_RE.match(q.strip())
+    if not m:
+        raise ValueError(f"bad cpu quantity {q!r}")
+    val, suf = m.groups()
+    if suf == "m":
+        return int(round(float(val)))
+    return int(round(float(val) * _SUFFIX[suf] * 1000))
+
+
+def parse_mem_kib(q: str | int | float) -> int:
+    """Parse a memory quantity into KiB (rounded up); device arrays hold KiB so
+    int32 covers 2 TiB/node while staying exact for all practical requests."""
+    if isinstance(q, (int, float)):
+        b = int(q)
+    else:
+        m = _QTY_RE.match(q.strip())
+        if not m:
+            raise ValueError(f"bad memory quantity {q!r}")
+        val, suf = m.groups()
+        if suf == "m":  # milli-bytes, legal but silly
+            b = int(round(float(val) / 1000))
+        else:
+            b = int(round(float(val) * _SUFFIX[suf]))
+    return -(-b // 1024)  # ceil division
+
+
+# Fixed resource dimensions on device, in order. Scalar/extended resources get
+# vocab slots after these (reference nodeinfo/node_info.go:143-151 Resource).
+RES_CPU = 0  # milliCPU
+RES_MEM = 1  # KiB
+RES_EPHEMERAL = 2  # KiB
+RES_PODS = 3  # pod count (AllowedPodNumber)
+NUM_FIXED_RES = 4
+
+
+@dataclass(frozen=True)
+class Resources:
+    """Canonical resource vector (reference Resource, node_info.go:143)."""
+
+    milli_cpu: int = 0
+    memory_kib: int = 0
+    ephemeral_kib: int = 0
+    pods: int = 0
+    scalars: Tuple[Tuple[str, int], ...] = ()  # (resource name, integer amount)
+
+    @staticmethod
+    def make(
+        cpu: str | int | float = 0,
+        memory: str | int = 0,
+        ephemeral: str | int = 0,
+        pods: int = 0,
+        scalars: Optional[Dict[str, int]] = None,
+    ) -> "Resources":
+        return Resources(
+            milli_cpu=parse_cpu_milli(cpu),
+            memory_kib=parse_mem_kib(memory),
+            ephemeral_kib=parse_mem_kib(ephemeral),
+            pods=pods,
+            scalars=tuple(sorted((scalars or {}).items())),
+        )
+
+
+# --------------------------------------------------------------------------- #
+# Selectors
+# --------------------------------------------------------------------------- #
+
+
+@dataclass(frozen=True)
+class Requirement:
+    """One selector requirement (labels.Requirement, apimachinery
+    labels/selector.go:192-215 for match semantics)."""
+
+    key: str
+    op: Op
+    values: Tuple[str, ...] = ()
+
+
+@dataclass(frozen=True)
+class LabelSelector:
+    """Pod-label selector: AND of requirements; empty selector matches all
+    (metav1.LabelSelector via LabelSelectorAsSelector)."""
+
+    requirements: Tuple[Requirement, ...] = ()
+
+    @staticmethod
+    def of(match_labels: Optional[Dict[str, str]] = None,
+           expressions: Optional[List[Requirement]] = None) -> "LabelSelector":
+        reqs: List[Requirement] = [
+            Requirement(k, Op.IN, (v,)) for k, v in sorted((match_labels or {}).items())
+        ]
+        reqs.extend(expressions or [])
+        return LabelSelector(tuple(reqs))
+
+
+@dataclass(frozen=True)
+class NodeSelectorTerm:
+    """AND of requirements; an empty term matches *nothing*
+    (v1helper.MatchNodeSelectorTerms: empty matchExpressions+matchFields skipped)."""
+
+    requirements: Tuple[Requirement, ...] = ()
+    # matchFields on metadata.name, reference types.go:2540; kept separate
+    # because it matches node *name*, not labels.
+    field_name_in: Tuple[str, ...] = ()
+
+
+@dataclass(frozen=True)
+class NodeSelector:
+    """OR of terms (reference types.go:2524-2529); empty term list matches nothing."""
+
+    terms: Tuple[NodeSelectorTerm, ...] = ()
+
+
+@dataclass(frozen=True)
+class PreferredSchedulingTerm:
+    weight: int  # 1-100, types.go:2534
+    term: NodeSelectorTerm = field(default_factory=NodeSelectorTerm)
+
+
+# --------------------------------------------------------------------------- #
+# Affinity
+# --------------------------------------------------------------------------- #
+
+
+@dataclass(frozen=True)
+class PodAffinityTerm:
+    """reference types.go ~2620: label selector over pods, namespaces,
+    topologyKey. Empty namespaces ⇒ the incoming pod's own namespace
+    (predicates.go GetNamespacesFromPodAffinityTerm)."""
+
+    selector: LabelSelector = field(default_factory=LabelSelector)
+    topology_key: str = ""
+    namespaces: Tuple[str, ...] = ()
+
+
+@dataclass(frozen=True)
+class WeightedPodAffinityTerm:
+    weight: int  # 1-100
+    term: PodAffinityTerm = field(default_factory=PodAffinityTerm)
+
+
+@dataclass(frozen=True)
+class Affinity:
+    """Node + pod (anti)affinity. Only the scheduler-relevant
+    RequiredDuringSchedulingIgnoredDuringExecution /
+    PreferredDuringSchedulingIgnoredDuringExecution variants exist in the
+    reference at this version."""
+
+    node_required: Optional[NodeSelector] = None
+    node_preferred: Tuple[PreferredSchedulingTerm, ...] = ()
+    pod_required: Tuple[PodAffinityTerm, ...] = ()
+    pod_preferred: Tuple[WeightedPodAffinityTerm, ...] = ()
+    anti_required: Tuple[PodAffinityTerm, ...] = ()
+    anti_preferred: Tuple[WeightedPodAffinityTerm, ...] = ()
+
+
+# --------------------------------------------------------------------------- #
+# Taints / tolerations
+# --------------------------------------------------------------------------- #
+
+
+@dataclass(frozen=True)
+class Taint:
+    key: str
+    value: str = ""
+    effect: TaintEffect = TaintEffect.NO_SCHEDULE
+
+
+@dataclass(frozen=True)
+class Toleration:
+    """reference types.go:2789-2813. Empty key + Exists tolerates everything;
+    empty effect matches all effects (ToleratesTaint, v1/helper)."""
+
+    key: str = ""
+    op: TolerationOp = TolerationOp.EQUAL
+    value: str = ""
+    effect: Optional[TaintEffect] = None  # None = all effects
+
+
+# --------------------------------------------------------------------------- #
+# Topology spread
+# --------------------------------------------------------------------------- #
+
+
+@dataclass(frozen=True)
+class TopologySpreadConstraint:
+    """reference types.go TopologySpreadConstraint (EvenPodsSpread feature)."""
+
+    max_skew: int
+    topology_key: str
+    when_unsatisfiable: UnsatisfiableAction
+    selector: LabelSelector = field(default_factory=LabelSelector)
+
+
+# --------------------------------------------------------------------------- #
+# Ports
+# --------------------------------------------------------------------------- #
+
+
+@dataclass(frozen=True)
+class VolumeRef:
+    """An attachable volume a pod mounts (the GCE-PD/EBS/RBD/ISCSI/CSI
+    subset NoDiskConflict and the max-volume-count predicates care about:
+    predicates.go:156-221, csi_volume_predicate.go:89). `driver` scopes both
+    the conflict check and the per-node attach limit; EBS-style volumes that
+    conflict even read-only are modeled with read_only=False."""
+
+    vol_id: str
+    driver: str = "pd"
+    read_only: bool = False
+
+
+@dataclass(frozen=True)
+class HostPort:
+    """A (protocol, hostIP, hostPort) triple; conflict semantics per
+    nodeinfo/node_info.go HostPortInfo (wildcard 0.0.0.0 conflicts with all IPs)."""
+
+    port: int
+    protocol: str = "TCP"
+    host_ip: str = ""
+
+
+# --------------------------------------------------------------------------- #
+# Pod / Node
+# --------------------------------------------------------------------------- #
+
+DEFAULT_SCHEDULER_NAME = "default-scheduler"
+
+# Fencing annotations on Binding writes (exactly-once HA binding): the
+# scheduler stamps its lease generation (coordination.k8s.io Lease
+# `leaseTransitions` at acquire time) into every Binding; the apiserver
+# compares it against the live Lease and rejects a strictly older token —
+# a deposed leader that wakes up mid-write cannot land a stale bind.
+FENCING_TOKEN_ANNOTATION = "ktpu.io/fencing-token"
+FENCING_LEASE_ANNOTATION = "ktpu.io/fencing-lease"  # "namespace/name"
+DEFAULT_FENCING_LEASE = "kube-system/kube-scheduler"
+# machine-readable marker the apiserver embeds in a fenced-off 409's
+# message; clients detect fenced rejections by THIS token, not by prose
+# (survives the HTTP transport, which carries only code/reason/message)
+FENCED_BIND_MARKER = "FencedBind"
+
+
+@dataclass
+class Pod:
+    name: str
+    namespace: str = "default"
+    uid: str = ""
+    labels: Dict[str, str] = field(default_factory=dict)
+    requests: Resources = field(default_factory=Resources)
+    limits: Resources = field(default_factory=Resources)  # container limits sum
+    node_selector: Dict[str, str] = field(default_factory=dict)  # spec.nodeSelector
+    affinity: Affinity = field(default_factory=Affinity)
+    tolerations: Tuple[Toleration, ...] = ()
+    topology_spread: Tuple[TopologySpreadConstraint, ...] = ()
+    host_ports: Tuple[HostPort, ...] = ()
+    volumes: Tuple[VolumeRef, ...] = ()  # attachable volumes (NoDiskConflict)
+    # container image names (ImageLocality; spec.containers[*].image)
+    images: Tuple[str, ...] = ()
+    # selectors of the Services/RCs/RSs/StatefulSets owning this pod —
+    # the SelectorSpread inputs the reference resolves via listers
+    # (selector_spreading.go getSelectors); resolved by the caller here
+    spread_selectors: Tuple[LabelSelector, ...] = ()
+    priority: int = 0
+    node_name: str = ""  # spec.nodeName — set once bound
+    scheduler_name: str = DEFAULT_SCHEDULER_NAME
+    creation_index: int = 0  # monotonic stand-in for creationTimestamp ordering
+    # Gang/co-scheduling (BASELINE config 5). The reference has no in-tree
+    # equivalent; the semantics follow the sig-scheduling coscheduling
+    # protocol: pods carry their group name (label/annotation
+    # `pod-group.scheduling.sigs.k8s.io/name`) and the group's minimum
+    # member count (`.../min-available`, or a PodGroup object's
+    # spec.minMember). A group commits all-or-nothing per cycle: either
+    # ≥ min_member members (counting already-bound members) place, or none.
+    pod_group: str = ""   # namespaced group name; "" = not gang-scheduled
+    min_member: int = 0   # group minMember hint carried on the pod
+
+    def __post_init__(self) -> None:
+        if not self.uid:
+            self.uid = f"{self.namespace}/{self.name}"
+
+    @property
+    def key(self) -> str:
+        return f"{self.namespace}/{self.name}"
+
+    @property
+    def group_key(self) -> str:
+        """Namespaced gang-group key ('' when ungrouped) — the ONE
+        normalization site (encoder, cache accounting, and the Coscheduling
+        plugin all key groups by this)."""
+        if not self.pod_group:
+            return ""
+        return self.pod_group if "/" in self.pod_group \
+            else f"{self.namespace}/{self.pod_group}"
+
+
+@dataclass
+class PodGroup:
+    """A gang-scheduling pod group (coscheduling PodGroup CRD analog,
+    scheduling.sigs.k8s.io/v1alpha1): all-or-nothing admission with
+    spec.minMember. Members reference it via Pod.pod_group = "{ns}/{name}"."""
+
+    name: str
+    namespace: str = "default"
+    min_member: int = 1
+
+    @property
+    def key(self) -> str:
+        return f"{self.namespace}/{self.name}"
+
+
+@dataclass
+class Node:
+    name: str
+    labels: Dict[str, str] = field(default_factory=dict)
+    allocatable: Resources = field(default_factory=Resources)
+    taints: Tuple[Taint, ...] = ()
+    unschedulable: bool = False  # spec.unschedulable (CheckNodeUnschedulable)
+    images_kib: Dict[str, int] = field(default_factory=dict)  # image name -> size
+    # per-driver attachable-volume limits (CSINode allocatable / cloud caps,
+    # csi_volume_predicate.go getMaxVolumeFunc); absent driver = unlimited
+    volume_limits: Dict[str, int] = field(default_factory=dict)
+    # scheduler.alpha.kubernetes.io/preferAvoidPods annotation present
+    # (NodePreferAvoidPods score, priorities/node_prefer_avoid_pods.go)
+    prefer_avoid_pods: bool = False
+
+
+WELL_KNOWN_ZONE_LABEL = "topology.kubernetes.io/zone"
+WELL_KNOWN_HOSTNAME_LABEL = "kubernetes.io/hostname"
+WELL_KNOWN_REGION_LABEL = "topology.kubernetes.io/region"

@@ -1,0 +1,183 @@
+"""Canonical benchmark workloads — the 'model zoo' of this framework.
+
+Shapes mirror the reference's perf suites (BASELINE.md):
+  * density      — scheduler_perf density test (config 1/2): N nodes, P pods,
+    plain requests + optional nodeSelector/affinity variety
+    (test/integration/scheduler_perf/scheduler_test.go:70, scheduler_bench_test.go:51-67)
+  * flagship     — config 4: zones/racks topology, PodTopologySpread +
+    InterPodAffinity/AntiAffinity across deployment groups — the 5k×50k
+    north-star shape.
+
+Workloads are deterministic (seeded) and built from a small number of pod
+templates, like real clusters (Deployments/ReplicaSets stamp identical specs —
+exactly the structure the class-interning design exploits).
+"""
+
+from __future__ import annotations
+
+import random
+from typing import List, Tuple
+
+from ..api.types import (
+    Affinity,
+    LabelSelector,
+    Node,
+    Pod,
+    PodAffinityTerm,
+    Resources,
+    TopologySpreadConstraint,
+    UnsatisfiableAction,
+)
+
+ZONE = "topology.kubernetes.io/zone"
+RACK = "topology.kubernetes.io/rack"
+HOSTNAME = "kubernetes.io/hostname"
+
+
+def make_nodes(
+    n: int, zones: int = 16, racks_per_zone: int = 20,
+    cpu: str = "32", memory: str = "128Gi", pods: int = 110,
+) -> List[Node]:
+    nodes = []
+    for i in range(n):
+        z = i % zones
+        r = (i // zones) % racks_per_zone
+        nodes.append(Node(
+            name=f"node-{i}",
+            labels={
+                ZONE: f"zone-{z}",
+                RACK: f"zone-{z}-rack-{r}",
+                HOSTNAME: f"node-{i}",
+            },
+            allocatable=Resources.make(cpu=cpu, memory=memory, pods=pods),
+        ))
+    return nodes
+
+
+_TIERS = [("100m", "128Mi"), ("250m", "512Mi"), ("500m", "1Gi"), ("1", "2Gi")]
+
+
+def density_pods(n: int, groups: int = 50, seed: int = 0) -> List[Pod]:
+    """Plain-requests density workload (scheduler_perf config 1)."""
+    rng = random.Random(seed)
+    tiers = [_TIERS[rng.randrange(len(_TIERS))] for _ in range(groups)]
+    pods = []
+    for i in range(n):
+        g = i % groups
+        cpu, mem = tiers[g]
+        pods.append(Pod(
+            name=f"pod-{g}-{i}",
+            labels={"app": f"app-{g}"},
+            requests=Resources.make(cpu=cpu, memory=mem),
+            creation_index=i,
+        ))
+    return pods
+
+
+def gang_workload_pods(n: int, seed: int = 0) -> List[Pod]:
+    """Config-5 workload (BASELINE.md row 5): all-or-nothing ML jobs at
+    5k nodes × 100k pods. Jobs cycle through gang sizes {8, 16, 32, 64} with
+    minMember == size (classic data-parallel training: the job runs only at
+    full world size); ~2% of jobs are 'monsters' whose per-member request
+    exceeds any node (statically infeasible — they exercise the gang
+    engine's bulk-rejection path, the analog of a Permit timeout storm).
+    Deterministic by construction."""
+    sizes = (8, 16, 32, 64)
+    tiers = [("2", "4Gi"), ("4", "8Gi"), ("1", "2Gi"), ("8", "16Gi")]
+    pods: List[Pod] = []
+    job = 0
+    i = 0
+    while i < n:
+        size = sizes[job % len(sizes)]
+        size = min(size, n - i)
+        monster = (job % 50) == 49
+        cpu, mem = ("64", "512Gi") if monster else tiers[job % len(tiers)]
+        for m in range(size):
+            pods.append(Pod(
+                name=f"job-{job}-w{m}",
+                labels={"app": f"job-{job}"},
+                requests=Resources.make(cpu=cpu, memory=mem),
+                pod_group=f"job-{job}",
+                min_member=size,
+                priority=job % 3,
+                creation_index=i + m,
+            ))
+        i += size
+        job += 1
+    return pods
+
+
+def flagship_pods(n: int, groups: int = 50) -> List[Pod]:
+    """Config-4 workload, fully deterministic (no randomness by construction):
+    every group spreads across zones (hard, maxSkew≥1); a third of groups also
+    anti-affine within hosts; a third require affinity to another group's pods
+    in-zone (service co-location)."""
+    pods = []
+    per_group = max(n // groups, 1)
+    for i in range(n):
+        g = i % groups
+        app = f"app-{g}"
+        sel = LabelSelector.of(match_labels={"app": app})
+        spread = (TopologySpreadConstraint(
+            max_skew=max(2, per_group // 8),
+            topology_key=ZONE,
+            when_unsatisfiable=UnsatisfiableAction.DO_NOT_SCHEDULE,
+            selector=sel,
+        ),)
+        anti = ()
+        aff = ()
+        if g % 3 == 1:
+            # classic one-replica-per-node DB pattern; hostname domains keep
+            # the group schedulable (rack-level would cap the group at #racks)
+            anti = (PodAffinityTerm(selector=sel, topology_key=HOSTNAME),)
+        elif g % 3 == 2:
+            partner = LabelSelector.of(match_labels={"app": f"app-{g - 1}"})
+            aff = (PodAffinityTerm(selector=partner, topology_key=ZONE),)
+        cpu, mem = _TIERS[g % len(_TIERS)]
+        pods.append(Pod(
+            name=f"pod-{g}-{i}",
+            labels={"app": app},
+            requests=Resources.make(cpu=cpu, memory=mem),
+            affinity=Affinity(pod_required=aff, anti_required=anti),
+            topology_spread=spread,
+            priority=g % 3,
+            creation_index=i,
+        ))
+    return pods
+
+
+def deployment_backlog_pods(n: int, deployments: int = 200,
+                            seed: int = 0) -> List[Pod]:
+    """Deployment-style backlog (ops/runs.py's motivating shape): each
+    'Deployment' stamps its replicas in one contiguous creation burst —
+    exactly what a controller scale-up produces — so the queue-ordered wave
+    factors into ~`deployments` class runs. Specs are plain requests +
+    labels (self-interaction-free classes: the run-collapsed engine's
+    closed-form waterfill fires on every run). A few priority tiers ride
+    along — each deployment carries ONE priority, so queue order (priority
+    desc, creation asc) keeps its replica block contiguous."""
+    rng = random.Random(seed)
+    per = max(n // deployments, 1)
+    pods: List[Pod] = []
+    i = 0
+    dep = 0
+    while i < n:
+        # per-deployment cpu makes each deployment a DISTINCT equivalence
+        # class even under label projection (unreferenced `app` labels fold
+        # out of class identity — state/encode.py), so the backlog really
+        # carries `deployments` classes, not len(_TIERS)
+        _, mem = _TIERS[rng.randrange(len(_TIERS))]
+        cpu = f"{100 + dep}m"
+        prio = dep % 3
+        size = min(per, n - i)
+        for _ in range(size):
+            pods.append(Pod(
+                name=f"dep-{dep}-{i}",
+                labels={"app": f"dep-{dep}"},
+                requests=Resources.make(cpu=cpu, memory=mem),
+                priority=prio,
+                creation_index=i,
+            ))
+            i += 1
+        dep += 1
+    return pods

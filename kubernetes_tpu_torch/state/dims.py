@@ -1,0 +1,132 @@
+"""Static capacity configuration for device arrays.
+
+Everything under jit needs static shapes (XLA compiles per shape signature), so
+ragged host data — labels per node, terms per pod, values per requirement — is
+packed into fixed-capacity slots chosen at encode time and rounded up to coarse
+buckets so recompiles are rare. The reference has no such constraint (Go maps
+and slices everywhere); this module is where its ragged world becomes rectangular.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, fields, replace
+from typing import Optional
+
+
+def bucket(n: int, minimum: int = 1, align: int = 1) -> int:
+    """Round up to a coarse capacity bucket so shape signatures are stable as
+    the cluster grows. Small sizes (≤16) round to the next power of two; larger
+    sizes round to the next multiple of 2^(⌊log2 n⌋−3) — eight buckets per
+    octave, so padding waste is ≤12.5% (a pure power-of-two bucket wastes up to
+    ~100%: 5000 nodes would pad to 8192) while the number of distinct compile
+    signatures stays logarithmic. `align` forces the result to a multiple."""
+    n = max(n, minimum)
+    if n <= 16:
+        p = 1
+        while p < n:
+            p <<= 1
+    else:
+        step = 1 << (max(n.bit_length() - 4, 0))
+        step = max(step, align)
+        p = ((n + step - 1) // step) * step
+    if align > 1 and p % align:
+        p = ((p + align - 1) // align) * align
+    return p
+
+
+@dataclass(frozen=True)
+class Dims:
+    """All array capacities. Fields are hashable/static for jit."""
+
+    N: int = 8        # nodes
+    P: int = 8        # pending pods per cycle batch
+    E: int = 8        # existing (bound/assumed) pods
+    R: int = 4        # resource dims (4 fixed + scalar slots)
+    L: int = 8        # labels per node
+    PL: int = 8       # labels per pod
+    NSE: int = 4      # spec.nodeSelector equality pairs per pod
+    T: int = 4        # required node-affinity terms per pod
+    PT: int = 4       # preferred node-affinity terms per pod
+    Q: int = 4        # requirements per node-selector term / selector
+    V: int = 4        # values per requirement
+    F: int = 2        # matchFields name values per term
+    TL: int = 4       # tolerations per pod
+    TT: int = 4       # taints per node
+    PP: int = 4       # host ports per pod
+    AT: int = 2       # required pod-affinity terms per pod
+    # AN and TS floors are 1, not 2: each slot is a full vmapped
+    # quota family in the wave engine (ops/waves.py _domain_quota_pass —
+    # an [N] sort per class per slot per wave), so an unused second slot
+    # is pure device time; workloads with 2+ constraints grow the bucket
+    AN: int = 1       # required pod-anti-affinity terms per pod
+    PAT: int = 2      # preferred pod-affinity terms per pod
+    PAN: int = 2      # preferred pod-anti-affinity terms per pod
+    TS: int = 1       # topology-spread constraints per pod
+    SS: int = 2       # SelectorSpread owner selectors per pod
+    CI: int = 4       # container images per pod (ImageLocality)
+    IMG: int = 8      # interned container images
+    IW: int = 1       # image-presence bitset words (32 images per word)
+    VS: int = 2       # attachable volumes per pod
+    SV: int = 4       # distinct volume sets
+    VW: int = 1       # volume bitset words (32 volumes per word)
+    DR: int = 2       # volume drivers
+    S: int = 8        # interned pod-selector term table size
+    SR: int = 8       # distinct request vectors
+    SL: int = 8       # distinct pod label sets
+    SN: int = 8       # distinct node-selector terms
+    STL: int = 4      # distinct toleration sets
+    SPP: int = 4      # distinct host-port sets
+    SC: int = 8       # distinct pod classes (templates)
+    K: int = 4        # topology keys
+    D: int = 8        # max domains per topology key
+    GR: int = 4       # gang pod groups (all-or-nothing; ops/gang.py)
+    NW: int = 1       # namespace bitset words (32 ns per word)
+    PWp: int = 1      # (proto,port) pair bitset words
+    PWt: int = 1      # (proto,port,ip) triple bitset words
+    # host-side facts about the encoded batch (not capacities): lets the
+    # dispatch layer pick an engine without a device round-trip
+    has_node_name: bool = False  # any pending pod sets spec.nodeName
+
+    def union(self, other: Optional["Dims"]) -> "Dims":
+        """Field-wise max of two capacity sets — the shared FLEET bucket K
+        stacked tenant clusters must agree on (fleet/tables.py): every
+        tenant's tables pad up to the union so one vmap'd program serves
+        them all. `has_node_name` ORs (it is a per-batch routing fact, not
+        a capacity). Never shrinks either operand."""
+        if other is None or other == self:
+            return self
+        updates = {}
+        for f in fields(self):
+            a, b = getattr(self, f.name), getattr(other, f.name)
+            if f.name == "has_node_name":
+                v = bool(a or b)
+            else:
+                v = max(a, b)
+            if v != a:
+                updates[f.name] = v
+        return replace(self, **updates) if updates else self
+
+    def grown_for(self, **mins: int) -> "Dims":
+        """Return dims with each named capacity bucketed up to at least the
+        given minimum (never shrinks). The node axis stays a multiple of 8 so
+        an 8-device mesh shards it evenly.
+
+        E (existing pods) doubles instead of taking the fine 12.5% buckets:
+        it grows monotonically as pods bind, and every growth forces a full
+        re-encode + recompile, so amortized (power-of-two) headroom keeps the
+        steady state on the incremental patch path."""
+        updates = {}
+        for name, m in mins.items():
+            cur = getattr(self, name)
+            if name == "E":
+                need = 1 << max(m - 1, 1).bit_length()
+            elif name == "N" and m <= 256:
+                # small node axes stay power-of-two: waste is negligible and
+                # divisibility by any pow2 mesh size is guaranteed (above 256
+                # the fine bucket's step is already a multiple of 32)
+                need = 1 << max(m - 1, 1).bit_length()
+            else:
+                need = bucket(m, 1)
+            if need > cur:
+                updates[name] = need
+        return replace(self, **updates) if updates else self

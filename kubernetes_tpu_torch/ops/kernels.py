@@ -11,7 +11,9 @@ replaces and what bounds it at the top of each source):
 
 Each wrapper takes its plain version for tensors on the CPU and launches its
 kernel for tensors on a CUDA device — never falling back from one to the
-other — and counts its launches in `<wrapper>.launches`.
+other — and counts its launches in `<wrapper>.launches`. The launch shape
+(K1's variant and grid, K2's segments and counter storage) is chosen
+in plain Python, `k1_launch_config` / `k2_launch_config`.
 
 Build: `nvcc -gencode arch=compute_90a,code=sm_90a` into one shared library
 per source with a plain C interface, loaded with ctypes, at first use. The
@@ -27,7 +29,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Sequence, Tuple
+from typing import Dict, NamedTuple, Sequence, Tuple
 
 import torch
 
@@ -44,8 +46,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _ARGTYPES = {
-    "contention_scan_launch": [_P] * 22 + [_I] * 7 + [_P],
-    "domain_rank_launch": [_P, _P, _I, _I, _I, _P],
+    "contention_scan_launch": [_P] * 21 + [_I] * 11 + [_P],
+    "domain_rank_launch": [_P] * 3 + [_I] * 7 + [_P],
 }
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
@@ -201,6 +203,50 @@ def contention_scan_plain(A, req, has_p, pw, ww, tw, has_v, va, vr,
     return keep, tuple(out)
 
 
+class K1Launch(NamedTuple):
+    variant: str      # "registers" or "shared"
+    warps: int        # warps (= nodes) per block
+    blocks: int
+    smem_bytes: int
+
+
+K1_MAX_R = 8        # registers variant: resource slots ...
+K1_MAX_W = 4        # ... and words of each of PW, PT, VW and DR
+K1_MAX_WARPS = 8    # warps (= nodes) per block
+SMEM_MAX = 227 * 1024   # shared memory a block can use on an H100
+
+
+def k1_smem_bytes(variant: str, warps: int, R: int, PW: int, PT: int,
+                  VW: int, DR: int) -> int:
+    """K1's dynamic shared memory, as csrc/contention_scan.cu lays it out:
+    the chunk's class rows and the driver masks, (shared variant) each
+    warp's node words and per-lane volume words, the flags and the A/keep
+    byte tile."""
+    words = 32 * (R + 2 * PW + PT + 2 * VW) + DR * VW
+    if variant == "shared":
+        words += warps * (2 * R + 4 * PW + 2 * PT + 6 * VW + DR + 32 * VW)
+    return 4 * words + 64 + 32 * warps
+
+
+def k1_launch_config(SC: int, N: int, R: int, PW: int, PT: int, VW: int,
+                     DR: int) -> K1Launch:
+    """K1's variant and grid: the registers variant where every width is
+    within its compile-time bound, else the shared-memory one; one warp per
+    node, up to K1_MAX_WARPS nodes per block (fewer if the shared variant's
+    words would not fit)."""
+    small = R <= K1_MAX_R and max(PW, PT, VW, DR) <= K1_MAX_W
+    variant = "registers" if small else "shared"
+    warps = max(1, min(K1_MAX_WARPS, N))
+    while warps > 1 and k1_smem_bytes(variant, warps, R, PW, PT, VW,
+                                      DR) > SMEM_MAX:
+        warps -= 1
+    smem = k1_smem_bytes(variant, warps, R, PW, PT, VW, DR)
+    if smem > SMEM_MAX:
+        raise ValueError(f"K1 widths R={R} PW={PW} PT={PT} VW={VW} DR={DR} "
+                         f"need {smem} bytes of shared memory for one node")
+    return K1Launch(variant, warps, -(-N // warps), smem)
+
+
 def contention_scan(A, req, has_p, pw, ww, tw, has_v, va, vr,
                     alloc, used, vol_any, vol_rw, drv_masks, vol_limit
                     ) -> Tuple[torch.Tensor, Words]:
@@ -222,14 +268,17 @@ def contention_scan(A, req, has_p, pw, ww, tw, has_v, va, vr,
         raise ValueError("requests, words and limits must be int32")
     if R < 4:
         raise ValueError("resource vectors carry at least the 4 fixed slots")
+    cfg = k1_launch_config(SC, N, R, PW, PT, VW, DR)
     keep = torch.empty((SC, N), dtype=torch.bool, device=device)
-    out = tuple(torch.empty((N, w), dtype=torch.int32, device=device)
-                for w in (PW, PW, PT, VW, VW))
-    scratch = torch.empty(((R + 2 * PW + PT + 2 * VW) * N,),
-                          dtype=torch.int32, device=device)
+    # the five word planes as contiguous views of one allocation
+    widths = (PW, PW, PT, VW, VW)
+    flat = torch.empty((N * sum(widths),), dtype=torch.int32, device=device)
+    out = tuple(v.view(N, w) for v, w in
+                zip(flat.split([N * w for w in widths]), widths))
     _launch("contention_scan", *(t.data_ptr() for t in args),
-            keep.data_ptr(), *(t.data_ptr() for t in out), scratch.data_ptr(),
-            SC, N, R, PW, PT, VW, DR, _stream(device))
+            keep.data_ptr(), *(t.data_ptr() for t in out),
+            SC, N, R, PW, PT, VW, DR, int(cfg.variant == "shared"),
+            cfg.warps, cfg.blocks, cfg.smem_bytes, _stream(device))
     contention_scan.launches += 1
     return keep, out
 
@@ -258,6 +307,43 @@ def domain_rank_plain(dom: torch.Tensor, num_domains: int) -> torch.Tensor:
     return torch.zeros_like(dom).scatter(1, grp, rank_g)
 
 
+class K2Launch(NamedTuple):
+    counters: str     # "shared" or "scratch"
+    segments: int     # warps that walk a row: one segment each
+    seg: int          # positions per segment, a multiple of 32
+    blocks: int       # blocks (of 16 warps) striding over the rows
+    smem_bytes: int
+    scratch_elems: int
+
+
+K2_MAX_SEGMENTS = 16           # warps of a K2 block
+K2_SCRATCH_BYTES = 256 << 20   # scratch counters beyond shared memory
+INT32_MAX = 2**31 - 1
+
+
+def k2_launch_config(rows: int, N: int, num_domains: int) -> K2Launch:
+    """K2's block and segment shape: as many segments per row as their
+    counters and tags (an int32 and a byte per (segment, domain), D+1
+    rounded up to 4) let shared memory hold, up to 16 and one per 32
+    positions; past shared memory the counters go to a scratch of at most
+    K2_SCRATCH_BYTES (one row's counters at the least) and the blocks
+    stride over the rows."""
+    if not 1 <= num_domains <= INT32_MAX:
+        raise ValueError(f"num_domains {num_domains} outside [1, 2^31 - 1]")
+    stride = -(-num_domains // 4) * 4
+    shared = 5 * stride <= SMEM_MAX    # int32 counter + tag byte per domain
+    per_seg = (5 if shared else 4) * stride
+    budget = SMEM_MAX if shared else K2_SCRATCH_BYTES
+    cap = max(1, min(K2_MAX_SEGMENTS, -(-N // 32)))
+    segs = max(1, min(cap, budget // per_seg))
+    seg = 32 * max(1, -(-N // (32 * segs)))
+    segs = max(1, -(-N // seg))
+    if shared:
+        return K2Launch("shared", segs, seg, max(rows, 1), per_seg * segs, 0)
+    blocks = max(1, min(rows, K2_SCRATCH_BYTES // (per_seg * segs)))
+    return K2Launch("scratch", segs, seg, blocks, 0, blocks * segs * stride)
+
+
 def domain_rank(dom: torch.Tensor, num_domains: int) -> torch.Tensor:
     """K2: rank[r, i] = #{j < i : dom[r, j] == dom[r, i]}. The plain version
     on the CPU, the CUDA kernel on a CUDA device."""
@@ -267,12 +353,15 @@ def domain_rank(dom: torch.Tensor, num_domains: int) -> torch.Tensor:
     _check((dom,), device)
     if dom.dtype != torch.int32 or dom.dim() != 2:
         raise ValueError("dom must be a 2-D int32 tensor")
-    if num_domains * 4 > 227 * 1024:
-        raise ValueError(f"{num_domains} domain counters exceed shared memory")
     rows, N = dom.shape
+    cfg = k2_launch_config(rows, N, num_domains)
     rank = torch.empty_like(dom)
-    _launch("domain_rank", dom.data_ptr(), rank.data_ptr(), rows, N,
-            num_domains, _stream(device))
+    scratch = (torch.empty((cfg.scratch_elems,), dtype=torch.int32,
+                           device=device) if cfg.counters == "scratch" else None)
+    _launch("domain_rank", dom.data_ptr(), rank.data_ptr(),
+            scratch.data_ptr() if scratch is not None else None, rows, N,
+            num_domains, cfg.segments, cfg.seg, cfg.blocks, cfg.smem_bytes,
+            _stream(device))
     domain_rank.launches += 1
     return rank
 

@@ -50,3 +50,17 @@ def test_cuda_cycle_matches_cpu_cycle(cuda):
     for f in ("used", "ppa", "ppw", "ppt", "CNT", "HOLD", "vol_any", "vol_rw"):
         assert torch.equal(getattr(gpu.last_result.state, f).cpu(),
                            getattr(cpu.last_result.state, f)), f
+
+
+def test_cuda_port_volume_cycle_matches_cpu_cycle(cuda):
+    """chip_smoke.py's port-and-volume workload at 200 nodes: real host-port
+    and volume words through K1 (its shared-memory variant: five volume
+    words), CUDA against CPU."""
+    nodes, pods = _chip_smoke().port_volume_workload(200, 2000)
+    gpu = ktt.BatchScheduler(device="cuda")
+    cpu = ktt.BatchScheduler(device="cpu")
+    assert gpu.schedule(nodes, [], pods).assignments == \
+        cpu.schedule(nodes, [], pods).assignments
+    for f in ("used", "ppa", "ppw", "ppt", "CNT", "HOLD", "vol_any", "vol_rw"):
+        assert torch.equal(getattr(gpu.last_result.state, f).cpu(),
+                           getattr(cpu.last_result.state, f)), f

@@ -26,7 +26,18 @@ Phases, each fatal on failure (exit code != 0, no result line):
      device time with the host's launch work hidden behind a GPU spin
      (`ms`), time per call with it (`call_ms`) — beside the plain version's
      time per call and the bound; K1's device time at the port-and-volume
-     cycle's inputs.
+     cycle's inputs;
+  5. serving on resident state, with the overload governor off
+     (KTPU_OVERLOAD=0) and a still clock: 5a the steady state of the
+     flagship on the port's SchedulerCache (a cold full snapshot, then two
+     cycles that churn one node and one pending pod and must take the
+     patch path), 5b the port's Scheduler(device="cuda") draining a
+     flagship backlog wave by wave (informer confirmations and a node
+     update between waves), then a micro wave of 3 fresh pods. Modes, rows
+     patched, per-wave counts, placements and the binder's order equal the
+     JAX package's recorded constants; 5b also equals the port's CPU run.
+     K1 and K2 launch in both, and equal their plain versions on the first
+     serving wave's inputs. Prints the per-cycle and per-wave split.
 
 Prints a `kernels` JSON line, the nvidia-smi name/power line, and last
 `{"ok": true, "device": {...}}`. Imports nothing of JAX.
@@ -63,6 +74,47 @@ PV_JAX_ASSIGNMENTS_SHA256 = \
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
 CUDA_CORE_OPS_PER_S = 67e12   # float32 outside the tensor cores
+
+# Phase 5: the steady state at the full flagship, and the wave loop's drain
+# at SERVING_PODS pods in waves of SERVING_BATCH on SERVING_NODES nodes.
+SERVING_NODES, SERVING_STEADY_PODS = 5000, 50000
+SERVING_PODS, SERVING_BATCH = 50000, 4096
+
+# Phase 5's reference results from the JAX package (JAX 0.9.0 on the CPU,
+# KTPU_OVERLOAD=0). Reproduce with `JAX_PLATFORMS=cpu python3
+# scripts/flagship_reference.py --package jax --path serving`.
+# 5a, per cycle: (snapshot mode, rows patched, placed, placement sha256).
+JAX_STEADY = [
+    ("full", 5000, 34000,
+     "3ef91ba5eb90738691a71cdfd9389032f9306b4bcc42dcde0120c3c4fb6a537f"),
+    ("patch", 1, 34000,
+     "3ef91ba5eb90738691a71cdfd9389032f9306b4bcc42dcde0120c3c4fb6a537f"),
+    ("patch", 1, 34000,
+     "3ef91ba5eb90738691a71cdfd9389032f9306b4bcc42dcde0120c3c4fb6a537f"),
+]
+# 5b, per wave: (attempted, scheduled, unschedulable, micro, snapshot
+# mode, rows patched); then the binder's ordered (pod, node) list.
+JAX_DRAIN = {
+    "waves": [
+        (4096, 0, 4096, 0, "full", 5000),
+        (4096, 0, 4096, 0, "full", 5000),
+        (4096, 0, 4096, 0, "full", 5000),
+        (4096, 384, 3712, 0, "patch", 1),
+        (4096, 4096, 0, 0, "patch", 768),
+        (4096, 4096, 0, 0, "full", 5000),
+        (4096, 4096, 0, 0, "full", 5000),
+        (4096, 4096, 0, 0, "patch", 4338),
+        (4096, 4096, 0, 0, "patch", 4338),
+        (4096, 4096, 0, 0, "patch", 4988),
+        (4096, 4096, 0, 0, "patch", 4338),
+        (4096, 4096, 0, 0, "patch", 4338),
+        (848, 848, 0, 0, "full", 5000),
+        (3, 3, 0, 1, "patch", 899),
+    ],
+    "bound": 34003,
+    "bound_sha256":
+        "777cae914b9ee93bc2044c32534c187d86c9551f013c8bd86ba018ea87c6f568",
+}
 
 K1_SOURCE = "kubernetes_tpu_torch/csrc/contention_scan.cu"
 K2_SOURCE = "kubernetes_tpu_torch/csrc/domain_rank.cu"
@@ -351,6 +403,167 @@ def port_volume_workload(n_nodes: int, n_pods: int, types=None,
 
 
 # --------------------------------------------------------------------------- #
+# phase 5: serving on resident state (shared with scripts/flagship_reference.py)
+# --------------------------------------------------------------------------- #
+
+class FakeClock:
+    """A scheduler clock that stands still unless moved: backoff and the
+    assume TTL then depend on the script, not on how fast the host is."""
+
+    def __init__(self, t: float = 0.0):
+        self.t = t
+
+    def __call__(self) -> float:
+        return self.t
+
+
+def port_serving_api(device):
+    """What phase 5 drives, from the port, on `device`. The reference script
+    builds the same namespace from the JAX package, so both packages run the
+    one script below."""
+    import types as pytypes
+
+    import kubernetes_tpu_torch as ktt
+    from kubernetes_tpu_torch.api import types
+    from kubernetes_tpu_torch.models import workloads
+    from kubernetes_tpu_torch.sched.cycle import (schedule_batch,
+                                                  snapshot_with_keys)
+    from kubernetes_tpu_torch.state.dims import Dims
+    from kubernetes_tpu_torch.state.encode import Encoder
+
+    def dispatch(snap, keys):
+        node = schedule_batch(snap.tables, snap.pending, keys, snap.dims.D,
+                              snap.existing,
+                              has_node_name=snap.dims.has_node_name).node
+        sync(device)
+        return node
+
+    return pytypes.SimpleNamespace(
+        types=types, workloads=workloads, Dims=Dims, Encoder=Encoder,
+        SchedulerCache=ktt.SchedulerCache,
+        RecordingBinder=ktt.RecordingBinder,
+        snapshot=lambda cache, enc, pods, base: snapshot_with_keys(
+            cache, enc, pods, base, device=device),
+        dispatch=dispatch,
+        readback=lambda node: node.cpu().tolist(),
+        scheduler=lambda **kw: ktt.Scheduler(device=device, **kw))
+
+
+def bound_sha256(bound) -> str:
+    """sha256 over a binder's ordered (pod key, node) list."""
+    return hashlib.sha256("\n".join(
+        f"{k} {n}" for k, n in bound).encode()).hexdigest()
+
+
+def serving_steady(api, n_nodes: int, n_pods: int, cycles: int = 2) -> dict:
+    """Phase 5a: the steady state of a serving cycle on the resident cache
+    (bench.py's flagship stage): make_nodes(n_nodes) into a SchedulerCache,
+    flagship_pods(n_pods) pending with base Dims(N, P, E=1); one cold
+    snapshot (full) and cycle, then `cycles` steady cycles that each churn
+    one node (update_node) and replace pods[0] with a copy, so the node rows
+    and the pending block both patch. Per cycle: snapshot mode, rows
+    patched, placed count and placement sha256, and the split — snapshot,
+    dispatch (to a synchronize), readback, host mapping — in seconds."""
+    import dataclasses
+
+    nodes = api.workloads.make_nodes(n_nodes)
+    pods = api.workloads.flagship_pods(n_pods)
+    base = api.Dims(N=n_nodes, P=n_pods, E=1)
+    cache, enc = api.SchedulerCache(), api.Encoder()
+    for n in nodes:
+        cache.add_node(n)
+    enc.intern_pods(pods)
+
+    def cycle(pending):
+        t0 = time.perf_counter()
+        snap, keys = api.snapshot(cache, enc, pending, base)
+        t1 = time.perf_counter()
+        node = api.dispatch(snap, keys)
+        t2 = time.perf_counter()
+        idx = api.readback(node)
+        t3 = time.perf_counter()
+        placed = [snap.node_order[i] if i >= 0 else None
+                  for i in idx[: len(pending)]]
+        t4 = time.perf_counter()
+        return dict(mode=cache.last_snapshot_mode,
+                    patch_rows=cache.last_patch_rows,
+                    scheduled=sum(a is not None for a in placed),
+                    sha256=assignments_sha256(placed),
+                    snapshot_s=t1 - t0, dispatch_s=t2 - t1,
+                    readback_s=t3 - t2, map_s=t4 - t3)
+
+    out = [cycle(pods)]
+    for i in range(cycles):
+        cache.update_node(nodes[i])
+        pods = list(pods)
+        pods[0] = dataclasses.replace(pods[0])
+        out.append(cycle(pods))
+    return {"cycles": out}
+
+
+def serving_drain(api, n_nodes: int, n_pods: int,
+                  batch_size: int = SERVING_BATCH,
+                  on_wave=None) -> dict:
+    """Phase 5b: the wave loop. A Scheduler(RecordingBinder, batch_size,
+    microwave=True) on a still clock over make_nodes(n_nodes), with
+    base_dims sized to the drain (N, P = batch_size, E = n_pods) and a
+    flagship_pods(n_pods) backlog fed through on_pod_add, drained one wave at
+    a time by run_until_idle(max_waves=1). Between waves the wave's bound
+    pods are confirmed through on_pod_add with node_name set (the informer
+    confirmation) and one node is updated, so the patch path carries node,
+    existing-pod and pending rows. Pods a wave cannot place wait in the
+    backoff queue (the clock does not move), so the drain ends when the
+    active queue is empty. Then 3 fresh single pods arrive: the next
+    schedule_pending must be a micro wave. `on_wave(i)` is called after each
+    wave's run (chip_smoke.py reads its timings there)."""
+    import dataclasses
+
+    T = api.types
+    nodes = api.workloads.make_nodes(n_nodes)
+    pods = api.workloads.flagship_pods(n_pods)
+    by_key = {p.key: p for p in pods}
+    binder = api.RecordingBinder()
+    s = api.scheduler(binder=binder, batch_size=batch_size, microwave=True,
+                      clock=FakeClock(),
+                      base_dims=api.Dims(N=n_nodes, P=batch_size, E=n_pods))
+    if s.governor is not None:
+        # wall-clock wave sizing would make the waves depend on the host
+        fail("phase 5 runs with KTPU_OVERLOAD=0 (the overload governor off)")
+    for n in nodes:
+        s.on_node_add(n)
+    for p in pods:
+        s.on_pod_add(p)
+    waves = []
+
+    def note(st):
+        waves.append(dict(attempted=st.attempted, scheduled=st.scheduled,
+                          unschedulable=st.unschedulable, micro=st.micro,
+                          mode=s.cache.last_snapshot_mode,
+                          patch_rows=s.cache.last_patch_rows))
+        if on_wave is not None:
+            on_wave(len(waves) - 1)
+
+    for w in range(4 * (n_pods // batch_size + 2)):
+        first = len(binder.bound)
+        note(s.run_until_idle(max_waves=1))
+        for key, node in binder.bound[first:]:
+            s.on_pod_add(dataclasses.replace(by_key[key], node_name=node))
+        s.on_node_update(nodes[w % n_nodes])
+        if s.queue.lengths()[0] == 0:
+            break
+    for i in range(3):
+        s.on_pod_add(T.Pod(name=f"fresh-{i}", labels={"app": "fresh"},
+                           requests=T.Resources.make(cpu="100m",
+                                                     memory="128Mi"),
+                           creation_index=n_pods + i))
+    note(s.schedule_pending())
+    return {"waves": waves, "bound": len(binder.bound),
+            "bound_sha256": bound_sha256(binder.bound),
+            "counts": list(s.cache.counts()),
+            "queue": list(s.queue.lengths())}
+
+
+# --------------------------------------------------------------------------- #
 # running a cycle
 # --------------------------------------------------------------------------- #
 
@@ -551,6 +764,179 @@ def kernel_report(device, captured, launches, errs) -> list:
     return rows
 
 
+class ServingTimer:
+    """Per-wave host timers around the port's Scheduler for phase 5b: the
+    snapshot (snapshot_with_keys or its micro twin), the dispatch (the
+    cycle, ended by a synchronize, so the readback that follows is only the
+    copy of the placements) and the whole wave; commit is the rest of the
+    wave (the readback copy, the prestage intern of the next backlog, the
+    assume/bind loop, the requeue). Installed by patching the names the
+    scheduler module calls; `restore()` puts them back."""
+
+    NAMES = ("snapshot_with_keys", "micro_snapshot_with_keys",
+             "schedule_batch")
+
+    def __init__(self, device):
+        from kubernetes_tpu_torch.sched import scheduler as S
+
+        self.S, self.saved = S, {n: getattr(S, n) for n in self.NAMES}
+        self.cur = {"snapshot_s": 0.0, "dispatch_s": 0.0}
+        self.waves = []
+
+        def timed(name, key, synced=False):
+            fn = self.saved[name]
+
+            def run(*a, **kw):
+                t0 = time.perf_counter()
+                out = fn(*a, **kw)
+                if synced:
+                    sync(device)
+                self.cur[key] += time.perf_counter() - t0
+                return out
+            return run
+
+        S.snapshot_with_keys = timed("snapshot_with_keys", "snapshot_s")
+        S.micro_snapshot_with_keys = timed("micro_snapshot_with_keys",
+                                           "snapshot_s")
+        S.schedule_batch = timed("schedule_batch", "dispatch_s", True)
+
+    def wrap(self, sched):
+        """Time each schedule_pending of one scheduler instance."""
+        inner = sched.schedule_pending
+
+        def schedule_pending(*a, **kw):
+            t0 = time.perf_counter()
+            out = inner(*a, **kw)
+            wave_s = time.perf_counter() - t0
+            c = self.cur
+            self.waves.append(dict(
+                snapshot_s=c["snapshot_s"], dispatch_s=c["dispatch_s"],
+                commit_s=wave_s - c["snapshot_s"] - c["dispatch_s"],
+                wave_s=wave_s))
+            self.cur = {"snapshot_s": 0.0, "dispatch_s": 0.0}
+            return out
+
+        sched.schedule_pending = schedule_pending
+        return sched
+
+    def restore(self):
+        for n, fn in self.saved.items():
+            setattr(self.S, n, fn)
+
+
+def serving_phase(device) -> dict:
+    """Phase 5 on the card: 5a the steady state at the flagship, 5b the
+    wave loop's drain and its micro wave, each against the JAX package's
+    recorded constants, 5b also against the port's own CPU run; the launch
+    counts of each, set to 0 just before it and read just after; K1 and K2
+    held against their plain versions on the first serving wave's inputs."""
+    import os
+
+    import torch
+    from kubernetes_tpu_torch.ops import kernels as K
+    from kubernetes_tpu_torch.ops import waves as W
+
+    os.environ["KTPU_OVERLOAD"] = "0"
+    api = port_serving_api(device)
+
+    print(f"[5a] steady serving cycles, {SERVING_NODES} nodes x "
+          f"{SERVING_STEADY_PODS} pods on the resident cache")
+    K.reset_launch_counts()
+    steady = serving_steady(api, SERVING_NODES, SERVING_STEADY_PODS)
+    launches_a = K.launch_counts()
+    for i, c in enumerate(steady["cycles"]):
+        print(f"  cycle {i}: {c['mode']} snapshot ({c['patch_rows']} rows) "
+              f"{c['snapshot_s']:.4f} s, dispatch {c['dispatch_s']:.4f} s, "
+              f"readback {c['readback_s']:.4f} s, host map "
+              f"{c['map_s']:.4f} s; scheduled {c['scheduled']}")
+    got = [(c["mode"], c["patch_rows"], c["scheduled"], c["sha256"])
+           for c in steady["cycles"]]
+    if got != [tuple(x) for x in JAX_STEADY]:
+        fail(f"steady serving cycles differ from the JAX package's: {got}")
+    cold, warm = steady["cycles"][0], steady["cycles"][1:]
+    print(f"    modes, rows, placements equal the JAX package's; patch "
+          f"snapshot {statistics.median(c['snapshot_s'] for c in warm):.4f} s "
+          f"against the cold full snapshot {cold['snapshot_s']:.4f} s; "
+          f"launches {launches_a}")
+    for name, n in launches_a.items():
+        if n <= 0 and device.type == "cuda":
+            fail(f"kernel {name} was not launched by the steady cycles")
+
+    print(f"[5b] wave loop: Scheduler(device='cuda', batch_size="
+          f"{SERVING_BATCH}, microwave=True), {SERVING_NODES} nodes x "
+          f"{SERVING_PODS} pods, drained by run_until_idle")
+    timer = ServingTimer(device)
+    cuda_api = port_serving_api(device)
+    make = cuda_api.scheduler
+    cuda_api.scheduler = lambda **kw: timer.wrap(make(**kw))
+    recs = [Recorder(W, "contention_scan"), Recorder(W, "domain_rank")]
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        drain = serving_drain(cuda_api, SERVING_NODES, SERVING_PODS)
+    finally:
+        timer.restore()
+        for r in recs:
+            r.restore()
+    drain_s = time.perf_counter() - t0
+    launches_b = K.launch_counts()
+    for i, (w, t) in enumerate(zip(drain["waves"], timer.waves)):
+        print(f"  wave {i:2d}: {'micro' if w['micro'] else 'bulk '} "
+              f"{w['mode']:6s} {w['patch_rows']:6d} rows; attempted "
+              f"{w['attempted']:5d} scheduled {w['scheduled']:5d} "
+              f"unschedulable {w['unschedulable']:5d}; snapshot "
+              f"{t['snapshot_s']:.4f} s, dispatch+readback "
+              f"{t['dispatch_s']:.4f} s, commit {t['commit_s']:.4f} s")
+    sched_s = sum(t["wave_s"] for t in timer.waves)
+    pods_s = drain["bound"] / sched_s
+    print(f"    {drain['bound']} pods bound in {len(drain['waves'])} waves: "
+          f"{sched_s:.3f} s in schedule_pending ({pods_s:.1f} pods/s), "
+          f"{drain_s:.3f} s with the informer events; launches {launches_b}")
+    for name, n in launches_b.items():
+        if n <= 0 and device.type == "cuda":
+            fail(f"kernel {name} was not launched by the wave loop")
+    if drain["waves"][-1]["micro"] != 1:
+        fail("the 3 fresh pods after the drain did not take a micro wave")
+    check_drain(drain, "the JAX package's", JAX_DRAIN)
+
+    t0 = time.perf_counter()
+    cpu_drain = serving_drain(port_serving_api(torch.device("cpu")),
+                              SERVING_NODES, SERVING_PODS)
+    print(f"    the port's CPU run of the drain took "
+          f"{time.perf_counter() - t0:.1f} s")
+    if cpu_drain != drain:
+        fail("the drain on the card differs from the port's CPU run")
+    print("    binder order, per-wave counts, snapshot modes and the micro "
+          "wave equal the JAX package's and the CPU run's")
+
+    a1 = recs[0].args
+    d1 = k1_diff(K.contention_scan(*a1), K.contention_scan_plain(*a1))
+    dom, nd = recs[1].args
+    d2 = k2_diff(K.domain_rank(dom, nd), K.domain_rank_plain(dom, nd))
+    sync(device)
+    print(f"  first serving wave's inputs: K1 {tuple(a1[0].shape)} "
+          f"max_abs_err={d1}; K2 {tuple(dom.shape)} D+1={nd} "
+          f"max_abs_err={d2}")
+    if d1 or d2:
+        fail("a kernel disagrees with its plain version on the first "
+             "serving wave's inputs")
+    errs = {"contention_scan": d1, "domain_rank": d2}
+    return dict(steady=steady, drain=drain, timer=timer.waves,
+                drain_s=drain_s, sched_s=sched_s, pods_s=pods_s,
+                launches_a=launches_a, launches_b=launches_b, errs=errs,
+                inputs={"contention_scan": a1, "domain_rank": (dom, nd)})
+
+
+def check_drain(drain, who: str, ref: dict) -> None:
+    waves = [(w["attempted"], w["scheduled"], w["unschedulable"], w["micro"],
+              w["mode"], w["patch_rows"]) for w in drain["waves"]]
+    if waves != [tuple(w) for w in ref["waves"]]:
+        fail(f"per-wave counts or snapshot modes differ from {who}: {waves}")
+    if (drain["bound"], drain["bound_sha256"]) != (ref["bound"],
+                                                   ref["bound_sha256"]):
+        fail(f"the binder's (pod, node) order differs from {who}")
+
+
 def main() -> int:
     import torch
 
@@ -617,9 +1003,33 @@ def main() -> int:
           f"(bound {pv_k1['bound_ms']:.6f} ms by {pv_k1['bound_by']}), "
           f"{pv_k1['launches']} launches in that cycle")
 
+    serving = serving_phase(device)
+    for r in rows:
+        name = r["name"]
+        args = serving["inputs"][name]
+        fn = K.contention_scan if name == "contention_scan" else K.domain_rank
+        r["serving"] = dict(
+            launches_steady=serving["launches_a"][name],
+            launches_drain=serving["launches_b"][name],
+            max_abs_err=serving["errs"][name],
+            ms=device_ms(lambda: fn(*args), device),
+            shape=list(args[0].shape))
+        r["max_abs_err"] = max(r["max_abs_err"], serving["errs"][name])
+    steady = serving["steady"]["cycles"]
     print(json.dumps({"kernels": rows, "cycle_ms": cycle_s * 1e3,
                       "build_s": build_s,
-                      "contention_scan_ports_volumes": pv_k1}))
+                      "contention_scan_ports_volumes": pv_k1,
+                      "serving": {
+                          "steady_full_snapshot_s": steady[0]["snapshot_s"],
+                          "steady_patch_snapshot_s": [
+                              c["snapshot_s"] for c in steady[1:]],
+                          "steady_cycles": steady,
+                          "drain_waves": [dict(w, **t) for w, t in zip(
+                              serving["drain"]["waves"], serving["timer"])],
+                          "drain_bound": serving["drain"]["bound"],
+                          "drain_sched_s": serving["sched_s"],
+                          "drain_pods_per_s": serving["pods_s"],
+                          "drain_wall_s": serving["drain_s"]}}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

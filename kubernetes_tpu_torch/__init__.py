@@ -8,9 +8,12 @@ reference: each ported part is held against it on the same encoded input.
 Layers (module names follow the JAX package's, so each has a counterpart):
   api/     — object model (copied: no JAX in it)
   state/   — vocab interning, encoding (copied), tensor schemas + the move
-             onto the device (state/arrays.py tables_to_torch)
+             onto the device (state/arrays.py tables_to_torch), the
+             scheduler cache with its resident device tensors (state/cache.py)
   ops/     — Filter masks, Score rows, the engines, the CUDA kernel wrappers
-  sched/   — the cycle driver (BatchScheduler)
+  sched/   — the batch cycle (BatchScheduler), the serving Scheduler on the
+             resident cache (state/cache.py), its queue and governor
+  component/ — the metrics registry (copied)
   models/  — the benchmark workloads (copied)
 """
 
@@ -36,3 +39,6 @@ from .api.types import (  # noqa: F401
     UnsatisfiableAction,
 )
 from .sched.cycle import BatchScheduler, CycleResult  # noqa: F401
+from .sched.queue import PriorityQueue  # noqa: F401
+from .sched.scheduler import RecordingBinder, Scheduler  # noqa: F401
+from .state.cache import SchedulerCache  # noqa: F401

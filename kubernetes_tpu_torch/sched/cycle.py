@@ -1,9 +1,11 @@
 """The scheduling-cycle driver: host objects in, placements out (port of the
-JAX package's sched/cycle.py, batch path).
+JAX package's sched/cycle.py).
 
 encode (state/encode.py) → tensors on the device (state/arrays.py
 tables_to_torch) → build_cycle → initial_state → assign_waves (or the
-sequential scan for a batch with a `spec.nodeName` pod) → node names.
+sequential scan for a batch with a `spec.nodeName` pod) → node names. The
+serving path (sched/scheduler.py) takes its tensors from the resident cache
+instead (state/cache.py, through `snapshot_with_keys`).
 
 The port has no gang engine, run-collapsed engine, extra score plugins,
 prewarmer or mesh yet: a gang batch and KTPU_ASSIGN=runs raise
@@ -27,6 +29,44 @@ from ..state.dims import Dims
 from ..state.encode import Encoder
 
 UNSCHEDULABLE_TAINT_KEY = "node.kubernetes.io/unschedulable"  # predicates.go:1522-1541
+
+
+def snapshot_with_keys(cache, encoder: Encoder, pending, base_dims,
+                       device=None):
+    """Snapshot + the interned synthetic-taint key ids every dispatch needs
+    — the single home for the UNSCHEDULABLE_TAINT_KEY interning ritual.
+    `device` is where the snapshot's tensors live (the CUDA card when
+    None)."""
+    snap = cache.snapshot(encoder, pending, base_dims,
+                          extra_intern=(UNSCHEDULABLE_TAINT_KEY,),
+                          device=device)
+    return snap, _taint_scalars(encoder)
+
+
+def micro_snapshot_with_keys(cache, encoder: Encoder, pending, base_dims,
+                             micro_p: int, device=None):
+    """Micro-wave snapshot: bring the RESIDENT cluster state current through
+    the ordinary generation-diffed snapshot — with an EMPTY pending batch,
+    so node/existing-pod deltas ride the same patch path as a bulk wave —
+    then graft a small standalone [micro_p] pending block holding just the
+    watch-delta pods (state/cache.py micro_graft). The pods are interned
+    FIRST so any registry/capacity growth they cause lands in the base
+    snapshot's dims/tables before the graft reads them (and so the vocab
+    and class ids come out in the JAX package's order)."""
+    encoder.intern_pods(pending)
+    base = cache.snapshot(encoder, [], base_dims,
+                          extra_intern=(UNSCHEDULABLE_TAINT_KEY,),
+                          device=device)
+    snap = cache.micro_graft(encoder, pending, base, micro_p, device=device)
+    return snap, _taint_scalars(encoder)
+
+
+def _taint_scalars(encoder: Encoder):
+    """The interned synthetic-taint pair every dispatch carries, as the two
+    Python ints `schedule_batch` takes."""
+    encoder.vocabs.label_vals.intern("")
+    return (encoder.vocabs.label_keys.get(UNSCHEDULABLE_TAINT_KEY),
+            encoder.vocabs.label_vals.get(""))
 
 
 def _engine() -> str:

@@ -193,18 +193,21 @@ _TUPLES = {cls.__name__: cls for cls in (
     ImageTable, ClusterTables)}
 
 
-def _to_torch(x, device: torch.device):
+def _to_torch(x, device: torch.device, copy: bool = False):
     """Recursively rebuild an encoder NamedTuple (either package's classes,
-    matched by name) as the port's NamedTuple of tensors on `device`."""
+    matched by name) as the port's NamedTuple of tensors on `device`. With
+    `copy`, every tensor owns its memory even where `.to(device)` would
+    alias the numpy array (a CPU device)."""
     if isinstance(x, tuple) and hasattr(x, "_fields"):
         cls = _TUPLES[type(x).__name__]
-        return cls(*(_to_torch(getattr(x, f), device) for f in cls._fields))
+        return cls(*(_to_torch(getattr(x, f), device, copy)
+                     for f in cls._fields))
     a = np.asarray(x)
     if a.dtype == np.uint32:
         a = a.view(np.int32)
     elif a.dtype not in (np.int32, np.bool_):
         raise TypeError(f"unexpected encoder dtype {a.dtype}")
-    return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    return torch.from_numpy(np.ascontiguousarray(a)).to(device, copy=copy)
 
 
 def tables_to_torch(
@@ -216,3 +219,28 @@ def tables_to_torch(
     device = torch.device(device)
     return (_to_torch(tables, device),
             tuple(_to_torch(p, device) for p in pods))
+
+
+def resolve_device(device) -> torch.device:
+    """The device an entry point runs on: the CUDA card unless the caller
+    names another. Raises when the card is asked for and absent — nothing
+    moves to the CPU on its own."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {device}: no CUDA device is available; pass "
+            "device='cpu' to run on the CPU")
+    if device.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {device}")
+    return device
+
+
+def to_device(x, device: torch.device):
+    """One encoder NamedTuple (ClusterTables, one of its tables, PodArrays) or
+    one numpy plane as the port's tensors on `device`, always as a COPY:
+    the serving cache keeps writing its host staging arrays in place after
+    the move, and a snapshot taken before must not see those writes (on a
+    CPU device a plain `.to(device)` would share their memory). Same dtype
+    rules as `tables_to_torch`: uint32 words become their int32 view, and
+    only int32 and bool are accepted."""
+    return _to_torch(x, device, copy=True)

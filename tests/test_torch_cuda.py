@@ -64,3 +64,18 @@ def test_cuda_port_volume_cycle_matches_cpu_cycle(cuda):
     for f in ("used", "ppa", "ppw", "ppt", "CNT", "HOLD", "vol_any", "vol_rw"):
         assert torch.equal(getattr(gpu.last_result.state, f).cpu(),
                            getattr(cpu.last_result.state, f)), f
+
+
+def test_cuda_serving_drain_matches_cpu_drain(cuda, monkeypatch):
+    """chip_smoke.py's phase-5b wave loop at 200 nodes × 3,000 pods in waves
+    of 512: the port's Scheduler on the card against the same drain on the
+    CPU — per-wave counts, snapshot modes, the binder's order, the micro
+    wave — and the resident tensors' patches (bool planes included) on the
+    card."""
+    monkeypatch.setenv("KTPU_OVERLOAD", "0")
+    cs = _chip_smoke()
+    runs = [cs.serving_drain(cs.port_serving_api(torch.device(d)), 200, 3000,
+                             batch_size=512) for d in ("cuda", "cpu")]
+    assert runs[0] == runs[1]
+    assert runs[0]["waves"][-1]["micro"] == 1
+    assert "patch" in [w["mode"] for w in runs[0]["waves"]]

@@ -37,7 +37,19 @@ Phases, each fatal on failure (exit code != 0, no result line):
      patched, per-wave counts, placements and the binder's order equal the
      JAX package's recorded constants; 5b also equals the port's CPU run.
      K1 and K2 launch in both, and equal their plain versions on the first
-     serving wave's inputs. Prints the per-cycle and per-wave split.
+     serving wave's inputs. Prints the per-cycle and per-wave split;
+  6. a preemption storm on 5b's bound pods (preempt_storm): STORM_VIPS pods
+     at priority 1000 through Scheduler(device="cuda") with a Preemptor and
+     a PodDisruptionBudget, up to STORM_WAVES waves. Per-wave counts,
+     evictions, nominations, the evicted keys and the vips' binder order
+     equal the JAX package's recorded constants; K3 launches in it and
+     equals its plain version on the first burst's inputs (and on phase 2's
+     K3 edge cases: empty and 110-pod segments, all reblocked, R = 8,
+     extreme int32). Prints each wave's split (snapshot, build_cycle,
+     what-if, K3, readback) and K3's time against its bound;
+  7. BASELINE config 5: BatchScheduler(device="cuda") on 5,000 nodes x
+     100,000 gang pods (gang_workload_pods): placements, dead groups and
+     rejection rounds equal the JAX package's; cold and warm cycle times.
 
 Prints a `kernels` JSON line, the nvidia-smi name/power line, and last
 `{"ok": true, "device": {...}}`. Imports nothing of JAX.
@@ -116,8 +128,67 @@ JAX_DRAIN = {
         "777cae914b9ee93bc2044c32534c187d86c9551f013c8bd86ba018ea87c6f568",
 }
 
+# Phase 6: the preemption storm (preempt_storm) on phase 5b's bound pods.
+STORM_VIPS, STORM_WAVES, STORM_TICK, STORM_SPREAD_SKEW = 2304, 16, 61.0, 50
+
+# Phase 6's reference results from the JAX package (JAX 0.9.0 on the CPU,
+# KTPU_OVERLOAD=0): per wave (attempted, scheduled, unschedulable, victims
+# evicted, preemptors nominated); the evicted keys in order and the vips'
+# binder (pod, node) order as counts and sha256; the last burst's PDB
+# violations and the preemption attempts. Reproduce with
+# `JAX_PLATFORMS=cpu python3 scripts/flagship_reference.py --package jax
+# --path preempt` (its "storm").
+JAX_STORM = {
+    "waves": [
+        (2304, 2134, 0, 1, 1),
+        (170, 1, 0, 1, 1),
+        (169, 1, 0, 1, 1),
+        (168, 1, 0, 1, 1),
+        (167, 1, 0, 1, 1),
+        (166, 1, 0, 1, 1),
+        (165, 1, 0, 1, 1),
+        (164, 1, 0, 1, 1),
+        (163, 1, 0, 1, 1),
+        (162, 1, 0, 1, 1),
+        (161, 1, 0, 1, 1),
+        (160, 1, 0, 1, 1),
+        (159, 1, 0, 1, 1),
+        (158, 1, 0, 1, 1),
+        (157, 1, 0, 1, 1),
+        (156, 1, 0, 1, 1),
+    ],
+    "evicted": 16,
+    "evicted_sha256":
+        "16db5391cccd1756eca763d91be525c6096f15fcbe6677dad2082e877238867e",
+    "vips_bound": 2149,
+    "vips_bound_sha256":
+        "bea87d792d4ebd84653ee1d696744e98043f90caaf3051a5dc4fb8cd55a3da6c",
+    "pdb_violations": 0,
+    "attempts": 2600,
+}
+
+# Phase 7: BASELINE config 5, gang jobs (gang_workload_pods) at 5,000 nodes,
+# and the JAX package's result on it (JAX 0.9.0 on the CPU, its host-rounds
+# route): placed count and placement sha256, the groups that placed no
+# member (count and sha256 of their sorted names) and the rejection rounds.
+# Reproduce with `JAX_PLATFORMS=cpu python3 scripts/flagship_reference.py
+# --package jax --workload gang --pods 100000`.
+GANG_NODES, GANG_PODS = 5000, 100000
+JAX_GANG = {
+    "scheduled": 46848,
+    "sha256":
+        "a055229eee4ae5a22103ab5e31d527d7edd121218fd04326a1b4106d5a8b6a8c",
+    "dead_groups": 1157,
+    "dead_sha256":
+        "7b5a5ae764f1c0ae89c6fc5ce90ed1b381634937bc1cabd4fb6a61294efaf80e",
+    "rounds": 3,
+}
+
+# the kernels every wave-engine path launches (K3 runs only in preemption)
+WAVE_KERNELS = ("contention_scan", "domain_rank")
 K1_SOURCE = "kubernetes_tpu_torch/csrc/contention_scan.cu"
 K2_SOURCE = "kubernetes_tpu_torch/csrc/domain_rank.cu"
+K3_SOURCE = "kubernetes_tpu_torch/csrc/reprieve_scan.cu"
 
 
 def fail(msg: str) -> None:
@@ -274,6 +345,107 @@ def check_kernels(device, cases_k1, cases_k2) -> dict:
         if d != 0:
             fail(f"domain_rank disagrees with its plain version ({name})")
         err["domain_rank"] = max(err["domain_rank"], d)
+    return err
+
+
+def k3_inputs(gen, device, B, N, E, R, p_vict=0.7, p_cand=0.8,
+              p_reblock=0.2, extreme=False, node_of=None):
+    """Random K3 inputs with each lane's CSR built as the port builds it
+    (ops/preempt.py reprieve_segments) from a random reprieve order:
+    potential victims first. `node_of` fixes each pod's node (N = on no
+    node); by default 1 pod in 20 is on no node. `extreme` draws requests,
+    allocatable and used from int32 edge values, so the sums wrap."""
+    import numpy as np
+    import torch
+    from kubernetes_tpu_torch.ops.preempt import reprieve_segments
+
+    def ints(*shape, lo, hi):
+        return torch.randint(lo, hi, shape, generator=gen,
+                             dtype=torch.int64).to(torch.int32)
+
+    def flags(*shape, p):
+        return torch.rand(shape, generator=gen) < p
+
+    if extreme:
+        edge = torch.tensor([0, 1, -1, 2**31 - 1, -(2**31), 2**30, 7],
+                            dtype=torch.int32)
+        pick = lambda *s: edge[torch.randint(0, len(edge), s, generator=gen)]
+        req_e, req_p, alloc, used = pick(E, R), pick(B, R), pick(N, R), \
+            pick(B, N, R)
+    else:
+        req_e = ints(E, R, lo=0, hi=1500)
+        req_e[:, 3] = 1
+        req_p = ints(B, R, lo=0, hi=3000)
+        req_p[:, 3] = 1
+        if R > 4:   # zero scalar requests, which the fit test ignores
+            req_p[:, 4:] *= flags(B, R - 4, p=0.5)
+        alloc = ints(N, R, lo=2000, hi=6000)
+        alloc[:, 3] = 110
+        used = (alloc.float() * torch.rand((B, N, R), generator=gen)
+                ).to(torch.int32)
+    if node_of is None:
+        node_of = ints(E, lo=0, hi=N)
+        node_of[flags(E, p=0.05)] = N
+    vict_pot = flags(B, E, p=p_vict) & (node_of < N)[None]
+    prio = ints(E, lo=0, hi=5)
+    order = torch.stack([torch.from_numpy(np.lexsort((
+        np.arange(E), -prio.numpy(), ~vict_pot[b].numpy()))) for b in range(B)])
+    seg_ptr, seg_e = reprieve_segments(order, node_of, N)
+    args = (req_e, req_p, alloc, used, flags(B, N, p=0.1), flags(B, N, p=p_cand),
+            vict_pot, flags(B, E, p=0.1), flags(B, E, p=p_reblock), seg_ptr,
+            seg_e)
+    return tuple(t.to(device).contiguous() for t in args)
+
+
+def k3_edge_cases(device, seed: int = 0):
+    """K3's cases: the storm's widths (8 lanes, 5,000 nodes, 50,000 pods),
+    mostly empty segments, 110-pod segments (a node's pod cap), every pod
+    reblocked, R = 8 with zero scalar requests, extreme int32 requests, one
+    lane of one node."""
+    import torch
+
+    gen = torch.Generator().manual_seed(seed)
+    full = torch.arange(440, dtype=torch.int32) // 110
+    return [
+        ("storm widths B=8 N=5000 E=50000 R=4",
+         k3_inputs(gen, device, 8, 5000, 50000, 4)),
+        ("empty segments B=3 N=4096 E=300",
+         k3_inputs(gen, device, 3, 4096, 300, 4)),
+        ("110-pod segments B=8 N=4 E=440, all potential victims",
+         k3_inputs(gen, device, 8, 4, 440, 4, p_vict=1.0, p_cand=1.0,
+                   p_reblock=0.0, node_of=full)),
+        ("all reblocked B=4 N=50 E=2000",
+         k3_inputs(gen, device, 4, 50, 2000, 5, p_reblock=1.0)),
+        ("R=8 with zero scalar requests B=8 N=333 E=5000",
+         k3_inputs(gen, device, 8, 333, 5000, 8)),
+        ("extreme int32 B=5 N=129 E=3000 R=6",
+         k3_inputs(gen, device, 5, 129, 3000, 6, extreme=True)),
+        ("B=1 N=1 E=1", k3_inputs(gen, device, 1, 1, 1, 4)),
+    ]
+
+
+def k3_diff(a, b) -> int:
+    import torch
+
+    if a.shape != b.shape:
+        fail(f"K3 output shape {tuple(a.shape)} != {tuple(b.shape)}")
+    return int((a.to(torch.int64) - b.to(torch.int64)).abs().max()) \
+        if a.numel() else 0
+
+
+def check_k3(device, cases) -> int:
+    """K3 against its plain version on the card, exactly. Returns the max
+    abs error."""
+    from kubernetes_tpu_torch.ops import kernels as K
+
+    err = 0
+    for name, args in cases:
+        d = k3_diff(K.reprieve_scan(*args), K.reprieve_scan_plain(*args))
+        sync(device)
+        print(f"  K3 {name}: max_abs_err={d}")
+        if d != 0:
+            fail(f"reprieve_scan disagrees with its plain version ({name})")
+        err = max(err, d)
     return err
 
 
@@ -446,7 +618,8 @@ def port_serving_api(device):
             cache, enc, pods, base, device=device),
         dispatch=dispatch,
         readback=lambda node: node.cpu().tolist(),
-        scheduler=lambda **kw: ktt.Scheduler(device=device, **kw))
+        scheduler=lambda **kw: ktt.Scheduler(device=device, **kw),
+        preemptor=ktt.Preemptor)
 
 
 def bound_sha256(bound) -> str:
@@ -501,9 +674,16 @@ def serving_steady(api, n_nodes: int, n_pods: int, cycles: int = 2) -> dict:
     return {"cycles": out}
 
 
+def fresh_pods(T, n_pods: int) -> list:
+    """The 3 fresh single pods that arrive after phase 5b's drain."""
+    return [T.Pod(name=f"fresh-{i}", labels={"app": "fresh"},
+                  requests=T.Resources.make(cpu="100m", memory="128Mi"),
+                  creation_index=n_pods + i) for i in range(3)]
+
+
 def serving_drain(api, n_nodes: int, n_pods: int,
                   batch_size: int = SERVING_BATCH,
-                  on_wave=None) -> dict:
+                  on_wave=None, keep_bound=None) -> dict:
     """Phase 5b: the wave loop. A Scheduler(RecordingBinder, batch_size,
     microwave=True) on a still clock over make_nodes(n_nodes), with
     base_dims sized to the drain (N, P = batch_size, E = n_pods) and a
@@ -515,7 +695,8 @@ def serving_drain(api, n_nodes: int, n_pods: int,
     backoff queue (the clock does not move), so the drain ends when the
     active queue is empty. Then 3 fresh single pods arrive: the next
     schedule_pending must be a micro wave. `on_wave(i)` is called after each
-    wave's run (chip_smoke.py reads its timings there)."""
+    wave's run (chip_smoke.py reads its timings there). The binder's
+    (pod key, node) list is appended to `keep_bound` when one is given."""
     import dataclasses
 
     T = api.types
@@ -551,12 +732,11 @@ def serving_drain(api, n_nodes: int, n_pods: int,
         s.on_node_update(nodes[w % n_nodes])
         if s.queue.lengths()[0] == 0:
             break
-    for i in range(3):
-        s.on_pod_add(T.Pod(name=f"fresh-{i}", labels={"app": "fresh"},
-                           requests=T.Resources.make(cpu="100m",
-                                                     memory="128Mi"),
-                           creation_index=n_pods + i))
+    for p in fresh_pods(T, n_pods):
+        s.on_pod_add(p)
     note(s.schedule_pending())
+    if keep_bound is not None:
+        keep_bound.extend(binder.bound)
     return {"waves": waves, "bound": len(binder.bound),
             "bound_sha256": bound_sha256(binder.bound),
             "counts": list(s.cache.counts()),
@@ -564,22 +744,142 @@ def serving_drain(api, n_nodes: int, n_pods: int,
 
 
 # --------------------------------------------------------------------------- #
+# phase 6: a preemption storm, phase 7: gang jobs (shared with
+# scripts/flagship_reference.py)
+# --------------------------------------------------------------------------- #
+
+def storm_vips(T, W, first_index: int, count: int = None) -> list:
+    """`count` (STORM_VIPS) pods at priority 1000, each requesting 31 cpu
+    and 8Gi: a node of make_nodes (32 cpu) fits one only while it runs at
+    most 1 cpu of requests. Phase 5b's drain leaves fewer such nodes than
+    STORM_VIPS, so the first wave fills them and the rest of the vips must
+    preempt. Every second carries hostname anti-affinity to app-1
+    (restoring an app-1 victim would re-block it); every fourth carries
+    app-3's label and a hard zone spread over app-3 (restoring an app-3
+    victim would re-block it); the rest are plain."""
+    vips = []
+    for i in range(STORM_VIPS if count is None else count):
+        app = "app-3" if i % 4 == 0 else "vip"
+        anti, spread = (), ()
+        if i % 2 == 0:
+            anti = (T.PodAffinityTerm(
+                selector=T.LabelSelector.of(match_labels={"app": "app-1"}),
+                topology_key=W.HOSTNAME),)
+        if i % 4 == 0:
+            spread = (T.TopologySpreadConstraint(
+                max_skew=STORM_SPREAD_SKEW, topology_key=W.ZONE,
+                when_unsatisfiable=T.UnsatisfiableAction.DO_NOT_SCHEDULE,
+                selector=T.LabelSelector.of(match_labels={"app": "app-3"})),)
+        vips.append(T.Pod(
+            name=f"vip-{i}", labels={"app": app},
+            requests=T.Resources.make(cpu="31", memory="8Gi"),
+            affinity=T.Affinity(anti_required=anti), topology_spread=spread,
+            priority=1000, creation_index=first_index + i))
+    return vips
+
+
+def preempt_storm(api, n_nodes: int, bound, n_pods: int = SERVING_PODS,
+                  vips: int = STORM_VIPS, waves: int = STORM_WAVES,
+                  batch_size: int = SERVING_BATCH, on_wave=None) -> dict:
+    """Phase 6: a Scheduler(preemptor=Preemptor(pdb_source), batch_size)
+    on a clock that moves STORM_TICK seconds after every wave (past the
+    backoff and the unschedulable flush), base Dims(N=n_nodes, P=batch_size,
+    E=n_pods), over make_nodes(n_nodes) holding `bound` — phase 5b's binder
+    list of (pod key, node), the flagship and fresh pods added with
+    node_name set. One PodDisruptionBudget with no disruptions left covers
+    app-0. `vips` vips arrive (storm_vips); waves run until every vip is
+    bound or `waves` waves have run, each wave's bindings
+    confirmed through on_pod_add. Per wave: attempted, scheduled,
+    unschedulable, victims evicted and preemptors nominated; then the
+    evicted keys in order and the binder's (vip, node) order, as counts and
+    sha256. `on_wave(i)` is called after each wave."""
+    import dataclasses
+
+    T, W = api.types, api.workloads
+    nodes = W.make_nodes(n_nodes)
+    by_key = {p.key: p for p in W.flagship_pods(n_pods) + fresh_pods(T, n_pods)}
+    pdbs = [("default", T.LabelSelector.of(match_labels={"app": "app-0"}), 0)]
+    pre = api.preemptor(pdb_source=lambda: pdbs)
+    binder = api.RecordingBinder()
+    clock = FakeClock()
+    s = api.scheduler(binder=binder, batch_size=batch_size, clock=clock,
+                      preemptor=pre,
+                      base_dims=api.Dims(N=n_nodes, P=batch_size, E=n_pods))
+    if s.governor is not None:
+        fail("phase 6 runs with KTPU_OVERLOAD=0 (the overload governor off)")
+    for n in nodes:
+        s.on_node_add(n)
+    for key, node in bound:
+        s.on_pod_add(dataclasses.replace(by_key[key], node_name=node))
+    vip_pods = storm_vips(T, W, n_pods + 3, vips)
+    vip_by_key = {v.key: v for v in vip_pods}
+    for v in vip_pods:
+        s.on_pod_add(v)
+    out = []
+    for w in range(waves):
+        first, ev0, ok0 = len(binder.bound), len(pre.evictor.evicted), \
+            pre.successes
+        st = s.schedule_pending()
+        out.append(dict(attempted=st.attempted, scheduled=st.scheduled,
+                          unschedulable=st.unschedulable,
+                          evicted=len(pre.evictor.evicted) - ev0,
+                          nominated=pre.successes - ok0))
+        if on_wave is not None:
+            on_wave(w)
+        for key, node in binder.bound[first:]:
+            s.on_pod_add(dataclasses.replace(vip_by_key[key], node_name=node))
+        clock.t += STORM_TICK
+        if len(binder.bound) == len(vip_pods):
+            break
+    return {"waves": out, "evicted": len(pre.evictor.evicted),
+            "evicted_sha256": hashlib.sha256(
+                "\n".join(pre.evictor.evicted).encode()).hexdigest(),
+            "vips_bound": len(binder.bound),
+            "vips_bound_sha256": bound_sha256(binder.bound),
+            "pdb_violations": pre.last_pdb_violations,
+            "attempts": pre.attempts}
+
+
+def gang_summary(pods, assignments) -> dict:
+    """Phase 7's result: placed count, placement sha256, and the gang
+    groups that placed no member (the dead groups: every group here needs
+    its full size, none has a member bound before the cycle)."""
+    placed = {}
+    for p, a in zip(pods, assignments):
+        placed[p.pod_group] = placed.get(p.pod_group, 0) + (a is not None)
+    dead = sorted(g for g, n in placed.items() if n == 0)
+    return {"scheduled": sum(a is not None for a in assignments),
+            "sha256": assignments_sha256(assignments),
+            "dead_groups": len(dead),
+            "dead_sha256": hashlib.sha256("\n".join(dead).encode()).hexdigest()}
+
+
+# --------------------------------------------------------------------------- #
 # running a cycle
 # --------------------------------------------------------------------------- #
 
-class Recorder:
-    """Keeps a copy of the first call's inputs of a kernel wrapper while the
-    main path runs (the shapes and data the cycle really gives it)."""
+def most_rows(args) -> int:
+    """A Recorder key: the first input's leading size (K1's classes, K2's
+    rows)."""
+    return args[0].shape[0]
 
-    def __init__(self, module, name):
+
+class Recorder:
+    """Keeps a copy of a kernel wrapper's inputs while the main path runs
+    (the shapes and data the cycle really gives it): the first call's, or
+    with `key` the call's whose key(args) is largest (the first of those)."""
+
+    def __init__(self, module, name, key=None):
         self.module, self.name = module, name
         self.fn = getattr(module, name)
-        self.args = None
+        self.args, self.best = None, None
 
         def rec(*args):
-            if self.args is None:
+            k = None if key is None else key(args)
+            if self.args is None or (k is not None and k > self.best):
                 self.args = tuple(a.clone() if hasattr(a, "clone") else a
                                   for a in args)
+                self.best = k
             return self.fn(*args)
 
         setattr(module, name, rec)
@@ -618,8 +918,8 @@ def run_cycle(device, nodes, pods, warm_runs=3, reference_device=None):
     print(f"  first cycle {first_s:.3f} s; scheduled={res.scheduled} "
           f"failed={res.failed}; launches={launches}")
     if device.type == "cuda":
-        for name, n in launches.items():
-            if n <= 0:
+        for name in WAVE_KERNELS:
+            if launches[name] <= 0:
                 fail(f"kernel {name} was not launched by the cycle")
 
     times = []
@@ -859,7 +1159,7 @@ def serving_phase(device) -> dict:
           f"against the cold full snapshot {cold['snapshot_s']:.4f} s; "
           f"launches {launches_a}")
     for name, n in launches_a.items():
-        if n <= 0 and device.type == "cuda":
+        if n <= 0 and device.type == "cuda" and name in WAVE_KERNELS:
             fail(f"kernel {name} was not launched by the steady cycles")
 
     print(f"[5b] wave loop: Scheduler(device='cuda', batch_size="
@@ -870,10 +1170,12 @@ def serving_phase(device) -> dict:
     make = cuda_api.scheduler
     cuda_api.scheduler = lambda **kw: timer.wrap(make(**kw))
     recs = [Recorder(W, "contention_scan"), Recorder(W, "domain_rank")]
+    bound = []
     K.reset_launch_counts()
     t0 = time.perf_counter()
     try:
-        drain = serving_drain(cuda_api, SERVING_NODES, SERVING_PODS)
+        drain = serving_drain(cuda_api, SERVING_NODES, SERVING_PODS,
+                              keep_bound=bound)
     finally:
         timer.restore()
         for r in recs:
@@ -893,7 +1195,7 @@ def serving_phase(device) -> dict:
           f"{sched_s:.3f} s in schedule_pending ({pods_s:.1f} pods/s), "
           f"{drain_s:.3f} s with the informer events; launches {launches_b}")
     for name, n in launches_b.items():
-        if n <= 0 and device.type == "cuda":
+        if n <= 0 and device.type == "cuda" and name in WAVE_KERNELS:
             fail(f"kernel {name} was not launched by the wave loop")
     if drain["waves"][-1]["micro"] != 1:
         fail("the 3 fresh pods after the drain did not take a micro wave")
@@ -921,10 +1223,337 @@ def serving_phase(device) -> dict:
         fail("a kernel disagrees with its plain version on the first "
              "serving wave's inputs")
     errs = {"contention_scan": d1, "domain_rank": d2}
-    return dict(steady=steady, drain=drain, timer=timer.waves,
+    return dict(steady=steady, drain=drain, timer=timer.waves, bound=bound,
                 drain_s=drain_s, sched_s=sched_s, pods_s=pods_s,
                 launches_a=launches_a, launches_b=launches_b, errs=errs,
                 inputs={"contention_scan": a1, "domain_rank": (dom, nd)})
+
+
+class PreemptTimer:
+    """Timers around the port's preemption pass for phase 6. Per wave: the
+    whole schedule_pending and the preemption pass's fresh snapshot, on the
+    host clock, with no synchronize added. With `split`, also per burst
+    (one dispatch of PREEMPT_BURST lanes): build_cycle, preempt_batch (the
+    what-if, K3 and the node choice) and K3 alone, each started and ended
+    by a synchronize, and the readback of the result; those synchronizes
+    lie inside the timed schedule_pending, so a split run's wave times are
+    not the storm's. Installed by patching the names the modules call;
+    `restore()` puts them back."""
+
+    KEYS = {"build_cycle": "build_cycle_s", "preempt_batch": "batch_s",
+            "_readback": "readback_s", "reprieve_scan": "k3_s"}
+
+    def __init__(self, device, split: bool):
+        from kubernetes_tpu_torch.ops import preempt as OP
+        from kubernetes_tpu_torch.sched import preemption as P
+
+        self.device = device
+        self.saved = [(m, n, getattr(m, n)) for m, n in (
+            (P, "build_cycle"), (P, "preempt_batch"), (P, "_readback"),
+            (OP, "reprieve_scan"))] if split else []
+        self.bursts, self.waves = [], []
+        for m, n, fn in self.saved:
+            setattr(m, n, self._timed(fn, self.KEYS[n], n != "_readback"))
+
+    def _timed(self, fn, key, synced):
+        def run(*a, **kw):
+            if key == "build_cycle_s":   # a burst starts with its lattice
+                self.bursts.append(dict(wave=len(self.waves), build_cycle_s=0.0,
+                                        batch_s=0.0, k3_s=0.0,
+                                        readback_s=0.0))
+            if synced:
+                sync(self.device)
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            if synced:
+                sync(self.device)
+            self.bursts[-1][key] += time.perf_counter() - t0
+            return out
+        return run
+
+    def wrap(self, sched):
+        """Time each schedule_pending and preemption snapshot of one
+        scheduler instance."""
+        inner, snap = sched.schedule_pending, sched._preempt_snapshot
+
+        def preempt_snapshot(*a, **kw):
+            t0 = time.perf_counter()
+            out = snap(*a, **kw)
+            self.waves[-1]["snapshot_s"] += time.perf_counter() - t0
+            return out
+
+        def schedule_pending(*a, **kw):
+            self.waves.append(dict(snapshot_s=0.0, wave_s=0.0))
+            t0 = time.perf_counter()
+            out = inner(*a, **kw)
+            self.waves[-1]["wave_s"] = time.perf_counter() - t0
+            return out
+
+        sched._preempt_snapshot = preempt_snapshot
+        sched.schedule_pending = schedule_pending
+        return sched
+
+    def restore(self):
+        for m, n, fn in reversed(self.saved):
+            setattr(m, n, fn)
+
+
+def k3_bound(args, out) -> tuple:
+    """(bound_ms, bound_by) for K3, counted over what this run's walks read
+    (csrc/reprieve_scan.cu's header): cand [B, N] for every thread; per
+    candidate node its alloc row and two seg_ptr entries; per walk of a
+    non-empty candidate segment its used_wo row and conflict_wo byte; per
+    step its seg_e entry and vict_pot flag; per potential-victim step its
+    c_e and reblock flags and, once over all lanes, the pod's req_e row;
+    req_p; the victim mask [B, E] written once. Pods on no node and the
+    segments of non-candidate nodes are never read. Operations: about
+    3R + 10 per potential-victim step and 2 per other step."""
+    import torch
+
+    (_req_e, _req_p, _alloc, used_wo, _conf, cand, vict_pot, _c_e, _rb,
+     seg_ptr, seg_e) = args
+    B, N, R = used_wo.shape
+    E = seg_e.shape[1]
+    ptr = seg_ptr.long()
+    seglen = ptr[1:] - ptr[:-1]
+    on = int(ptr[N])     # positions [0, on) of each lane's seg_e are on a node
+    node_at = torch.repeat_interleave(
+        torch.arange(N, device=seg_e.device), seglen)
+    walked = cand[:, node_at]                                   # [B, on]
+    e = seg_e[:, :on].long()
+    vstep = walked & torch.gather(vict_pot, 1, e)
+    rows = torch.zeros(E, dtype=torch.bool, device=seg_e.device)
+    rows[e[vstep]] = True
+    walks = int((cand & (seglen > 0)[None]).sum())
+    nodes = int(cand.any(0).sum())
+    steps, vsteps = int(walked.sum()), int(vstep.sum())
+    b = (B * N + nodes * (4 * R + 8) + walks * (4 * R + 1) + steps * 5
+         + vsteps * 2 + int(rows.sum()) * 4 * R + B * 4 * R + out.numel())
+    ops = vsteps * (3 * R + 10) + (steps - vsteps) * 2
+    t_b, t_o = b / HBM_BYTES_PER_S, ops / CUDA_CORE_OPS_PER_S
+    print(f"  K3's bound counts {walks} walks over {steps} steps "
+          f"({vsteps} at potential victims, {int(rows.sum())} distinct "
+          f"pods' request rows): {b} bytes, {ops} operations")
+    return (max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations")
+
+
+def nodes_with_room(bound, n_pods: int = SERVING_PODS) -> tuple:
+    """(nodes holding no pod, nodes holding at most 1 cpu of requests)
+    among make_nodes(SERVING_NODES) with `bound` (phase 5b's binder list)
+    on them."""
+    from kubernetes_tpu_torch.api import types as T
+    from kubernetes_tpu_torch.models.workloads import flagship_pods
+
+    cpu = {p.key: p.requests.milli_cpu
+           for p in flagship_pods(n_pods) + fresh_pods(T, n_pods)}
+    used = {}
+    for key, node in bound:
+        used[node] = used.get(node, 0) + cpu[key]
+    return (SERVING_NODES - len(used),
+            SERVING_NODES - len(used) + sum(v <= 1000 for v in used.values()))
+
+
+def run_storm(device, bound, split: bool, recs=()) -> tuple:
+    """One preempt_storm through Scheduler(device) under a PreemptTimer;
+    the Recorders in `recs` are restored after it. Returns (storm, timer,
+    seconds with the informer events, launch counts of the run)."""
+    from kubernetes_tpu_torch.ops import kernels as K
+
+    timer = PreemptTimer(device, split)
+    api = port_serving_api(device)
+    make = api.scheduler
+    api.scheduler = lambda **kw: timer.wrap(make(**kw))
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        storm = preempt_storm(api, SERVING_NODES, bound)
+    finally:
+        timer.restore()
+        for r in recs:
+            r.restore()
+    return storm, timer, time.perf_counter() - t0, K.launch_counts()
+
+
+def preempt_phase(device, bound) -> dict:
+    """Phase 6 on the card: preempt_storm through Scheduler(device="cuda")
+    with a Preemptor, against the JAX package's recorded constants, timed
+    per wave with no synchronize added; the launches of K1, K2 and K3 in
+    it (counts set to 0 just before, read just after), each held against
+    its plain version (K1 and K2 on their launch with the most classes or
+    rows, K3 on its first) and K3 timed there.
+    Then a second storm with the per-burst split timers (PreemptTimer
+    split=True), which must give the same result."""
+    import os
+
+    from kubernetes_tpu_torch.ops import kernels as K
+    from kubernetes_tpu_torch.ops import preempt as OP
+    from kubernetes_tpu_torch.ops import waves as W
+
+    os.environ["KTPU_OVERLOAD"] = "0"
+    idle, fit = nodes_with_room(bound)
+    print(f"    after phase 5b, {idle} of {SERVING_NODES} nodes run no pod and "
+          f"{fit} run at most 1 cpu of requests (room for one vip)")
+    recs = [Recorder(W, "contention_scan", most_rows),
+            Recorder(W, "domain_rank", most_rows),
+            Recorder(OP, "reprieve_scan")]
+    storm, timer, storm_s, launches = run_storm(device, bound, False, recs)
+    if device.type == "cuda":
+        for name in WAVE_KERNELS + ("reprieve_scan",):
+            if launches[name] <= 0:
+                fail(f"kernel {name} was not launched by the storm")
+    got = dict(storm, waves=[tuple(w.values()) for w in storm["waves"]])
+    want = dict(JAX_STORM, waves=[tuple(w) for w in JAX_STORM["waves"]])
+    if got != want:
+        bad = [k for k in want if got.get(k) != want[k]]
+        fail(f"the storm differs from the JAX package's in {bad}: {got}")
+    print("    per-wave counts, evictions, nominations, the evicted keys and "
+          "the vips' binder order equal the JAX package's")
+    wave_s = [t["wave_s"] for t in timer.waves]
+    sched_s = sum(wave_s)
+    vips_s = storm["vips_bound"] / sched_s
+    first = storm["waves"][0]["scheduled"]
+    later = storm["vips_bound"] - first
+    first_s, later_s = first / wave_s[0], later / sum(wave_s[1:])
+    print(f"    {storm['vips_bound']} of {STORM_VIPS} vips bound in "
+          f"{len(storm['waves'])} waves, {storm['evicted']} victims evicted; "
+          f"{sched_s:.3f} s in schedule_pending ({vips_s:.1f} vips/s), "
+          f"{storm_s:.3f} s with the informer events; launches {launches}")
+    print(f"    wave 0 binds {first} vips that fit without an eviction in "
+          f"{wave_s[0]:.3f} s ({first_s:.1f} vips/s); waves 1-"
+          f"{len(wave_s) - 1} bind {later} vips, each nominated by the "
+          f"previous wave's preemption pass, in {sum(wave_s[1:]):.3f} s "
+          f"({later_s:.2f} vips/s)")
+
+    errs = {}
+    for r, diff in zip(recs[:2], (k1_diff, k2_diff)):
+        plain = getattr(K, r.name + "_plain")
+        errs[r.name] = diff(getattr(K, r.name)(*r.args), plain(*r.args))
+    a3 = recs[2].args
+    out3 = K.reprieve_scan(*a3)
+    errs["reprieve_scan"] = k3_diff(out3, K.reprieve_scan_plain(*a3))
+    sync(device)
+    B, N, R = a3[3].shape
+    print(f"  the storm's widest K1 and K2 launches and its first K3 launch: "
+          f"K1 {tuple(recs[0].args[0].shape)} "
+          f"max_abs_err={errs['contention_scan']}; K2 "
+          f"{tuple(recs[1].args[0].shape)} D+1={recs[1].args[1]} "
+          f"max_abs_err={errs['domain_rank']}; K3 B={B} N={N} "
+          f"E={a3[0].shape[0]} R={R}, {int(out3.sum())} victims, "
+          f"max_abs_err={errs['reprieve_scan']}")
+    if any(errs.values()):
+        fail("a kernel disagrees with its plain version on the storm's "
+             "inputs")
+    b3, by3 = k3_bound(a3, out3)
+    row = dict(name="reprieve_scan", route="cuda", source=K3_SOURCE,
+               replaces="kubernetes_tpu/ops/preempt.py:183",
+               launches=launches["reprieve_scan"],
+               max_abs_err=errs["reprieve_scan"],
+               ms=device_ms(lambda: K.reprieve_scan(*a3), device),
+               call_ms=time_ms(lambda: K.reprieve_scan(*a3), device),
+               plain_ms=time_ms(lambda: K.reprieve_scan_plain(*a3), device,
+                                reps=3),
+               bound_ms=b3, bound_by=by3, library_ms=None)
+    print(f"  reprieve_scan: {row['ms']:.4f} ms on the device, "
+          f"{row['call_ms']:.4f} ms per call (plain {row['plain_ms']:.4f} ms,"
+          f" bound {row['bound_ms']:.6f} ms by {row['bound_by']}), "
+          f"{row['launches']} launches in the storm")
+
+    print("  the same storm again with the per-burst split timers")
+    again, split, _, _ = run_storm(device, bound, True)
+    if again != storm:
+        fail("the storm with the split timers differs from the first run")
+    for i, (w, t) in enumerate(zip(storm["waves"], split.waves)):
+        bs = [b for b in split.bursts if b["wave"] == i + 1]
+        tot = {k: sum(b[k] for b in bs) for k in (
+            "build_cycle_s", "batch_s", "k3_s", "readback_s")}
+        print(f"  wave {i:2d}: attempted {w['attempted']:4d} scheduled "
+              f"{w['scheduled']:4d} unschedulable {w['unschedulable']:3d} "
+              f"evicted {w['evicted']:3d} nominated {w['nominated']:2d}; "
+              f"wave {wave_s[i]:.3f} s ({t['wave_s']:.3f} s split), "
+              f"preemption snapshot {t['snapshot_s']:.4f} s, {len(bs)} "
+              f"bursts: build_cycle {tot['build_cycle_s']:.4f} s, what-if "
+              f"{tot['batch_s'] - tot['k3_s']:.4f} s, K3 {tot['k3_s']:.4f} s,"
+              f" readback {tot['readback_s']:.4f} s")
+    for b in split.bursts[:3]:
+        print(f"    a burst of wave {b['wave'] - 1}: build_cycle "
+              f"{b['build_cycle_s']:.4f} s, what-if "
+              f"{b['batch_s'] - b['k3_s']:.4f} s, K3 {b['k3_s']:.4f} s, "
+              f"readback {b['readback_s']:.4f} s")
+    return dict(storm=storm, waves=timer.waves, split_waves=split.waves,
+                bursts=split.bursts, sched_s=sched_s, vips_per_s=vips_s,
+                wave0_vips_per_s=first_s, later_vips_per_s=later_s,
+                storm_s=storm_s, launches=launches, errs=errs, row=row,
+                idle_nodes=idle, room_nodes=fit)
+
+
+def gang_phase(device) -> dict:
+    """Phase 7 on the card: BatchScheduler(device="cuda") on BASELINE config
+    5 (make_nodes(GANG_NODES) x gang_workload_pods(GANG_PODS)), a cold and a
+    warm run; the placements, dead groups and rejection rounds against the
+    JAX package's recorded ones; K1/K2 launches of the cold run (K1 must
+    launch; K2 has no domain quota to rank on this workload); K1 held
+    against its plain version on the inputs of the cold run's launch with
+    the most classes."""
+    from kubernetes_tpu_torch import BatchScheduler
+    from kubernetes_tpu_torch.models.workloads import (gang_workload_pods,
+                                                       make_nodes)
+    from kubernetes_tpu_torch.ops import gang as G
+    from kubernetes_tpu_torch.ops import kernels as K
+    from kubernetes_tpu_torch.ops import waves as W
+
+    nodes, pods = make_nodes(GANG_NODES), gang_workload_pods(GANG_PODS)
+    rounds, fn = [0], G.assign_waves
+
+    def counted(*a, **kw):
+        rounds[0] += 1
+        return fn(*a, **kw)
+
+    sched = BatchScheduler(device=device)
+    G.assign_waves = counted
+    rec = Recorder(W, "contention_scan", most_rows)
+    K.reset_launch_counts()
+    try:
+        t0 = time.perf_counter()
+        res = sched.schedule(nodes, [], pods)
+        sync(device)
+        cold_s = time.perf_counter() - t0
+        launches = K.launch_counts()
+        n_rounds = rounds[0]
+        rec.restore()
+        t0 = time.perf_counter()
+        warm = sched.schedule(nodes, [], pods)
+        sync(device)
+        warm_s = time.perf_counter() - t0
+    finally:
+        G.assign_waves = fn
+        rec.restore()
+    if warm.assignments != res.assignments:
+        fail("the warm gang cycle's placements differ from the cold one's")
+    got = dict(gang_summary(pods, res.assignments), rounds=n_rounds)
+    print(f"    scheduled {got['scheduled']} of {GANG_PODS}, "
+          f"{got['dead_groups']} dead groups, {n_rounds} rounds; cycle "
+          f"{cold_s:.3f} s cold, {warm_s:.3f} s warm; launches {launches}")
+    # the jobs carry no spread or anti-affinity terms, so the wave engine
+    # has no domain quota to rank (K2): only K1 is on this path
+    if device.type == "cuda" and launches["contention_scan"] <= 0:
+        fail("kernel contention_scan was not launched by the gang cycle")
+    if got != JAX_GANG:
+        bad = [k for k in JAX_GANG if got.get(k) != JAX_GANG[k]]
+        fail(f"the gang cycle differs from the JAX package's in {bad}: {got}")
+    print("    placements (sha256), placed count, dead groups and rounds "
+          "equal the JAX package's")
+    a1 = rec.args
+    t0 = time.perf_counter()
+    d1 = k1_diff(K.contention_scan(*a1), K.contention_scan_plain(*a1))
+    sync(device)
+    print(f"  the gang cycle's K1 launch with the most classes: "
+          f"{tuple(a1[0].shape)} "
+          f"max_abs_err={d1} (plain version {time.perf_counter() - t0:.1f} s)")
+    if d1 != 0:
+        fail("contention_scan disagrees with its plain version on the gang "
+             "cycle's inputs")
+    return dict(got, cold_s=cold_s, warm_s=warm_s, launches=launches,
+                errs={"contention_scan": d1})
 
 
 def check_drain(drain, who: str, ref: dict) -> None:
@@ -961,6 +1590,7 @@ def main() -> int:
 
     print("[2] kernels against their plain versions on the card")
     errs = check_kernels(device, *edge_cases(device))
+    errs["reprieve_scan"] = check_k3(device, k3_edge_cases(device))
 
     print("[3] flagship cycle, 5000 nodes x 50000 pods, BatchScheduler(cuda)")
     from kubernetes_tpu_torch.models.workloads import flagship_pods, make_nodes
@@ -1015,6 +1645,27 @@ def main() -> int:
             ms=device_ms(lambda: fn(*args), device),
             shape=list(args[0].shape))
         r["max_abs_err"] = max(r["max_abs_err"], serving["errs"][name])
+    print(f"[6] preemption storm: Scheduler(device='cuda', batch_size="
+          f"{SERVING_BATCH}, preemptor=Preemptor(pdb_source)), "
+          f"{SERVING_NODES} nodes holding phase 5b's {len(serving['bound'])} "
+          f"pods, {STORM_VIPS} vips at priority 1000")
+    storm = preempt_phase(device, serving["bound"])
+    k3 = storm["row"]
+    k3["max_abs_err"] = max(k3["max_abs_err"], errs["reprieve_scan"])
+    rows.append(k3)
+
+    print(f"[7] gang jobs (BASELINE config 5): {GANG_NODES} nodes x "
+          f"{GANG_PODS} pods, BatchScheduler(cuda)")
+    gang = gang_phase(device)
+    for r in rows[:2]:
+        name = r["name"]
+        r["preempt"] = dict(launches=storm["launches"][name],
+                            max_abs_err=storm["errs"][name])
+        r["gang"] = dict(launches=gang["launches"][name],
+                         max_abs_err=gang["errs"].get(name))
+        r["max_abs_err"] = max(r["max_abs_err"], storm["errs"][name],
+                               gang["errs"].get(name, 0))
+
     steady = serving["steady"]["cycles"]
     print(json.dumps({"kernels": rows, "cycle_ms": cycle_s * 1e3,
                       "build_s": build_s,
@@ -1029,7 +1680,22 @@ def main() -> int:
                           "drain_bound": serving["drain"]["bound"],
                           "drain_sched_s": serving["sched_s"],
                           "drain_pods_per_s": serving["pods_s"],
-                          "drain_wall_s": serving["drain_s"]}}))
+                          "drain_wall_s": serving["drain_s"]},
+                      "preempt": {
+                          "waves": [dict(w, **t) for w, t in zip(
+                              storm["storm"]["waves"], storm["waves"])],
+                          "bursts": len(storm["bursts"]),
+                          "idle_nodes": storm["idle_nodes"],
+                          "room_nodes": storm["room_nodes"],
+                          "vips_bound": storm["storm"]["vips_bound"],
+                          "evicted": storm["storm"]["evicted"],
+                          "split_waves": storm["split_waves"],
+                          "sched_s": storm["sched_s"],
+                          "vips_per_s": storm["vips_per_s"],
+                          "wave0_vips_per_s": storm["wave0_vips_per_s"],
+                          "later_vips_per_s": storm["later_vips_per_s"],
+                          "wall_s": storm["storm_s"]},
+                      "gang": gang}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

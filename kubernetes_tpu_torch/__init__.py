@@ -10,9 +10,11 @@ Layers (module names follow the JAX package's, so each has a counterpart):
   state/   — vocab interning, encoding (copied), tensor schemas + the move
              onto the device (state/arrays.py tables_to_torch), the
              scheduler cache with its resident device tensors (state/cache.py)
-  ops/     — Filter masks, Score rows, the engines, the CUDA kernel wrappers
+  ops/     — Filter masks, Score rows, the engines (waves, scan, gang,
+             preemption), the CUDA kernel wrappers
   sched/   — the batch cycle (BatchScheduler), the serving Scheduler on the
-             resident cache (state/cache.py), its queue and governor
+             resident cache (state/cache.py), its queue and governor, the
+             preemption driver (Preemptor)
   component/ — the metrics registry (copied)
   models/  — the benchmark workloads (copied)
 """
@@ -39,6 +41,7 @@ from .api.types import (  # noqa: F401
     UnsatisfiableAction,
 )
 from .sched.cycle import BatchScheduler, CycleResult  # noqa: F401
+from .sched.preemption import CacheEvictor, Preemptor  # noqa: F401
 from .sched.queue import PriorityQueue  # noqa: F401
 from .sched.scheduler import RecordingBinder, Scheduler  # noqa: F401
 from .state.cache import SchedulerCache  # noqa: F401

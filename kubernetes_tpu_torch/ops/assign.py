@@ -55,11 +55,13 @@ def neg_i32(x: Array) -> Array:
 
 
 def lexsort(keys: Sequence[Array]) -> Array:
-    """numpy/jnp lexsort: the LAST key is primary. torch has none, so chain
-    stable sorts from the least significant key up."""
-    order = torch.argsort(keys[0], stable=True)
+    """numpy/jnp lexsort along the last axis (so [B, n] keys sort each row):
+    the LAST key is primary. torch has none, so chain stable sorts from the
+    least significant key up."""
+    order = torch.argsort(keys[0], dim=-1, stable=True)
     for k in keys[1:]:
-        order = order[torch.argsort(k[order], stable=True)]
+        order = torch.gather(order, -1, torch.argsort(
+            torch.gather(k, -1, order), dim=-1, stable=True))
     return order
 
 

@@ -7,7 +7,9 @@ replaces and what bounds it at the top of each source):
   * K1 `contention_scan` — the per-node contention pass of assign_waves
     (JAX package ops/waves.py:438-503);
   * K2 `domain_rank` — the rank-in-domain of the domain-quota pass
-    (JAX package ops/waves.py:165-174).
+    (JAX package ops/waves.py:165-174);
+  * K3 `reprieve_scan` — the reprieve pass of preemption, per (lane, node)
+    (JAX package ops/preempt.py:183-200).
 
 Each wrapper takes its plain version for tensors on the CPU and launches its
 kernel for tensors on a CUDA device — never falling back from one to the
@@ -39,7 +41,7 @@ from .volumes import popcount32
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
-KERNELS = ("contention_scan", "domain_rank")
+KERNELS = ("contention_scan", "domain_rank", "reprieve_scan")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -48,6 +50,7 @@ _I = ctypes.c_int
 _ARGTYPES = {
     "contention_scan_launch": [_P] * 21 + [_I] * 11 + [_P],
     "domain_rank_launch": [_P] * 3 + [_I] * 7 + [_P],
+    "reprieve_scan_launch": [_P] * 12 + [_I] * 4 + [_P],
 }
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
@@ -369,11 +372,113 @@ def domain_rank(dom: torch.Tensor, num_domains: int) -> torch.Tensor:
 domain_rank.launches = 0
 
 
+# --------------------------------------------------------------------------- #
+# K3 reprieve_scan
+# --------------------------------------------------------------------------- #
+
+K3_MAX_R = 8    # resource slots K3 carries in registers
+
+
+def reprieve_scan_plain(req_e, req_p, alloc, used_wo, conflict_wo, cand,
+                        vict_pot, c_e, reblock, seg_ptr, seg_e) -> torch.Tensor:
+    """The plain version of K3: a loop over the position k within a
+    segment, up to the longest segment, with every (lane, node) walk
+    advancing one pod per step.
+
+    req_e [E, R] and req_p [B, R] int32 requests of the existing pods and
+    of each lane's preemptor; alloc [N, R]; used_wo [B, N, R] and
+    conflict_wo [B, N] the carries with every potential victim removed;
+    cand [B, N] candidate nodes; vict_pot, c_e (port clash with the
+    preemptor) and reblock [B, E] bool; seg_e [B, E] int32, each lane's
+    pods grouped by node in reprieve order, and seg_ptr [N + 1] int32, the
+    start of each node's segment (the same in every lane).
+    Returns victim [B, E] bool (see csrc/reprieve_scan.cu)."""
+    B, N, _ = used_wo.shape
+    E = req_e.shape[0]
+    victim = torch.zeros((B, E), dtype=torch.bool, device=req_e.device)
+    start = seg_ptr[:N].long().expand(B, N)
+    length = seg_ptr[1:].long() - start
+    if B * N == 0 or E == 0:
+        return victim
+    used, conflict = used_wo, conflict_wo
+    seg = seg_e.long()
+    lanes = torch.arange(B, device=req_e.device)[:, None].expand(B, N)
+    for k in range(int(length.max())):
+        active = k < length
+        e = torch.where(active, torch.gather(
+            seg, 1, (start + k).clamp(max=E - 1)), 0)
+        is_v = active & cand & torch.gather(vict_pot, 1, e)
+        new_used = used + req_e[e]
+        fit = _fit(req_p[:, None, :], alloc[None] - new_used)
+        new_conf = conflict | torch.gather(c_e, 1, e)
+        keep = is_v & fit & ~new_conf & ~torch.gather(reblock, 1, e)
+        used = torch.where(keep[..., None], new_used, used)
+        conflict = torch.where(keep, new_conf, conflict)
+        victim[lanes[active], e[active]] = (is_v & ~keep)[active]
+    return victim
+
+
+K3_ARGS = ("req_e", "req_p", "alloc", "used_wo", "conflict_wo", "cand",
+           "vict_pot", "c_e", "reblock", "seg_ptr", "seg_e")
+
+
+def k3_check(args) -> Tuple[int, int, int, int]:
+    """What K3 takes, checked before a launch: one device, contiguous
+    tensors, int32 requests/carries/CSR and bool flags, consistent shapes,
+    4 <= R <= K3_MAX_R. Returns (B, N, E, R); raises ValueError."""
+    _check(args, args[0].device)
+    req_e, req_p, alloc, used_wo = args[:4]
+    if used_wo.dim() != 3 or req_e.dim() != 2:
+        raise ValueError("used_wo must be [B, N, R] and req_e [E, R]")
+    B, N, R = used_wo.shape
+    E = req_e.shape[0]
+    ints = {"req_e", "req_p", "alloc", "used_wo", "seg_ptr", "seg_e"}
+    want = ((E, R), (B, R), (N, R), (B, N, R), (B, N), (B, N), (B, E),
+            (B, E), (B, E), (N + 1,), (B, E))
+    for name, t, shape in zip(K3_ARGS, args, want):
+        dtype = torch.int32 if name in ints else torch.bool
+        if t.dtype != dtype:
+            raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, "
+                             f"expected {shape}")
+    if not 4 <= R <= K3_MAX_R:
+        raise ValueError(f"K3 carries 4 to {K3_MAX_R} resource slots in "
+                         f"registers, got R={R}")
+    return B, N, E, R
+
+
+def reprieve_scan(req_e, req_p, alloc, used_wo, conflict_wo, cand,
+                  vict_pot, c_e, reblock, seg_ptr, seg_e) -> torch.Tensor:
+    """K3 (see reprieve_scan_plain for the arguments): the plain version on
+    the CPU, the CUDA kernel on a CUDA device; tensors on mixed devices
+    raise."""
+    args = (req_e, req_p, alloc, used_wo, conflict_wo, cand, vict_pot, c_e,
+            reblock, seg_ptr, seg_e)
+    device = _device_of(req_e)
+    for name, t in zip(K3_ARGS, args):
+        if t.device != device:
+            raise ValueError(f"{name} on {t.device}, expected {device}")
+    if device.type == "cpu":
+        return reprieve_scan_plain(*args)
+    B, N, E, R = k3_check(args)
+    victim = torch.zeros((B, E), dtype=torch.bool, device=device)
+    _launch("reprieve_scan", *(t.data_ptr() for t in args),
+            victim.data_ptr(), B, N, E, R, _stream(device))
+    reprieve_scan.launches += 1
+    return victim
+
+
+reprieve_scan.launches = 0
+
+
 def reset_launch_counts() -> None:
     contention_scan.launches = 0
     domain_rank.launches = 0
+    reprieve_scan.launches = 0
 
 
 def launch_counts() -> Dict[str, int]:
     return {"contention_scan": contention_scan.launches,
-            "domain_rank": domain_rank.launches}
+            "domain_rank": domain_rank.launches,
+            "reprieve_scan": reprieve_scan.launches}

@@ -1,0 +1,249 @@
+"""Preemption as a batched device what-if (port of the JAX package's
+ops/preempt.py, whose docstring sets out the reference semantics: the
+five-criteria node choice of pickOneNodeForPreemption, the PDB-aware
+reprieve order, and the documented conservatism of the reblock bits).
+
+The JAX package vmaps `preempt_for_pod` over the B preemptor lanes of a
+burst. Here the lanes are a leading [B] axis: the node planes of the
+what-if are [B, N, ...] tensors, the per-pod planes [B, E]. The term counts
+with every potential victim removed (CNT_wo, HOLD_wo) and the affinity and
+spread rows built from them depend on the lane only through its priority,
+so they are computed once per distinct priority in the burst. The reprieve
+scan — a lax.scan over all E existing pods in the JAX package — is K3
+`reprieve_scan` (csrc/reprieve_scan.cu), one launch per burst over every
+(lane, node) walk; each lane's reprieve order reaches it grouped by node as
+a CSR. The node choice is the lexicographic argmin over five keys, as a
+chain of stable sorts.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+
+from ..state.arrays import Array, ClusterTables, PodArrays
+from .assign import lexsort, neg_i32
+from .fit import _fit
+from .interpod import affinity_rows, domain_of_term, per_node_counts
+from .kernels import reprieve_scan
+from .lattice import CycleArrays
+from .topospread import spread_row
+
+I32_MAX = 2**31 - 1
+
+
+class PreemptResult(NamedTuple):
+    node: Array      # [B] i32 — chosen node index per lane, -1 if preemption can't help
+    victims: Array   # [B, E] bool — victims on the chosen node
+    n_candidates: Array  # [B] i32 — nodes where preemption would work
+    n_pdb_violations: Array  # [B] i32 — PDB-violating victims on the node
+
+
+def _pairwise_port_conflict(tables: ClusterTables, cls: Array,
+                            cls_e: Array) -> Array:
+    """[B, E] bool: lane b's preemptor's port set conflicts with existing pod
+    e's. Words are the int32 view of the encoder's uint32 words: `&` then
+    `!= 0` reads the same bits."""
+    psets = tables.portsets
+    ps_p = tables.classes.portset[cls.long()]                  # [B]
+    ps_e = tables.classes.portset[cls_e.clamp(min=0).long()]   # [E]
+    pp = ps_p.clamp(min=0).long()
+    pe = ps_e.clamp(min=0).long()
+    wild_p, pair_p, trip_p = (psets.wild_words[pp], psets.pair_words[pp],
+                              psets.trip_words[pp])
+    any_e, wild_e, trip_e = (psets.pair_words[pe], psets.wild_words[pe],
+                             psets.trip_words[pe])
+    # conflict iff a shared (proto,port) pair where either side is wildcard,
+    # or a shared exact (proto,port,ip) triple — port_conflict_row pairwise
+    hits = (((wild_p[:, None, :] & any_e[None]) != 0)
+            | ((pair_p[:, None, :] & wild_e[None]) != 0)).any(-1)
+    trip = ((trip_p[:, None, :] & trip_e[None]) != 0).any(-1)
+    return (hits | trip) & (ps_p >= 0)[:, None] & (ps_e >= 0)[None, :]
+
+
+def _scatter(values: Array, idx: Array, n: int, fill: int,
+             reduce: str) -> Array:
+    """Scatter [B, E] values into n + 1 slots per lane by idx (slot n the
+    discard bucket), starting from `fill`, and drop the last slot."""
+    out = torch.full((values.shape[0], n + 1), fill, dtype=values.dtype,
+                     device=values.device)
+    if reduce == "sum":
+        out = out.scatter_add_(1, idx, values)
+    else:
+        out = out.scatter_reduce_(1, idx, values, reduce=reduce,
+                                  include_self=True)
+    return out[:, :n]
+
+
+def reprieve_segments(order: Array, node_e_safe: Array, N: int):
+    """Each lane's reprieve order grouped by node, as K3's CSR: seg_e [B, E]
+    is the order stably sorted by node (pods on no node, node N, last) and
+    seg_ptr [N + 1] the start of each node's segment (a node holds the same
+    pods in every lane)."""
+    node_of = node_e_safe[order]                                 # [B, E]
+    seg_e = torch.gather(order, 1, torch.argsort(node_of, dim=1,
+                                                 stable=True))
+    counts = torch.bincount(node_e_safe.long(), minlength=N + 1)[:N]
+    seg_ptr = torch.zeros((N + 1,), dtype=torch.int64, device=order.device)
+    seg_ptr[1:] = torch.cumsum(counts, 0)
+    return seg_ptr.to(torch.int32), seg_e.to(torch.int32).contiguous()
+
+
+def preempt_batch(
+    tables: ClusterTables,
+    cyc: CycleArrays,
+    existing: PodArrays,
+    cls: Array,            # [B] i32: preemptor class ids
+    node_name_req: Array,  # [B] i32: spec.nodeName ids or -1
+    priority: Array,       # [B] i32: preemptor priorities
+    D: int,
+    pdb_blocked: Optional[Array] = None,   # [E] bool — shared across the burst
+) -> PreemptResult:
+    """The whole preemption burst: every lane's what-if against the same
+    cycle lattice, existing-pod arrays and PDB mask. Each lane's result is
+    what the single-pod what-if computes against that snapshot; the host
+    commit (sched/preemption.py) resolves victim overlap between lanes."""
+    nodes, classes, terms = tables.nodes, tables.classes, tables.terms
+    dev = nodes.valid.device
+    N = nodes.valid.shape[0]
+    E = existing.valid.shape[0]
+    B = cls.shape[0]
+    i32 = torch.int32
+    if pdb_blocked is None:
+        pdb_blocked = torch.zeros((E,), dtype=torch.bool, device=dev)
+    cl = cls.long()
+
+    cls_e = existing.cls.clamp(min=0).long()
+    node_e = existing.node_id
+    on_node = existing.valid & (node_e >= 0)
+    vict_pot = on_node[None, :] & (existing.priority[None, :]
+                                   < priority[:, None])          # [B, E]
+    node_e_safe = torch.where(on_node, node_e, N)
+    n_idx = node_e_safe.clamp(max=N - 1).long()                  # [E]
+    slot = node_e_safe.long()[None, :].expand(B, E)
+
+    # ---- what-if: all potential victims removed (selectVictimsOnNode pass 1)
+    req_e = tables.reqs.vec[classes.rid[cls_e].long()]           # [E, R]
+    R = req_e.shape[1]
+    vict_req = torch.where(vict_pot[..., None], req_e[None], 0)  # [B, E, R]
+    removed = torch.zeros((B, N + 1, R), dtype=i32, device=dev).scatter_add_(
+        1, slot[..., None].expand(B, E, R), vict_req)[:, :N]
+    used_wo = nodes.used[None] - removed                         # [B, N, R]
+
+    # ports: conflict[n] = any surviving pod on n whose ports clash with ours
+    c_e = _pairwise_port_conflict(tables, cls, cls_e)            # [B, E]
+    live_clash = (c_e & on_node[None] & ~vict_pot).to(i32)
+    conflict_wo = _scatter(live_clash, slot, N, 0, "amax") > 0   # [B, N]
+
+    # feasibility with all victims gone
+    req_p = tables.reqs.vec[classes.rid[cl].long()]              # [B, R]
+    fit = _fit(req_p[:, None, :], nodes.alloc[None] - used_wo) & nodes.valid
+    aff_ok = torch.empty((B, N), dtype=torch.bool, device=dev)
+    anti_ok = torch.empty_like(aff_ok)
+    spread_ok = torch.empty_like(aff_ok)
+    # the survivors, and so the term counts, depend on the lane only
+    # through its priority
+    prios = priority.tolist()
+    for p in sorted(set(prios)):
+        lanes = torch.tensor([b for b in range(B) if prios[b] == p],
+                             dtype=torch.long, device=dev)
+        survivors = existing._replace(valid=existing.valid & ~vict_pot[lanes[0]])
+        CNT_wo = per_node_counts(cyc.TM, survivors, N)           # [S, N]
+        HOLD_wo = per_node_counts(cyc.has_anti.T, survivors, N)
+        a, b_ = affinity_rows(cls[lanes], classes, terms, cyc.TM, CNT_wo,
+                              HOLD_wo, nodes, D)
+        aff_ok[lanes], anti_ok[lanes] = a, b_
+        spread_ok[lanes] = spread_row(
+            cls[lanes], classes, terms, cyc.TM, CNT_wo, cyc.ELD,
+            cyc.static.node_match[cl[lanes]], nodes, D)
+    host_ok = ((node_name_req < 0)[:, None]
+               | (nodes.name_id[None, :] == node_name_req[:, None]))
+    cand = (cyc.static.mask[cl] & fit & ~conflict_wo & aff_ok & anti_ok
+            & spread_ok & host_ok)                               # [B, N]
+
+    # ---- precompute "restoring pod e would re-block the preemptor" [B, E]
+    # own anti-affinity: an anti term of ours matches e's class and e's node
+    # carries the term's key
+    ans = classes.anti_terms[cl]                                 # [B, AN]
+    sa = ans.clamp(min=0).long()
+    _, hk_anti = domain_of_term(nodes, terms.topo_key[sa])       # [B, AN, N]
+    m_own = (ans >= 0)[..., None] & cyc.TM[sa]                   # [B, AN, SC]
+    own_block = (m_own[:, :, cls_e] & hk_anti[:, :, n_idx]).any(1)
+    # symmetry: e holds an anti term that matches us, key present on e's node
+    _, hk_s = domain_of_term(nodes, terms.topo_key)              # [S, N]
+    held = cyc.has_anti[cls_e] & hk_s[:, n_idx].T                # [E, S]
+    sym_block = (held[None] & cyc.TM[:, cl].T[:, None, :]).any(-1)
+    # hard topology-spread: restoring a matching pod bumps the domain count —
+    # conservatively never reprieve such victims
+    ts_ids = classes.tsc_term[cl]                                # [B, TS]
+    ts = ts_ids.clamp(min=0).long()
+    hard_ts = (ts_ids >= 0) & classes.tsc_hard[cl]
+    spread_block = (hard_ts[..., None] & cyc.TM[ts][:, :, cls_e]).any(1)
+    reblock = own_block | sym_block | spread_block
+
+    # ---- reprieve (selectVictimsOnNode pass 2): PDB-violating victims are
+    # reprieved FIRST (generic_scheduler.go:1149-1156), each group in
+    # priority-descending order; K3 walks each (lane, node) segment ----
+    arange_e = torch.arange(E, dtype=i32, device=dev).expand(B, E)
+    order = lexsort((
+        arange_e, neg_i32(existing.priority).expand(B, E),
+        (~pdb_blocked).to(i32).expand(B, E), (~vict_pot).to(i32)))
+    seg_ptr, seg_e = reprieve_segments(order, node_e_safe, N)
+    victim = reprieve_scan(
+        req_e.contiguous(), req_p.contiguous(), nodes.alloc.contiguous(),
+        used_wo.contiguous(), conflict_wo.contiguous(), cand.contiguous(),
+        vict_pot.contiguous(), c_e.contiguous(), reblock.contiguous(),
+        seg_ptr, seg_e)
+
+    # ---- pickOneNodeForPreemption (:903): lexicographic over
+    # (1) PDB violations, (2) highest victim priority, (3) priority sum,
+    # (4) victim count, (5) latest earliest start of highest-prio victims ----
+    vmask = victim & (node_e_safe < N)[None]
+    idx = torch.where(vmask, node_e_safe[None], N).long()
+    prio_e = existing.priority[None].expand(B, E)
+    num_v = _scatter(vmask.to(i32), idx, N, 0, "sum")
+    sum_p = _scatter(torch.where(vmask, prio_e, 0), idx, N, 0, "sum")
+    max_p = _scatter(torch.where(vmask, prio_e, -I32_MAX), idx, N, -I32_MAX,
+                     "amax")
+    num_pdb = _scatter((vmask & pdb_blocked[None]).to(i32), idx, N, 0, "sum")
+    # earliest (min) creation among each node's highest-priority victims;
+    # pick the node where it is LATEST (GetEarliestPodStartTime, :1000-1028)
+    is_top = vmask & (prio_e == max_p[:, n_idx])
+    est = _scatter(torch.where(is_top, existing.creation[None].expand(B, E),
+                               I32_MAX), idx, N, I32_MAX, "amin")
+
+    big = I32_MAX
+    key0 = torch.where(cand, num_pdb, big)
+    key1 = torch.where(cand, torch.where(num_v > 0, max_p, -I32_MAX), big)
+    key2 = torch.where(cand, sum_p, big)
+    key3 = torch.where(cand, num_v, big)
+    key4 = torch.where(cand, neg_i32(est), big)   # latest earliest-start wins
+    arange_n = torch.arange(N, dtype=i32, device=dev).expand(B, N)
+    best = lexsort((arange_n, key4, key3, key2, key1, key0))[:, 0]
+    any_cand = cand.any(-1)
+    node = torch.where(any_cand, best, -1).to(i32)
+    victims = victim & (node_e[None] == node[:, None]) & any_cand[:, None]
+    nv = (victims & pdb_blocked[None]).sum(-1, dtype=i32)
+    return PreemptResult(node=node, victims=victims,
+                         n_candidates=cand.sum(-1, dtype=i32),
+                         n_pdb_violations=nv)
+
+
+def preempt_for_pod(
+    tables: ClusterTables,
+    cyc: CycleArrays,
+    existing: PodArrays,
+    cls: int,              # preemptor's class id
+    node_name_req: int,    # spec.nodeName id or -1
+    priority: int,         # preemptor's priority
+    D: int,
+    pdb_blocked: Optional[Array] = None,   # [E] bool — eviction violates a PDB
+) -> PreemptResult:
+    """The single-pod what-if: a burst of one lane, its result unbatched
+    (node, n_candidates and n_pdb_violations scalars, victims [E])."""
+    dev = tables.nodes.valid.device
+    one = lambda v: torch.tensor([int(v)], dtype=torch.int32, device=dev)
+    res = preempt_batch(tables, cyc, existing, one(cls), one(node_name_req),
+                        one(priority), D, pdb_blocked)
+    return PreemptResult(*(t[0] for t in res))

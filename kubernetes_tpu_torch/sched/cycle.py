@@ -3,13 +3,14 @@ JAX package's sched/cycle.py).
 
 encode (state/encode.py) → tensors on the device (state/arrays.py
 tables_to_torch) → build_cycle → initial_state → assign_waves (or the
-sequential scan for a batch with a `spec.nodeName` pod) → node names. The
-serving path (sched/scheduler.py) takes its tensors from the resident cache
-instead (state/cache.py, through `snapshot_with_keys`).
+sequential scan for a batch with a `spec.nodeName` pod; either inside the
+gang engine's rounds, ops/gang.py, for a batch with gang-grouped pods) →
+node names. The serving path (sched/scheduler.py) takes its tensors from
+the resident cache instead (state/cache.py, through `snapshot_with_keys`).
 
-The port has no gang engine, run-collapsed engine, extra score plugins,
-prewarmer or mesh yet: a gang batch and KTPU_ASSIGN=runs raise
-NotImplementedError naming the ROADMAP item that ports them.
+The port has no run-collapsed engine, extra score plugins, prewarmer or mesh
+yet: KTPU_ASSIGN=runs raises NotImplementedError naming the ROADMAP item
+that ports it.
 """
 
 from __future__ import annotations
@@ -22,9 +23,10 @@ import torch
 
 from ..api.types import Node, Pod
 from ..ops.assign import AssignResult, assign_batch, initial_state
+from ..ops.gang import GangArrays, assign_gang
 from ..ops.lattice import build_cycle
 from ..ops.waves import assign_waves
-from ..state.arrays import ClusterTables, PodArrays, tables_to_torch
+from ..state.arrays import ClusterTables, PodArrays, tables_to_torch, to_device
 from ..state.dims import Dims
 from ..state.encode import Encoder
 
@@ -83,19 +85,39 @@ def _engine() -> str:
 
 def schedule_batch(tables: ClusterTables, pending: PodArrays, keys: tuple,
                    D: int, existing: PodArrays,
-                   has_node_name: bool = False) -> AssignResult:
+                   has_node_name: bool = False,
+                   gang: Optional[GangArrays] = None,
+                   return_waves: bool = False):
     """One cycle on tensors: build_cycle → initial_state → the engine. A
     batch holding a `spec.nodeName` pod runs through the sequential scan:
-    the class-granular wave path cannot express a per-pod host constraint."""
+    the class-granular wave path cannot express a per-pod host constraint.
+    With `gang` (gang-grouped pods in the batch) the engine runs inside the
+    gang engine's rejection rounds. With `return_waves` the result comes
+    with the wave index per pod — None where the scan ran (the JAX
+    package's contract)."""
     engine = _engine()
     if engine == "waves" and has_node_name:
         engine = "scan"
     uk, ev = keys
     cyc = build_cycle(tables, existing, uk, ev, D)
     init = initial_state(tables, cyc)
-    if engine == "scan":
-        return assign_batch(tables, cyc, pending, init)
-    return assign_waves(tables, cyc, pending, init)
+    waves = None
+    if gang is not None:
+        if return_waves and engine == "waves":
+            res, _, waves = assign_gang(tables, cyc, pending, init, gang,
+                                        return_waves=True)
+        else:
+            res, _ = assign_gang(
+                tables, cyc, pending, init, gang,
+                engine_fn=assign_batch if engine == "scan" else None)
+    elif engine == "scan":
+        res = assign_batch(tables, cyc, pending, init)
+    elif return_waves:
+        res, waves = assign_waves(tables, cyc, pending, init,
+                                  return_waves=True)
+    else:
+        res = assign_waves(tables, cyc, pending, init)
+    return (res, waves) if return_waves else res
 
 
 @dataclass
@@ -144,15 +166,14 @@ class BatchScheduler:
             g = enc.group_id(p)
             if g >= 0:
                 bound[g] = bound.get(g, 0) + 1
-        if enc.build_gang_arrays(list(pending), d, bound) is not None:
-            raise NotImplementedError(
-                "gang-grouped pods: the gang engine (ops/gang.py) is not "
-                "ported yet — ROADMAP A9")
+        gang = enc.build_gang_arrays(list(pending), d, bound)
+        if gang is not None:
+            gang = to_device(gang, self.device)
         uk = enc.vocabs.label_keys.get(UNSCHEDULABLE_TAINT_KEY)
         ev = enc.vocabs.label_vals.get("")
         tables_t, (ex_t, pe_t) = tables_to_torch(tables, (ex, pe), self.device)
         res = schedule_batch(tables_t, pe_t, (uk, ev), d.D, ex_t,
-                             has_node_name=d.has_node_name)
+                             has_node_name=d.has_node_name, gang=gang)
         self.last_result = res
         node_idx = res.node.cpu().tolist()
 

@@ -19,13 +19,19 @@ Failures feed the backoff/unschedulable queues exactly as FitError handling
 does (scheduler.go:436-448); bind errors roll back via cache.forget_pod
 (scheduler.go:717,732).
 
+Pods that fail a wave may preempt (sched/preemption.py, when a `preemptor`
+is given): after the wave's commits, one fresh snapshot and one burst of
+what-ifs for every failed priority pod that is not gang-grouped. A batch
+with gang-grouped pods runs the gang engine (ops/gang.py); pods of rejected
+groups take the ordinary unschedulable path.
+
 The dispatch runs on the calling thread: no watchdog, no CPU fallback. Not
 ported yet, each refused with NotImplementedError naming its ROADMAP item:
-preemption and decision provenance (A9), extenders and framework plugins
-(A11), mesh serving (A13), the bind-intent ledger and fencing (A14); gang
-batches and KTPU_ASSIGN=runs (A9) raise at the first wave that needs them.
-The prewarmer, the dispatch supervisor and real telemetry (A10) are absent;
-telemetry keeps its disabled path (sched/telemetry.py).
+decision provenance (A9), extenders and framework plugins (A11), mesh
+serving (A13), the bind-intent ledger and fencing (A14); KTPU_ASSIGN=runs
+(A9) raises at the first wave. The prewarmer, the dispatch supervisor and
+real telemetry (A10) are absent; telemetry keeps its disabled path
+(sched/telemetry.py).
 """
 
 from __future__ import annotations
@@ -40,8 +46,8 @@ from ..state.arrays import resolve_device
 from ..state.cache import SchedulerCache
 from ..state.dims import Dims, bucket
 from ..state.encode import Encoder
-from .cycle import (micro_snapshot_with_keys, schedule_batch,
-                    snapshot_with_keys)
+from .cycle import (UNSCHEDULABLE_TAINT_KEY, micro_snapshot_with_keys,
+                    schedule_batch, snapshot_with_keys)
 from .overload import build_governor
 from .queue import PriorityQueue
 from .telemetry import NullTelemetry
@@ -140,8 +146,6 @@ class Scheduler:
         microwave: Optional[bool] = None,
         device="cuda",
     ) -> None:
-        if preemptor is not None:
-            raise _unported("preemption (sched/preemption.py)", "A9")
         if os.environ.get("KTPU_EXPLAIN", "0") not in ("", "0", "off"):
             raise _unported("KTPU_EXPLAIN: decision provenance "
                             "(sched/explain.py)", "A9")
@@ -157,6 +161,7 @@ class Scheduler:
                             "(sched/ledger.py)", "A14")
         self.device = resolve_device(device)
         self.binder = binder
+        self.preemptor = preemptor
         self.cache = cache or SchedulerCache()
         self.queue = queue or PriorityQueue()
         self.scheduler_name = scheduler_name
@@ -250,6 +255,13 @@ class Scheduler:
     def _snapshot_keys(self, pending: List[Pod]):
         return snapshot_with_keys(self.cache, self.encoder, pending,
                                   self.base_dims, device=self.device)
+
+    def _preempt_snapshot(self, pending: List[Pod]):
+        """The preemption pass's fresh snapshot: it sees the pods this wave
+        assumed, so no preemptor evicts for space the wave consumed."""
+        return self.cache.snapshot(
+            self.encoder, pending, self.base_dims,
+            extra_intern=(UNSCHEDULABLE_TAINT_KEY,), device=self.device)
 
     def _micro_snapshot_keys(self, pending: List[Pod]):
         # sync the resident tables with an EMPTY pending patch, then graft
@@ -367,14 +379,13 @@ class Scheduler:
         snap, keys = (self._micro_snapshot_keys(pending) if micro
                       else self._snapshot_keys(pending))
         span.mark("snapshot")
-        if snap.gang is not None:
-            raise _unported("gang-grouped pods: the gang engine (ops/gang.py)",
-                            "A9")
         # the engine from KTPU_ASSIGN; a nodeName-bearing batch takes the
-        # literal scan (sched/cycle.py schedule_batch)
+        # literal scan; gang-grouped pods run the gang engine's rounds
+        # (sched/cycle.py schedule_batch)
         res = schedule_batch(snap.tables, snap.pending, keys, snap.dims.D,
                              snap.existing,
-                             has_node_name=snap.dims.has_node_name)
+                             has_node_name=snap.dims.has_node_name,
+                             gang=snap.gang)
         # intern the NEXT wave's backlog before reading this one back (the
         # JAX package does it while its dispatch runs): the vocabulary and
         # class ids — tie-breaks in the wave engine — come out in its order.
@@ -416,7 +427,23 @@ class Scheduler:
             self.telemetry.record_bound_many(bound_keys, self.clock())
         span.mark("bind-commit")
 
+        # ---- preemption pass: AFTER commits, against ONE fresh snapshot so
+        # the what-if sees pods assumed earlier in this very wave; the whole
+        # burst of unschedulable pods is evaluated in bursts of what-ifs
+        # (sched/preemption.py preempt_burst) ----
+        handled_keys: set = set()
+        if failures and self.preemptor is not None:
+            # gang pods never preempt individually: evicting victims to place
+            # ONE member of an all-or-nothing group would trade running pods
+            # for a pod that may never commit
+            eligible = [(p, a) for p, a in failures if not p.pod_group]
+            if eligible:
+                fresh = self._preempt_snapshot([p for p, _ in failures])
+                handled_keys = self.preemptor.preempt_burst(
+                    self, eligible, fresh, now)
         for pod, attempts in failures:
+            if pod.key in handled_keys:
+                continue
             stats.unschedulable += 1
             stats.failed_keys.append(pod.key)
             self.queue.add_unschedulable(pod, attempts, now, cycle=cycle)

@@ -162,6 +162,16 @@ class PodArrays(NamedTuple):
     node_name_req: Array # [P] i32 spec.nodeName as name id, -1 none
 
 
+class GangArrays(NamedTuple):
+    """Per-cycle gang inputs (ops/gang.py; built host-side by state/encode.py
+    build_gang_arrays, numpy there; tensors once on the device)."""
+
+    group: Array   # [P] i32 — group id per pending pod, -1 ungrouped
+    needed: Array  # [GR] i32 — members still required (minMember - bound)
+    valid: Array   # [GR] bool — group has members in this batch
+    rank: Array    # [GR] i32 — rejection priority; argmax rejects first
+
+
 class ImageTable(NamedTuple):
     """Interned container images: size in KiB per image id (ImageLocality;
     nodeinfo ImageStateSummary.Size analog — NumNodes is derived on device
@@ -194,12 +204,13 @@ _TUPLES = {cls.__name__: cls for cls in (
 
 
 def _to_torch(x, device: torch.device, copy: bool = False):
-    """Recursively rebuild an encoder NamedTuple (either package's classes,
-    matched by name) as the port's NamedTuple of tensors on `device`. With
-    `copy`, every tensor owns its memory even where `.to(device)` would
-    alias the numpy array (a CPU device)."""
+    """Recursively rebuild an encoder NamedTuple (either package's table
+    classes, matched by name; any other NamedTuple, such as GangArrays, as
+    its own class) as a NamedTuple of tensors on `device`. With `copy`,
+    every tensor owns its memory even where `.to(device)` would alias the
+    numpy array (a CPU device)."""
     if isinstance(x, tuple) and hasattr(x, "_fields"):
-        cls = _TUPLES[type(x).__name__]
+        cls = _TUPLES.get(type(x).__name__, type(x))
         return cls(*(_to_torch(getattr(x, f), device, copy)
                      for f in cls._fields))
     a = np.asarray(x)
@@ -236,11 +247,11 @@ def resolve_device(device) -> torch.device:
 
 
 def to_device(x, device: torch.device):
-    """One encoder NamedTuple (ClusterTables, one of its tables, PodArrays) or
-    one numpy plane as the port's tensors on `device`, always as a COPY:
-    the serving cache keeps writing its host staging arrays in place after
-    the move, and a snapshot taken before must not see those writes (on a
-    CPU device a plain `.to(device)` would share their memory). Same dtype
-    rules as `tables_to_torch`: uint32 words become their int32 view, and
-    only int32 and bool are accepted."""
+    """One encoder NamedTuple (ClusterTables, one of its tables, PodArrays,
+    GangArrays) or one numpy plane as the port's tensors on `device`, always
+    as a COPY: the serving cache keeps writing its host staging arrays in
+    place after the move, and a snapshot taken before must not see those
+    writes (on a CPU device a plain `.to(device)` would share their
+    memory). Same dtype rules as `tables_to_torch`: uint32 words become
+    their int32 view, and only int32 and bool are accepted."""
     return _to_torch(x, device, copy=True)

@@ -117,9 +117,9 @@ class Snapshot:
     dims: Dims
     pending_keys: Tuple[Tuple[str, int], ...]  # (pod key, object identity)
     existing_keys: Tuple[str, ...] = ()  # row order of `existing`
-    gang: object = None  # host GangArrays when any pending pod is
-                         # gang-grouped (the port's Scheduler refuses those
-                         # until the gang engine is ported); None otherwise
+    gang: object = None  # GangArrays (ops/gang.py) on the snapshot's
+                         # device when any pending pod is gang-grouped; None
+                         # routes the plain engines
     device: Optional[torch.device] = None  # where the tensors live
 
 
@@ -588,7 +588,7 @@ class SchedulerCache:
         with self._mu:
             pe_host = encoder.build_pod_arrays(
                 list(pending), d, self._node_slot, capacity=d.P)
-            gang = self._gang_arrays(encoder, pending, d)
+            gang = self._gang_arrays(encoder, pending, d, device)
         return Snapshot(
             generation=base.generation,
             node_order=base.node_order,
@@ -616,13 +616,15 @@ class SchedulerCache:
             "volsets": len(encoder.volset_reg),
         }
 
-    def _gang_arrays(self, encoder: Encoder, pending, d: Dims):
-        """Per-cycle host GangArrays for the pending batch, netting each
-        group's `needed` against members already bound/assumed here."""
+    def _gang_arrays(self, encoder: Encoder, pending, d: Dims, device):
+        """Per-cycle GangArrays for the pending batch on `device` (copies, as
+        every table: `to_device`), netting each group's `needed` against
+        members already bound/assumed here."""
         bound = {encoder.pod_groups.get(gk): c
                  for gk, c in self._group_bound.items()
                  if encoder.pod_groups.get(gk) >= 0}
-        return encoder.build_gang_arrays(list(pending), d, bound)
+        g = encoder.build_gang_arrays(list(pending), d, bound)
+        return None if g is None else to_device(g, device)
 
     def _existing_pod_arrays(self, d: Dims) -> PodArrays:
         rows = self._staging_pod_rows
@@ -713,7 +715,7 @@ class SchedulerCache:
             dims=d,
             pending_keys=pending_keys,
             existing_keys=tuple(self._pod_keys),
-            gang=self._gang_arrays(encoder, pending, d),
+            gang=self._gang_arrays(encoder, pending, d, device),
             device=device,
         )
         self._encoder = encoder
@@ -874,7 +876,7 @@ class SchedulerCache:
             dims=d,
             pending_keys=pending_keys,
             existing_keys=tuple(self._pod_keys),
-            gang=self._gang_arrays(encoder, pending, d),
+            gang=self._gang_arrays(encoder, pending, d, device),
             device=device,
         )
         self._dirty_nodes.clear()

@@ -12,7 +12,7 @@ device arrays can be patched incrementally (state/cache.py) instead of re-encode
 
 from __future__ import annotations
 
-from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -32,6 +32,7 @@ from ..api.types import (
 )
 from .arrays import (
     ClusterTables,
+    GangArrays,
     LabelSetTable,
     NodeArrays,
     NodeTermTable,
@@ -49,15 +50,6 @@ I32 = np.int32
 U32 = np.uint32
 
 
-class GangArrays(NamedTuple):
-    """Per-cycle gang inputs (built host-side by build_gang_arrays). The
-    JAX package keeps this tuple in ops/gang.py beside its gang engine; the
-    port has no gang engine yet, so it lives beside its builder."""
-
-    group: np.ndarray   # [P] i32 — group id per pending pod, -1 ungrouped
-    needed: np.ndarray  # [GR] i32 — members still required (minMember - bound)
-    valid: np.ndarray   # [GR] bool — group has members in this batch
-    rank: np.ndarray    # [GR] i32 — rejection priority; argmax rejects first
 
 # GetZoneKey's label precedence (pkg/util/node): the modern topology label,
 # falling back to the pre-1.17 failure-domain beta label

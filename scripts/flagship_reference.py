@@ -8,6 +8,10 @@ many pods a package places, and a hash of where.
         --workload ports-volumes --pods 20000
     JAX_PLATFORMS=cpu python3 scripts/flagship_reference.py --package jax \\
         --path serving [--pods 50000]
+    JAX_PLATFORMS=cpu python3 scripts/flagship_reference.py --package jax \\
+        --path preempt
+    JAX_PLATFORMS=cpu python3 scripts/flagship_reference.py --package jax \\
+        --workload gang --pods 100000
 
 `--path batch` (the default) runs `BatchScheduler.schedule` of the JAX
 package (`kubernetes_tpu`) or of the PyTorch port (`kubernetes_tpu_torch`)
@@ -25,6 +29,17 @@ placement sha256) and the wave loop (`serving_drain`, 5,000 nodes × `--pods`
 pods in waves of 4,096: per wave the counts and snapshot mode, then the
 binder's ordered (pod, node) list as a count and a sha256). It prints one
 JSON line without the timings, which differ from host to host.
+
+`--path preempt` runs that drain, then chip_smoke.py's phase-6 storm on its
+bound pods (`preempt_storm`: chip_smoke.py's STORM_VIPS priority-1000 pods
+through a Scheduler with a Preemptor; per wave the counts, victims evicted
+and preemptors nominated, then the evicted keys and the vips' binder order
+as counts and sha256).
+
+`--workload gang` is BASELINE config 5 on the batch path: gang_workload_pods
+(jobs of 8 to 64 all-or-nothing members, 2% of them larger than any node);
+besides the placements it prints the dead groups (count and sha256) and the
+gang engine's rejection rounds.
 """
 
 from __future__ import annotations
@@ -48,6 +63,7 @@ def jax_serving_api():
     from kubernetes_tpu.api import types
     from kubernetes_tpu.models import workloads
     from kubernetes_tpu.sched.cycle import _schedule_batch, snapshot_with_keys
+    from kubernetes_tpu.sched.preemption import Preemptor
     from kubernetes_tpu.sched.scheduler import RecordingBinder, Scheduler
     from kubernetes_tpu.state.cache import SchedulerCache
     from kubernetes_tpu.state.dims import Dims
@@ -71,7 +87,7 @@ def jax_serving_api():
             cache, enc, pods, base),
         dispatch=dispatch,
         readback=lambda node: jax.device_get(node).tolist(),
-        scheduler=scheduler)
+        scheduler=scheduler, preemptor=Preemptor)
 
 
 def serving(args) -> dict:
@@ -98,19 +114,70 @@ def serving(args) -> dict:
             "steady_seconds": t1 - t0, "drain_seconds": t2 - t1}
 
 
+def preempt(args) -> dict:
+    os.environ["KTPU_OVERLOAD"] = "0"
+    import chip_smoke
+
+    if args.package == "jax":
+        api = jax_serving_api()
+    else:
+        import torch
+
+        api = chip_smoke.port_serving_api(torch.device(args.device))
+    bound = []
+    t0 = time.perf_counter()
+    chip_smoke.serving_drain(api, args.nodes, chip_smoke.SERVING_PODS,
+                             keep_bound=bound)
+    t1 = time.perf_counter()
+    storm = chip_smoke.preempt_storm(api, args.nodes, bound)
+    t2 = time.perf_counter()
+    return {"package": args.package, "path": "preempt", "nodes": args.nodes,
+            "existing": len(bound),
+            "existing_sha256": chip_smoke.bound_sha256(bound),
+            "storm": storm, "drain_seconds": t1 - t0,
+            "storm_seconds": t2 - t1}
+
+
+def count_gang_rounds(package: str) -> list:
+    """Counts the gang engine's rounds: the JAX package's host-rounds route
+    dispatches `_gang_round_impl` once per round (its device loop is one
+    dispatch and is not counted here), the port's assign_gang runs the wave
+    engine once per round. Returns a one-element list the count lands in."""
+    n = [0]
+    if package == "jax":
+        from kubernetes_tpu.sched import cycle as mod
+        name = "_gang_round_impl"
+    else:
+        from kubernetes_tpu_torch.ops import gang as mod
+        name = "assign_waves"
+    fn = getattr(mod, name)
+
+    def counted(*a, **kw):
+        n[0] += 1
+        return fn(*a, **kw)
+
+    setattr(mod, name, counted)
+    return n
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--package", choices=("jax", "port"), required=True)
     ap.add_argument("--device", default="cpu",
                     help="the port's device (ignored for --package jax)")
-    ap.add_argument("--path", choices=("batch", "serving"), default="batch")
+    ap.add_argument("--path", choices=("batch", "serving", "preempt"),
+                    default="batch")
     ap.add_argument("--nodes", type=int, default=5000)
     ap.add_argument("--pods", type=int, default=None,
                     help="pending pods (default 50,000 for the batch path, "
                     "chip_smoke.SERVING_PODS for the serving drain)")
-    ap.add_argument("--workload", choices=("flagship", "ports-volumes"),
+    ap.add_argument("--workload",
+                    choices=("flagship", "ports-volumes", "gang"),
                     default="flagship")
     args = ap.parse_args()
+    if args.path == "preempt":
+        print(json.dumps(preempt(args)))
+        return 0
     if args.path == "serving":
         if args.pods is None:
             import chip_smoke
@@ -132,9 +199,14 @@ def main() -> int:
         from kubernetes_tpu_torch.models import workloads
 
         sched = pkg.BatchScheduler(device=args.device)
+    rounds = None
     if args.workload == "flagship":
         nodes = workloads.make_nodes(args.nodes)
         pods = workloads.flagship_pods(args.pods)
+    elif args.workload == "gang":
+        nodes = workloads.make_nodes(args.nodes)
+        pods = workloads.gang_workload_pods(args.pods)
+        rounds = count_gang_rounds(args.package)
     else:
         from chip_smoke import port_volume_workload
 
@@ -145,11 +217,16 @@ def main() -> int:
     seconds = time.perf_counter() - t0
     digest = hashlib.sha256(
         "\n".join(a or "-" for a in res.assignments).encode()).hexdigest()
-    print(json.dumps({"package": args.package, "workload": args.workload,
-                      "nodes": args.nodes,
-                      "pods": args.pods, "scheduled": res.scheduled,
-                      "failed": res.failed, "seconds": seconds,
-                      "sha256": digest}))
+    out = {"package": args.package, "workload": args.workload,
+           "nodes": args.nodes,
+           "pods": args.pods, "scheduled": res.scheduled,
+           "failed": res.failed, "seconds": seconds,
+           "sha256": digest}
+    if rounds is not None:
+        from chip_smoke import gang_summary
+
+        out.update(gang_summary(pods, res.assignments), rounds=rounds[0])
+    print(json.dumps(out))
     return 0
 
 

@@ -40,6 +40,14 @@ def test_kernels_match_plain_versions_exactly(cuda):
     assert errs == {"contention_scan": 0, "domain_rank": 0}
 
 
+def test_reprieve_scan_matches_plain_version_exactly(cuda):
+    """K3 on chip_smoke.py's cases (the storm's widths, empty and 110-pod
+    segments, all reblocked, R = 8, extreme int32) against its plain
+    version."""
+    cs = _chip_smoke()
+    assert cs.check_k3(cuda, cs.k3_edge_cases(cuda, seed=1)) == 0
+
+
 def test_cuda_cycle_matches_cpu_cycle(cuda):
     nodes = make_nodes(100, zones=4, racks_per_zone=5)
     pods = flagship_pods(1000, groups=24)
@@ -79,3 +87,33 @@ def test_cuda_serving_drain_matches_cpu_drain(cuda, monkeypatch):
     assert runs[0] == runs[1]
     assert runs[0]["waves"][-1]["micro"] == 1
     assert "patch" in [w["mode"] for w in runs[0]["waves"]]
+
+
+def test_cuda_preempt_storm_matches_cpu_storm(cuda, monkeypatch):
+    """chip_smoke.py's phase-6 storm at 200 nodes: a 3,000-pod drain in
+    waves of 512, then 64 vips over 3 waves, the port's Scheduler with a
+    Preemptor on the card (K3) against the same script on the CPU."""
+    monkeypatch.setenv("KTPU_OVERLOAD", "0")
+    cs = _chip_smoke()
+    runs = []
+    for d in ("cuda", "cpu"):
+        api = cs.port_serving_api(torch.device(d))
+        bound = []
+        cs.serving_drain(api, 200, 3000, batch_size=512, keep_bound=bound)
+        runs.append(cs.preempt_storm(api, 200, bound, n_pods=3000, vips=64,
+                                     waves=3, batch_size=512))
+    assert runs[0] == runs[1]
+    assert runs[0]["evicted"] > 0
+
+
+def test_cuda_gang_cycle_matches_cpu_cycle(cuda):
+    """BASELINE config 5's workload at 100 nodes x 3,200 pods (one monster
+    job): the gang engine's rounds on the card against the CPU."""
+    from kubernetes_tpu_torch.models.workloads import gang_workload_pods
+
+    nodes, pods = make_nodes(100, zones=4, racks_per_zone=5), \
+        gang_workload_pods(3200)
+    gpu = ktt.BatchScheduler(device="cuda")
+    cpu = ktt.BatchScheduler(device="cpu")
+    assert gpu.schedule(nodes, [], pods).assignments == \
+        cpu.schedule(nodes, [], pods).assignments

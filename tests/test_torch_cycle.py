@@ -1,7 +1,7 @@
 """The port's BatchScheduler end to end against the JAX package's, on the CPU
 (device="cpu"): exact assignments on the flagship workload, the nodeName
-batch (sequential-scan route), the engines and batches it does not port yet
-(gang groups, KTPU_ASSIGN=runs) raising, the CUDA default refusing to run
+batch (sequential-scan route), the engine it does not port yet
+(KTPU_ASSIGN=runs, for a gang batch too) raising, the CUDA default refusing to run
 without a GPU, and the port's import boundary: neither kubernetes_tpu_torch
 nor its scripts (chip_smoke.py, scripts/torch_cycle_profile.py) import JAX
 or the JAX package."""
@@ -67,7 +67,11 @@ def test_scan_engine_env_matches_jax(monkeypatch):
     assert got.assignments == ref.assignments
 
 
-def test_gang_batch_raises():
+def test_gang_batch_raises(monkeypatch):
+    """A gang batch runs its rejection rounds on the engine KTPU_ASSIGN
+    names; the run-collapsed one is not ported and raises naming A9 (the
+    rounds on the wave engine: tests/test_torch_gang.py)."""
+    monkeypatch.setenv("KTPU_ASSIGN", "runs")
     nodes = make_nodes(8, zones=2, racks_per_zone=2)
     with pytest.raises(NotImplementedError, match="ROADMAP A9"):
         ktt.BatchScheduler(device="cpu").schedule(

@@ -124,3 +124,105 @@ def test_k2_plain_version_past_shared_memory():
     assert rank[1].tolist() == list(range(300))
     for i in range(300):
         assert int(rank[0, i]) == int((dom[0, :i] == dom[0, i]).sum())
+
+
+# --------------------------------------------------------------------------- #
+# K3 reprieve_scan: its CSR and what the wrapper refuses
+# --------------------------------------------------------------------------- #
+
+def _k3_args(B=2, N=3, E=5, R=4):
+    i32 = torch.int32
+    return [torch.zeros((E, R), dtype=i32), torch.zeros((B, R), dtype=i32),
+            torch.zeros((N, R), dtype=i32), torch.zeros((B, N, R), dtype=i32),
+            torch.zeros((B, N), dtype=torch.bool),
+            torch.ones((B, N), dtype=torch.bool),
+            torch.ones((B, E), dtype=torch.bool),
+            torch.zeros((B, E), dtype=torch.bool),
+            torch.zeros((B, E), dtype=torch.bool),
+            torch.zeros((N + 1,), dtype=i32),
+            torch.arange(E, dtype=i32).expand(B, E).contiguous()]
+
+
+def test_k3_check_takes_the_wrappers_shapes():
+    assert K.k3_check(_k3_args()) == (2, 3, 5, 4)
+    assert K.k3_check(_k3_args(B=8, N=5000, E=7, R=8)) == (8, 5000, 7, 8)
+
+
+def test_k3_refuses_r_past_its_registers():
+    with pytest.raises(ValueError, match="resource slots"):
+        K.k3_check(_k3_args(R=9))
+    with pytest.raises(ValueError, match="resource slots"):
+        K.k3_check(_k3_args(R=3))
+
+
+def test_k3_refuses_non_contiguous_inputs():
+    args = _k3_args()
+    args[6] = torch.ones((5, 2), dtype=torch.bool).T      # [B, E] view
+    with pytest.raises(ValueError, match="contiguous"):
+        K.k3_check(args)
+
+
+@pytest.mark.parametrize("i,bad", [
+    (0, torch.zeros((5, 4), dtype=torch.int64)),          # req_e int64
+    (5, torch.ones((2, 3), dtype=torch.int32)),           # cand not bool
+    (9, torch.zeros((2, 3), dtype=torch.int32)),          # seg_ptr [B, N], not [N + 1]
+    (2, torch.zeros((4, 4), dtype=torch.int32)),          # alloc [N+1, R]
+])
+def test_k3_refuses_wrong_dtypes_and_shapes(i, bad):
+    args = _k3_args()
+    args[i] = bad
+    with pytest.raises(ValueError):
+        K.k3_check(args)
+
+
+def test_k3_refuses_mixed_devices():
+    args = _k3_args()
+    args[3] = torch.empty((2, 3, 4), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="meta"):
+        K.reprieve_scan(*args)
+    with pytest.raises(ValueError, match="meta"):
+        K.k3_check(args)
+
+
+def test_k3_plain_version_on_cpu_tensors():
+    """On CPU tensors the wrapper is the plain version: here every pod is a
+    potential victim on a candidate node, all requests zero, so every one
+    is kept; the launch count does not move."""
+    from kubernetes_tpu_torch.ops.preempt import reprieve_segments
+
+    args = _k3_args()
+    node = torch.tensor([0, 2, 1, 0, 3], dtype=torch.int32)   # 3 = no node
+    args[9], args[10] = reprieve_segments(args[10].long(), node, 3)
+    before = K.reprieve_scan.launches
+    v = K.reprieve_scan(*args)
+    assert v.shape == (2, 5) and not v.any()
+    assert K.reprieve_scan.launches == before
+
+
+@pytest.mark.parametrize("node,ptr", [
+    ([0, 0, 0, 0], [0, 4, 4, 4]),            # one segment, two empty
+    ([3, 3, 3, 3], [0, 0, 0, 0]),            # every pod on no node
+    ([2, 1, 0, 3], [0, 1, 2, 3]),            # one each, one off-node
+])
+def test_k3_csr_segments(node, ptr):
+    from kubernetes_tpu_torch.ops.preempt import reprieve_segments
+
+    order = torch.tensor([[3, 1, 0, 2], [0, 1, 2, 3]])
+    node_t = torch.tensor(node, dtype=torch.int32)
+    seg_ptr, seg_e = reprieve_segments(order, node_t, 3)
+    assert seg_ptr.tolist() == ptr
+    for b in range(2):
+        e = seg_e[b].tolist()
+        # every pod once; grouped by node; each group in the lane's order
+        assert sorted(e) == [0, 1, 2, 3]
+        assert [node[x] for x in e] == sorted(node[x] for x in e)
+        rank = {x: i for i, x in enumerate(order[b].tolist())}
+        for n in range(4):
+            grp = [x for x in e if node[x] == n]
+            assert grp == sorted(grp, key=rank.get)
+
+
+def test_k3_is_built_with_the_other_kernels():
+    assert "reprieve_scan" in K.KERNELS
+    assert K.library_path("reprieve_scan").name.startswith("libreprieve_scan-")
+    assert K.launch_counts()["reprieve_scan"] == K.reprieve_scan.launches

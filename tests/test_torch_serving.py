@@ -515,7 +515,6 @@ def test_governor_gates_the_port_scheduler_like_the_jax_one():
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(preemptor=object()), "A9"),
     (dict(extenders=[object()]), "A11"),
     (dict(framework=object()), "A11"),
     (dict(mesh=2), "A13"),
@@ -539,6 +538,10 @@ def test_unported_switches_raise(monkeypatch, env, val, item):
 
 
 def test_gang_batch_and_runs_engine_raise(monkeypatch):
+    """The run-collapsed engine is not ported: KTPU_ASSIGN=runs raises at
+    the first wave, for a gang batch (whose rounds would run it) as for a
+    plain one."""
+    monkeypatch.setenv("KTPU_ASSIGN", "runs")
     s = TScheduler(binder=TBinder(), device="cpu")
     s.on_node_add(TT.Node(name="n0", allocatable=TT.Resources.make(
         cpu="4", memory="8Gi", pods=110)))
@@ -546,6 +549,7 @@ def test_gang_batch_and_runs_engine_raise(monkeypatch):
                         requests=TT.Resources.make(cpu="1", memory="1Gi")))
     with pytest.raises(NotImplementedError, match="A9"):
         s.schedule_pending()
+    monkeypatch.delenv("KTPU_ASSIGN")
     s2 = TScheduler(binder=TBinder(), device="cpu")
     s2.on_node_add(TT.Node(name="n0", allocatable=TT.Resources.make(
         cpu="4", memory="8Gi", pods=110)))

@@ -43,9 +43,10 @@ Phases, each fatal on failure (exit code != 0, no result line):
      a PodDisruptionBudget, up to STORM_WAVES waves. Per-wave counts,
      evictions, nominations, the evicted keys and the vips' binder order
      equal the JAX package's recorded constants; K3 launches in it and
-     equals its plain version on the first burst's inputs (and on phase 2's
-     K3 edge cases: empty and 110-pod segments, all reblocked, R = 8,
-     extreme int32). Prints each wave's split (snapshot, build_cycle,
+     equals its plain version, on all seven outputs, on the first burst's
+     inputs (and on phase 2's K3 edge cases: empty, 110-pod and 2,000-pod
+     segments, all reblocked, R = 7 and 8, 33 lanes, INT32_MIN priorities,
+     extreme int32, no pods). Prints each wave's split (snapshot, build_cycle,
      what-if, K3, readback) and K3's time against its bound;
   7. BASELINE config 5: BatchScheduler(device="cuda") on 5,000 nodes x
      100,000 gang pods (gang_workload_pods): placements, dead groups and
@@ -349,15 +350,18 @@ def check_kernels(device, cases_k1, cases_k2) -> dict:
 
 
 def k3_inputs(gen, device, B, N, E, R, p_vict=0.7, p_cand=0.8,
-              p_reblock=0.2, extreme=False, node_of=None):
-    """Random K3 inputs with each lane's CSR built as the port builds it
-    (ops/preempt.py reprieve_segments) from a random reprieve order:
-    potential victims first. `node_of` fixes each pod's node (N = on no
-    node); by default 1 pod in 20 is on no node. `extreme` draws requests,
-    allocatable and used from int32 edge values, so the sums wrap."""
-    import numpy as np
+              p_reblock=0.2, p_clash=0.05, extreme=False, node_of=None,
+              prios=None):
+    """Random K3 inputs in K3_ARGS order, with the reprieve order built as
+    the port builds it (ops/preempt.py reprieve_order). `node_of` fixes
+    each pod's node (N = on no node); by default 1 pod in 20 is on no node.
+    Each node's used counts its pods' requests over a random base, and its
+    allocatable leaves room for part of them, so walks both reprieve and
+    evict; its pods slot holds at least its pods. `extreme` draws requests,
+    allocatable and used from int32 edge values, so the sums wrap;
+    `prios` draws each pod's priority from the given values."""
     import torch
-    from kubernetes_tpu_torch.ops.preempt import reprieve_segments
+    from kubernetes_tpu_torch.ops.preempt import reprieve_order
 
     def ints(*shape, lo, hi):
         return torch.randint(lo, hi, shape, generator=gen,
@@ -366,12 +370,17 @@ def k3_inputs(gen, device, B, N, E, R, p_vict=0.7, p_cand=0.8,
     def flags(*shape, p):
         return torch.rand(shape, generator=gen) < p
 
+    if node_of is None:
+        node_of = ints(E, lo=0, hi=N)
+        node_of[flags(E, p=0.05)] = N
+    on = node_of < N
     if extreme:
         edge = torch.tensor([0, 1, -1, 2**31 - 1, -(2**31), 2**30, 7],
                             dtype=torch.int32)
         pick = lambda *s: edge[torch.randint(0, len(edge), s, generator=gen)]
-        req_e, req_p, alloc, used = pick(E, R), pick(B, R), pick(N, R), \
-            pick(B, N, R)
+        req_e, alloc, used = pick(E, R), pick(N, R), pick(N, R)
+        low = edge[[0, 1, 2, 4, 6]]   # so that some nodes are candidates
+        req_p = low[torch.randint(0, len(low), (B, R), generator=gen)]
     else:
         req_e = ints(E, R, lo=0, hi=1500)
         req_e[:, 3] = 1
@@ -379,33 +388,42 @@ def k3_inputs(gen, device, B, N, E, R, p_vict=0.7, p_cand=0.8,
         req_p[:, 3] = 1
         if R > 4:   # zero scalar requests, which the fit test ignores
             req_p[:, 4:] *= flags(B, R - 4, p=0.5)
-        alloc = ints(N, R, lo=2000, hi=6000)
-        alloc[:, 3] = 110
-        used = (alloc.float() * torch.rand((B, N, R), generator=gen)
-                ).to(torch.int32)
-    if node_of is None:
-        node_of = ints(E, lo=0, hi=N)
-        node_of[flags(E, p=0.05)] = N
-    vict_pot = flags(B, E, p=p_vict) & (node_of < N)[None]
-    prio = ints(E, lo=0, hi=5)
-    order = torch.stack([torch.from_numpy(np.lexsort((
-        np.arange(E), -prio.numpy(), ~vict_pot[b].numpy()))) for b in range(B)])
-    seg_ptr, seg_e = reprieve_segments(order, node_of, N)
-    args = (req_e, req_p, alloc, used, flags(B, N, p=0.1), flags(B, N, p=p_cand),
-            vict_pot, flags(B, E, p=0.1), flags(B, E, p=p_reblock), seg_ptr,
-            seg_e)
+        total = torch.zeros((N + 1, R), dtype=torch.int64).index_add_(
+            0, node_of.long(), req_e.long())[:N]
+        base = ints(N, R, lo=0, hi=1000).long()
+        base[:, 3] = 0
+        used = (base + total).to(torch.int32)
+        alloc = (base + total * (0.4 + 0.6 * torch.rand((N, R), generator=gen))
+                 + ints(N, R, lo=1000, hi=4000)).to(torch.int32)
+        alloc[:, 3] = torch.clamp(total[:, 3] + 10, min=110).to(torch.int32)
+    prio = (ints(E, lo=0, hi=5) if prios is None else torch.tensor(
+        prios, dtype=torch.int32)[torch.randint(0, len(prios), (E,),
+                                                generator=gen)])
+    pdb = flags(E, p=0.3)
+    seg_ptr, seg_e = reprieve_order(node_of, prio, pdb, N)
+    args = (seg_ptr, seg_e, req_e, prio, pdb, ints(E, lo=0, hi=10**6), req_p,
+            flags(B, E, p=p_vict) & on[None], flags(B, E, p=p_clash),
+            flags(B, E, p=p_reblock), used, alloc, flags(N, p=0.95),
+            flags(B, N, p=p_cand))
     return tuple(t.to(device).contiguous() for t in args)
 
 
 def k3_edge_cases(device, seed: int = 0):
     """K3's cases: the storm's widths (8 lanes, 5,000 nodes, 50,000 pods),
-    mostly empty segments, 110-pod segments (a node's pod cap), every pod
-    reblocked, R = 8 with zero scalar requests, extreme int32 requests, one
-    lane of one node."""
+    mostly empty segments, 110-pod segments (the flagship's pod cap), a
+    2,000-pod segment (longer than any shared-memory stage), every pod
+    reblocked, R = 8 with zero scalar requests, R = 7 with 33 lanes (past a
+    warp), INT32_MIN and INT32_MAX priorities (the order and max_p traps,
+    wrapping priority sums), extreme int32 requests, no pods, one lane of
+    one node."""
     import torch
 
     gen = torch.Generator().manual_seed(seed)
     full = torch.arange(440, dtype=torch.int32) // 110
+    long_seg = torch.cat([torch.zeros(2000, dtype=torch.int32),
+                          torch.ones(1900, dtype=torch.int32),
+                          torch.full((100,), 2, dtype=torch.int32)])
+    edge_prios = (-(2**31), -(2**31) + 1, 0, 1, 5, 2**30, 2**31 - 1)
     return [
         ("storm widths B=8 N=5000 E=50000 R=4",
          k3_inputs(gen, device, 8, 5000, 50000, 4)),
@@ -414,35 +432,52 @@ def k3_edge_cases(device, seed: int = 0):
         ("110-pod segments B=8 N=4 E=440, all potential victims",
          k3_inputs(gen, device, 8, 4, 440, 4, p_vict=1.0, p_cand=1.0,
                    p_reblock=0.0, node_of=full)),
+        ("2000-pod segment B=4 N=2 E=4000",
+         k3_inputs(gen, device, 4, 2, 4000, 4, p_cand=1.0, p_reblock=0.05,
+                   p_clash=0.0, node_of=long_seg)),
         ("all reblocked B=4 N=50 E=2000",
          k3_inputs(gen, device, 4, 50, 2000, 5, p_reblock=1.0)),
         ("R=8 with zero scalar requests B=8 N=333 E=5000",
          k3_inputs(gen, device, 8, 333, 5000, 8)),
+        ("33 lanes B=33 N=200 E=3000 R=7",
+         k3_inputs(gen, device, 33, 200, 3000, 7)),
+        ("INT32_MIN/MAX priorities B=8 N=100 E=2000",
+         k3_inputs(gen, device, 8, 100, 2000, 4, prios=edge_prios)),
         ("extreme int32 B=5 N=129 E=3000 R=6",
          k3_inputs(gen, device, 5, 129, 3000, 6, extreme=True)),
+        ("no pods B=2 N=10 E=0", k3_inputs(gen, device, 2, 10, 0, 4)),
         ("B=1 N=1 E=1", k3_inputs(gen, device, 1, 1, 1, 4)),
     ]
 
 
 def k3_diff(a, b) -> int:
+    """Max abs difference over K3's seven outputs (victim, cand and the
+    five per-node planes)."""
     import torch
 
-    if a.shape != b.shape:
-        fail(f"K3 output shape {tuple(a.shape)} != {tuple(b.shape)}")
-    return int((a.to(torch.int64) - b.to(torch.int64)).abs().max()) \
-        if a.numel() else 0
+    d = 0
+    for name, x, y in zip(a._fields, a, b):
+        if x.shape != y.shape or x.dtype != y.dtype:
+            fail(f"K3 {name}: {tuple(x.shape)} {x.dtype} != "
+                 f"{tuple(y.shape)} {y.dtype}")
+        if x.numel():
+            d = max(d, int((x.to(torch.int64) - y.to(torch.int64)).abs()
+                           .max()))
+    return d
 
 
 def check_k3(device, cases) -> int:
-    """K3 against its plain version on the card, exactly. Returns the max
-    abs error."""
+    """K3 against its plain version on the card, exactly, on all seven
+    outputs. Returns the max abs error."""
     from kubernetes_tpu_torch.ops import kernels as K
 
     err = 0
     for name, args in cases:
-        d = k3_diff(K.reprieve_scan(*args), K.reprieve_scan_plain(*args))
+        out = K.reprieve_scan(*args)
+        d = k3_diff(out, K.reprieve_scan_plain(*args))
         sync(device)
-        print(f"  K3 {name}: max_abs_err={d}")
+        print(f"  K3 {name}: {int(out.cand.sum())} candidate walks, "
+              f"{int(out.victim.sum())} victims, max_abs_err={d}")
         if d != 0:
             fail(f"reprieve_scan disagrees with its plain version ({name})")
         err = max(err, d)
@@ -1299,41 +1334,47 @@ class PreemptTimer:
 
 
 def k3_bound(args, out) -> tuple:
-    """(bound_ms, bound_by) for K3, counted over what this run's walks read
-    (csrc/reprieve_scan.cu's header): cand [B, N] for every thread; per
-    candidate node its alloc row and two seg_ptr entries; per walk of a
-    non-empty candidate segment its used_wo row and conflict_wo byte; per
-    step its seg_e entry and vict_pot flag; per potential-victim step its
-    c_e and reblock flags and, once over all lanes, the pod's req_e row;
-    req_p; the victim mask [B, E] written once. Pods on no node and the
-    segments of non-candidate nodes are never read. Operations: about
-    3R + 10 per potential-victim step and 2 per other step."""
+    """(bound_ms, bound_by) for K3, counted over what this run's data needs
+    (csrc/reprieve_scan.cu's header): cand_rest [B, N], valid [N] and req_p
+    once; per node some lane may choose (valid and cand_rest) two seg_ptr
+    entries and its used and alloc rows; per position of such a node's
+    segment its seg_e entry, and vict_pot and c_e per lane that may choose
+    the node; the request row of each pod that is a potential victim in
+    such a lane; reblock per potential-victim step of a candidate walk;
+    priority, creation and PDB byte of each pod evicted in some lane;
+    victim [B, E], cand [B, N] and the five int32 [B, N] planes written
+    once. Operations: R + 3 per (lane, position) of pass 1 and 3R + 10 per
+    potential-victim step of the walk."""
     import torch
 
-    (_req_e, _req_p, _alloc, used_wo, _conf, cand, vict_pot, _c_e, _rb,
-     seg_ptr, seg_e) = args
-    B, N, R = used_wo.shape
-    E = seg_e.shape[1]
+    (seg_ptr, seg_e, _req_e, _prio, _pdb, _cre, _req_p, vict_pot, _c_e, _rb,
+     used, _alloc, valid, cand_rest) = args
+    B, E = vict_pot.shape
+    N, R = used.shape
     ptr = seg_ptr.long()
     seglen = ptr[1:] - ptr[:-1]
-    on = int(ptr[N])     # positions [0, on) of each lane's seg_e are on a node
+    on = int(ptr[N])     # positions [0, on) of seg_e are on a node
     node_at = torch.repeat_interleave(
         torch.arange(N, device=seg_e.device), seglen)
-    walked = cand[:, node_at]                                   # [B, on]
-    e = seg_e[:, :on].long()
-    vstep = walked & torch.gather(vict_pot, 1, e)
-    rows = torch.zeros(E, dtype=torch.bool, device=seg_e.device)
-    rows[e[vstep]] = True
-    walks = int((cand & (seglen > 0)[None]).sum())
-    nodes = int(cand.any(0).sum())
-    steps, vsteps = int(walked.sum()), int(vstep.sum())
-    b = (B * N + nodes * (4 * R + 8) + walks * (4 * R + 1) + steps * 5
-         + vsteps * 2 + int(rows.sum()) * 4 * R + B * 4 * R + out.numel())
-    ops = vsteps * (3 * R + 10) + (steps - vsteps) * 2
+    e = seg_e[:on].long()
+    live = cand_rest & valid[None]                              # [B, N]
+    live_nodes = live.any(0)
+    live_pos = live[:, node_at]                                 # [B, on]
+    vp = vict_pot[:, e]
+    rows = int((vp & live_pos).any(0).sum())
+    steps = int((out.cand[:, node_at] & vp).sum())
+    lane_pos = int(live_pos.sum())
+    evicted = int(out.victim.any(0).sum())
+    b = (B * N + N + B * 4 * R + int(live_nodes.sum()) * (8 + 8 * R)
+         + int(live_nodes[node_at].sum()) * 4 + lane_pos * 2 + rows * 4 * R
+         + steps + evicted * 9 + B * E + B * N + 5 * 4 * B * N)
+    ops = lane_pos * (R + 3) + steps * (3 * R + 10)
     t_b, t_o = b / HBM_BYTES_PER_S, ops / CUDA_CORE_OPS_PER_S
-    print(f"  K3's bound counts {walks} walks over {steps} steps "
-          f"({vsteps} at potential victims, {int(rows.sum())} distinct "
-          f"pods' request rows): {b} bytes, {ops} operations")
+    print(f"  K3's bound counts {int(live_nodes.sum())} nodes some lane may "
+          f"choose, {lane_pos} (lane, position) pairs of pass 1, "
+          f"{int(out.cand.sum())} candidate walks over {steps} "
+          f"potential-victim steps, {rows} request rows, {evicted} evicted "
+          f"pods: {b} bytes, {ops} operations")
     return (max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations")
 
 
@@ -1432,14 +1473,15 @@ def preempt_phase(device, bound) -> dict:
     out3 = K.reprieve_scan(*a3)
     errs["reprieve_scan"] = k3_diff(out3, K.reprieve_scan_plain(*a3))
     sync(device)
-    B, N, R = a3[3].shape
+    (B, E), (N, R) = a3[7].shape, a3[10].shape
     print(f"  the storm's widest K1 and K2 launches and its first K3 launch: "
           f"K1 {tuple(recs[0].args[0].shape)} "
           f"max_abs_err={errs['contention_scan']}; K2 "
           f"{tuple(recs[1].args[0].shape)} D+1={recs[1].args[1]} "
-          f"max_abs_err={errs['domain_rank']}; K3 B={B} N={N} "
-          f"E={a3[0].shape[0]} R={R}, {int(out3.sum())} victims, "
-          f"max_abs_err={errs['reprieve_scan']}")
+          f"max_abs_err={errs['domain_rank']}; K3 B={B} N={N} E={E} R={R}, "
+          f"{int(out3.cand.sum())} candidate walks, "
+          f"{int(out3.victim.sum())} victims, "
+          f"max_abs_err={errs['reprieve_scan']} over all seven outputs")
     if any(errs.values()):
         fail("a kernel disagrees with its plain version on the storm's "
              "inputs")

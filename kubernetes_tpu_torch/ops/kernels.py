@@ -8,8 +8,10 @@ replaces and what bounds it at the top of each source):
     (JAX package ops/waves.py:438-503);
   * K2 `domain_rank` — the rank-in-domain of the domain-quota pass
     (JAX package ops/waves.py:165-174);
-  * K3 `reprieve_scan` — the reprieve pass of preemption, per (lane, node)
-    (JAX package ops/preempt.py:183-200).
+  * K3 `reprieve_scan` — the per-node half of the preemption what-if, per
+    (lane, node): pass 1, the fit half of the candidate test, the reprieve
+    walk and the node-choice summaries (JAX package ops/preempt.py:128-156,
+    183-217).
 
 Each wrapper takes its plain version for tensors on the CPU and launches its
 kernel for tensors on a CUDA device — never falling back from one to the
@@ -50,7 +52,7 @@ _I = ctypes.c_int
 _ARGTYPES = {
     "contention_scan_launch": [_P] * 21 + [_I] * 11 + [_P],
     "domain_rank_launch": [_P] * 3 + [_I] * 7 + [_P],
-    "reprieve_scan_launch": [_P] * 12 + [_I] * 4 + [_P],
+    "reprieve_scan_launch": [_P] * 17 + [_I] * 4 + [_P],
 }
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
@@ -379,83 +381,146 @@ domain_rank.launches = 0
 K3_MAX_R = 8    # resource slots K3 carries in registers
 
 
-def reprieve_scan_plain(req_e, req_p, alloc, used_wo, conflict_wo, cand,
-                        vict_pot, c_e, reblock, seg_ptr, seg_e) -> torch.Tensor:
-    """The plain version of K3: a loop over the position k within a
+class K3Out(NamedTuple):
+    victim: torch.Tensor    # [B, E] bool — evicted by the walk
+    cand: torch.Tensor      # [B, N] bool — preemption would work on n
+    num_v: torch.Tensor     # [B, N] int32 — the node's victims ...
+    sum_p: torch.Tensor     # ... their priority sum (wrapping)
+    max_p: torch.Tensor     # ... their highest priority, -INT32_MAX if none
+    num_pdb: torch.Tensor   # ... how many are PDB-blocked
+    est: torch.Tensor       # ... least creation at max_p, INT32_MAX if none
+
+
+def _scatter(values: torch.Tensor, idx: torch.Tensor, n: int, fill: int,
+             reduce: str) -> torch.Tensor:
+    """Scatter [B, E] values into n + 1 slots per lane by idx (slot n the
+    discard bucket), starting from `fill`, and drop the last slot."""
+    out = torch.full((values.shape[0], n + 1), fill, dtype=values.dtype,
+                     device=values.device)
+    if reduce == "sum":
+        out = out.scatter_add_(1, idx, values)
+    else:
+        out = out.scatter_reduce_(1, idx, values, reduce=reduce,
+                                  include_self=True)
+    return out[:, :n]
+
+
+def reprieve_scan_plain(seg_ptr, seg_e, req_e, prio_e, pdb_e, creation_e,
+                        req_p, vict_pot, c_e, reblock, used, alloc, valid,
+                        cand_rest) -> K3Out:
+    """The plain version of K3: pass 1 and the summaries as scatters over
+    the pods' nodes, the walk as a loop over the position k within a
     segment, up to the longest segment, with every (lane, node) walk
     advancing one pod per step.
 
-    req_e [E, R] and req_p [B, R] int32 requests of the existing pods and
-    of each lane's preemptor; alloc [N, R]; used_wo [B, N, R] and
-    conflict_wo [B, N] the carries with every potential victim removed;
-    cand [B, N] candidate nodes; vict_pot, c_e (port clash with the
-    preemptor) and reblock [B, E] bool; seg_e [B, E] int32, each lane's
-    pods grouped by node in reprieve order, and seg_ptr [N + 1] int32, the
-    start of each node's segment (the same in every lane).
-    Returns victim [B, E] bool (see csrc/reprieve_scan.cu)."""
-    B, N, _ = used_wo.shape
-    E = req_e.shape[0]
-    victim = torch.zeros((B, E), dtype=torch.bool, device=req_e.device)
-    start = seg_ptr[:N].long().expand(B, N)
-    length = seg_ptr[1:].long() - start
-    if B * N == 0 or E == 0:
-        return victim
-    used, conflict = used_wo, conflict_wo
-    seg = seg_e.long()
-    lanes = torch.arange(B, device=req_e.device)[:, None].expand(B, N)
-    for k in range(int(length.max())):
-        active = k < length
-        e = torch.where(active, torch.gather(
-            seg, 1, (start + k).clamp(max=E - 1)), 0)
-        is_v = active & cand & torch.gather(vict_pot, 1, e)
-        new_used = used + req_e[e]
+    The reprieve order, the same in every lane (ops/preempt.py
+    reprieve_order): seg_e [E] int32 holds node n's pods at
+    seg_ptr[n] : seg_ptr[n + 1] (seg_ptr [N + 1] int32), pods on no node
+    past seg_ptr[N]. The pods: req_e [E, R] int32 requests, prio_e and
+    creation_e [E] int32, pdb_e [E] bool. The lanes: req_p [B, R] int32,
+    vict_pot, c_e (port clash with the lane's preemptor) and reblock [B, E]
+    bool. The nodes: used and alloc [N, R] int32, valid [N] bool, and
+    cand_rest [B, N] bool, every candidate test but the fit and the port
+    clash. Returns K3Out (see csrc/reprieve_scan.cu)."""
+    B, E = vict_pot.shape
+    N, R = used.shape
+    dev = used.device
+    i32 = torch.int32
+    ptr = seg_ptr.long()
+    start, length = ptr[:N], ptr[1:] - ptr[:N]
+    node_of = torch.full((E,), N, dtype=torch.long, device=dev)
+    on = int(ptr[N]) if N else 0
+    node_of[seg_e[:on].long()] = torch.repeat_interleave(
+        torch.arange(N, device=dev), length)
+    slot = node_of.expand(B, E)
+
+    # pass 1: every potential victim removed
+    removed = torch.zeros((B, N + 1, R), dtype=i32, device=dev).scatter_add_(
+        1, slot[..., None].expand(B, E, R),
+        torch.where(vict_pot[..., None], req_e[None], 0))[:, :N]
+    used_wo = used[None] - removed                               # [B, N, R]
+    live_clash = (c_e & ~vict_pot & (node_of < N)[None]).to(i32)
+    conflict = _scatter(live_clash, slot, N, 0, "amax") > 0      # [B, N]
+    cand = (cand_rest & valid[None] & ~conflict
+            & _fit(req_p[:, None, :], alloc[None] - used_wo))
+
+    # pass 2: the walk
+    victim = torch.zeros((B, E), dtype=torch.bool, device=dev)
+    used_c = used_wo
+    for k in range(int(length.max()) if N else 0):
+        active = k < length                                      # [N]
+        e = torch.where(active, seg_e[(start + k).clamp(max=E - 1)].long(),
+                        0)                                       # [N]
+        is_v = active[None] & cand & vict_pot[:, e]
+        new_used = used_c + req_e[e][None]
         fit = _fit(req_p[:, None, :], alloc[None] - new_used)
-        new_conf = conflict | torch.gather(c_e, 1, e)
-        keep = is_v & fit & ~new_conf & ~torch.gather(reblock, 1, e)
-        used = torch.where(keep[..., None], new_used, used)
+        new_conf = conflict | c_e[:, e]
+        keep = is_v & fit & ~new_conf & ~reblock[:, e]
+        used_c = torch.where(keep[..., None], new_used, used_c)
         conflict = torch.where(keep, new_conf, conflict)
-        victim[lanes[active], e[active]] = (is_v & ~keep)[active]
-    return victim
+        victim[:, e[active]] = (is_v & ~keep)[:, active]
+
+    # the node's victims, summarised for pickOneNodeForPreemption
+    idx = torch.where(victim, slot, N)
+    prio = prio_e[None].expand(B, E)
+    num_v = _scatter(victim.to(i32), idx, N, 0, "sum")
+    sum_p = _scatter(torch.where(victim, prio, 0), idx, N, 0, "sum")
+    max_p = _scatter(torch.where(victim, prio, -INT32_MAX), idx, N,
+                     -INT32_MAX, "amax")
+    num_pdb = _scatter((victim & pdb_e[None]).to(i32), idx, N, 0, "sum")
+    top = torch.gather(max_p, 1, slot.clamp(max=max(N - 1, 0))) \
+        if N else torch.zeros((B, E), dtype=i32, device=dev)
+    is_top = victim & (prio == top)
+    est = _scatter(torch.where(is_top, creation_e[None].expand(B, E),
+                               INT32_MAX), idx, N, INT32_MAX, "amin")
+    return K3Out(victim, cand, num_v, sum_p, max_p, num_pdb, est)
 
 
-K3_ARGS = ("req_e", "req_p", "alloc", "used_wo", "conflict_wo", "cand",
-           "vict_pot", "c_e", "reblock", "seg_ptr", "seg_e")
+K3_ARGS = ("seg_ptr", "seg_e", "req_e", "prio_e", "pdb_e", "creation_e",
+           "req_p", "vict_pot", "c_e", "reblock", "used", "alloc", "valid",
+           "cand_rest")
+K3_BOOL = {"pdb_e", "vict_pot", "c_e", "reblock", "valid", "cand_rest"}
 
 
 def k3_check(args) -> Tuple[int, int, int, int]:
     """What K3 takes, checked before a launch: one device, contiguous
-    tensors, int32 requests/carries/CSR and bool flags, consistent shapes,
-    4 <= R <= K3_MAX_R. Returns (B, N, E, R); raises ValueError."""
+    tensors, int32 CSR/requests/priorities/creations and bool flags,
+    consistent shapes, 4 <= R <= K3_MAX_R. Returns (B, N, E, R); raises
+    ValueError."""
     _check(args, args[0].device)
-    req_e, req_p, alloc, used_wo = args[:4]
-    if used_wo.dim() != 3 or req_e.dim() != 2:
-        raise ValueError("used_wo must be [B, N, R] and req_e [E, R]")
-    B, N, R = used_wo.shape
-    E = req_e.shape[0]
-    ints = {"req_e", "req_p", "alloc", "used_wo", "seg_ptr", "seg_e"}
-    want = ((E, R), (B, R), (N, R), (B, N, R), (B, N), (B, N), (B, E),
-            (B, E), (B, E), (N + 1,), (B, E))
-    for name, t, shape in zip(K3_ARGS, args, want):
-        dtype = torch.int32 if name in ints else torch.bool
+    named = dict(zip(K3_ARGS, args))
+    req_e, req_p, used = named["req_e"], named["req_p"], named["used"]
+    if req_e.dim() != 2 or req_p.dim() != 2 or used.dim() != 2:
+        raise ValueError("req_e must be [E, R], req_p [B, R] and used [N, R]")
+    E, R = req_e.shape
+    B, N = req_p.shape[0], used.shape[0]
+    want = {"seg_ptr": (N + 1,), "seg_e": (E,), "req_e": (E, R),
+            "prio_e": (E,), "pdb_e": (E,), "creation_e": (E,),
+            "req_p": (B, R), "vict_pot": (B, E), "c_e": (B, E),
+            "reblock": (B, E), "used": (N, R), "alloc": (N, R),
+            "valid": (N,), "cand_rest": (B, N)}
+    for name, t in named.items():
+        dtype = torch.bool if name in K3_BOOL else torch.int32
         if t.dtype != dtype:
             raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
-        if tuple(t.shape) != shape:
+        if tuple(t.shape) != want[name]:
             raise ValueError(f"{name} has shape {tuple(t.shape)}, "
-                             f"expected {shape}")
+                             f"expected {want[name]}")
     if not 4 <= R <= K3_MAX_R:
         raise ValueError(f"K3 carries 4 to {K3_MAX_R} resource slots in "
                          f"registers, got R={R}")
     return B, N, E, R
 
 
-def reprieve_scan(req_e, req_p, alloc, used_wo, conflict_wo, cand,
-                  vict_pot, c_e, reblock, seg_ptr, seg_e) -> torch.Tensor:
+def reprieve_scan(seg_ptr, seg_e, req_e, prio_e, pdb_e, creation_e, req_p,
+                  vict_pot, c_e, reblock, used, alloc, valid,
+                  cand_rest) -> K3Out:
     """K3 (see reprieve_scan_plain for the arguments): the plain version on
     the CPU, the CUDA kernel on a CUDA device; tensors on mixed devices
     raise."""
-    args = (req_e, req_p, alloc, used_wo, conflict_wo, cand, vict_pot, c_e,
-            reblock, seg_ptr, seg_e)
-    device = _device_of(req_e)
+    args = (seg_ptr, seg_e, req_e, prio_e, pdb_e, creation_e, req_p,
+            vict_pot, c_e, reblock, used, alloc, valid, cand_rest)
+    device = _device_of(used)
     for name, t in zip(K3_ARGS, args):
         if t.device != device:
             raise ValueError(f"{name} on {t.device}, expected {device}")
@@ -463,10 +528,13 @@ def reprieve_scan(req_e, req_p, alloc, used_wo, conflict_wo, cand,
         return reprieve_scan_plain(*args)
     B, N, E, R = k3_check(args)
     victim = torch.zeros((B, E), dtype=torch.bool, device=device)
+    cand = torch.empty((B, N), dtype=torch.bool, device=device)
+    planes = torch.empty((5, B, N), dtype=torch.int32, device=device)
     _launch("reprieve_scan", *(t.data_ptr() for t in args),
-            victim.data_ptr(), B, N, E, R, _stream(device))
+            victim.data_ptr(), cand.data_ptr(), planes.data_ptr(), B, N, E,
+            R, _stream(device))
     reprieve_scan.launches += 1
-    return victim
+    return K3Out(victim, cand, *planes.unbind(0))
 
 
 reprieve_scan.launches = 0

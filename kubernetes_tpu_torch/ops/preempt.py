@@ -4,16 +4,18 @@ five-criteria node choice of pickOneNodeForPreemption, the PDB-aware
 reprieve order, and the documented conservatism of the reblock bits).
 
 The JAX package vmaps `preempt_for_pod` over the B preemptor lanes of a
-burst. Here the lanes are a leading [B] axis: the node planes of the
-what-if are [B, N, ...] tensors, the per-pod planes [B, E]. The term counts
-with every potential victim removed (CNT_wo, HOLD_wo) and the affinity and
-spread rows built from them depend on the lane only through its priority,
-so they are computed once per distinct priority in the burst. The reprieve
-scan — a lax.scan over all E existing pods in the JAX package — is K3
-`reprieve_scan` (csrc/reprieve_scan.cu), one launch per burst over every
-(lane, node) walk; each lane's reprieve order reaches it grouped by node as
-a CSR. The node choice is the lexicographic argmin over five keys, as a
-chain of stable sorts.
+burst. Here the lanes are a leading [B] axis. The term counts with every
+potential victim removed (CNT_wo, HOLD_wo) and the affinity and spread
+rows built from them depend on the lane only through its priority, so they
+are computed once per distinct priority in the burst. The per-node half of
+the what-if — pass 1 of selectVictimsOnNode (every potential victim
+removed, the fit and port-clash half of the candidate test), the reprieve
+scan (a lax.scan over all E existing pods in the JAX package) and the
+per-node summaries the node choice ranks — is K3 `reprieve_scan`
+(csrc/reprieve_scan.cu), one launch per burst over every (lane, node). Its
+reprieve order is the same in every lane, so it is built once per burst
+over [E] (`reprieve_order`). The node choice is the lexicographic argmin
+over five keys, as a chain of stable sorts over [B, N].
 """
 
 from __future__ import annotations
@@ -24,7 +26,6 @@ import torch
 
 from ..state.arrays import Array, ClusterTables, PodArrays
 from .assign import lexsort, neg_i32
-from .fit import _fit
 from .interpod import affinity_rows, domain_of_term, per_node_counts
 from .kernels import reprieve_scan
 from .lattice import CycleArrays
@@ -62,32 +63,23 @@ def _pairwise_port_conflict(tables: ClusterTables, cls: Array,
     return (hits | trip) & (ps_p >= 0)[:, None] & (ps_e >= 0)[None, :]
 
 
-def _scatter(values: Array, idx: Array, n: int, fill: int,
-             reduce: str) -> Array:
-    """Scatter [B, E] values into n + 1 slots per lane by idx (slot n the
-    discard bucket), starting from `fill`, and drop the last slot."""
-    out = torch.full((values.shape[0], n + 1), fill, dtype=values.dtype,
-                     device=values.device)
-    if reduce == "sum":
-        out = out.scatter_add_(1, idx, values)
-    else:
-        out = out.scatter_reduce_(1, idx, values, reduce=reduce,
-                                  include_self=True)
-    return out[:, :n]
-
-
-def reprieve_segments(order: Array, node_e_safe: Array, N: int):
-    """Each lane's reprieve order grouped by node, as K3's CSR: seg_e [B, E]
-    is the order stably sorted by node (pods on no node, node N, last) and
-    seg_ptr [N + 1] the start of each node's segment (a node holds the same
-    pods in every lane)."""
-    node_of = node_e_safe[order]                                 # [B, E]
-    seg_e = torch.gather(order, 1, torch.argsort(node_of, dim=1,
-                                                 stable=True))
+def reprieve_order(node_e_safe: Array, priority: Array, pdb_blocked: Array,
+                   N: int):
+    """K3's reprieve order, the same for every lane, as a CSR over [E]: node
+    n's pods are seg_e[seg_ptr[n] : seg_ptr[n + 1]], PDB-blocked ones first
+    (generic_scheduler.go:1149-1156), each group by priority descending
+    through jnp's wrapped negation (a pod at INT32_MIN sorts first, as in
+    the JAX package), then by index; pods on no node (node N) come last.
+    Restricted to one lane's potential victims on a node, it is that lane's
+    JAX order lexsort((e, -prio, ~pdb_blocked, ~vict_pot[b])): the walk
+    skips every other pod. Two stable sorts over [E]."""
+    key = ((~pdb_blocked).long() << 32) | (neg_i32(priority).long() + 2**31)
+    order = torch.argsort(key, stable=True)
+    order = order[torch.argsort(node_e_safe[order], stable=True)]
     counts = torch.bincount(node_e_safe.long(), minlength=N + 1)[:N]
     seg_ptr = torch.zeros((N + 1,), dtype=torch.int64, device=order.device)
     seg_ptr[1:] = torch.cumsum(counts, 0)
-    return seg_ptr.to(torch.int32), seg_e.to(torch.int32).contiguous()
+    return seg_ptr.to(torch.int32), order.to(torch.int32)
 
 
 def preempt_batch(
@@ -121,24 +113,14 @@ def preempt_batch(
                                    < priority[:, None])          # [B, E]
     node_e_safe = torch.where(on_node, node_e, N)
     n_idx = node_e_safe.clamp(max=N - 1).long()                  # [E]
-    slot = node_e_safe.long()[None, :].expand(B, E)
 
-    # ---- what-if: all potential victims removed (selectVictimsOnNode pass 1)
     req_e = tables.reqs.vec[classes.rid[cls_e].long()]           # [E, R]
-    R = req_e.shape[1]
-    vict_req = torch.where(vict_pot[..., None], req_e[None], 0)  # [B, E, R]
-    removed = torch.zeros((B, N + 1, R), dtype=i32, device=dev).scatter_add_(
-        1, slot[..., None].expand(B, E, R), vict_req)[:, :N]
-    used_wo = nodes.used[None] - removed                         # [B, N, R]
-
-    # ports: conflict[n] = any surviving pod on n whose ports clash with ours
-    c_e = _pairwise_port_conflict(tables, cls, cls_e)            # [B, E]
-    live_clash = (c_e & on_node[None] & ~vict_pot).to(i32)
-    conflict_wo = _scatter(live_clash, slot, N, 0, "amax") > 0   # [B, N]
-
-    # feasibility with all victims gone
     req_p = tables.reqs.vec[classes.rid[cl].long()]              # [B, R]
-    fit = _fit(req_p[:, None, :], nodes.alloc[None] - used_wo) & nodes.valid
+    # ports: c_e[b, e] = pod e's ports clash with lane b's preemptor
+    c_e = _pairwise_port_conflict(tables, cls, cls_e)            # [B, E]
+
+    # the candidate test with all victims gone, but for the fit and the
+    # port clash (K3's pass 1)
     aff_ok = torch.empty((B, N), dtype=torch.bool, device=dev)
     anti_ok = torch.empty_like(aff_ok)
     spread_ok = torch.empty_like(aff_ok)
@@ -159,8 +141,8 @@ def preempt_batch(
             cyc.static.node_match[cl[lanes]], nodes, D)
     host_ok = ((node_name_req < 0)[:, None]
                | (nodes.name_id[None, :] == node_name_req[:, None]))
-    cand = (cyc.static.mask[cl] & fit & ~conflict_wo & aff_ok & anti_ok
-            & spread_ok & host_ok)                               # [B, N]
+    cand_rest = (cyc.static.mask[cl] & aff_ok & anti_ok & spread_ok
+                 & host_ok)                                      # [B, N]
 
     # ---- precompute "restoring pod e would re-block the preemptor" [B, E]
     # own anti-affinity: an anti term of ours matches e's class and e's node
@@ -182,43 +164,32 @@ def preempt_batch(
     spread_block = (hard_ts[..., None] & cyc.TM[ts][:, :, cls_e]).any(1)
     reblock = own_block | sym_block | spread_block
 
-    # ---- reprieve (selectVictimsOnNode pass 2): PDB-violating victims are
-    # reprieved FIRST (generic_scheduler.go:1149-1156), each group in
-    # priority-descending order; K3 walks each (lane, node) segment ----
-    arange_e = torch.arange(E, dtype=i32, device=dev).expand(B, E)
-    order = lexsort((
-        arange_e, neg_i32(existing.priority).expand(B, E),
-        (~pdb_blocked).to(i32).expand(B, E), (~vict_pot).to(i32)))
-    seg_ptr, seg_e = reprieve_segments(order, node_e_safe, N)
-    victim = reprieve_scan(
-        req_e.contiguous(), req_p.contiguous(), nodes.alloc.contiguous(),
-        used_wo.contiguous(), conflict_wo.contiguous(), cand.contiguous(),
-        vict_pot.contiguous(), c_e.contiguous(), reblock.contiguous(),
-        seg_ptr, seg_e)
+    # ---- selectVictimsOnNode on every (lane, node): pass 1, the candidate
+    # test, the reprieve walk in the lane-independent order (PDB-violating
+    # victims reprieved FIRST, generic_scheduler.go:1149-1156, each group
+    # in priority-descending order) and the node's victim summaries ----
+    seg_ptr, seg_e = reprieve_order(node_e_safe, existing.priority,
+                                    pdb_blocked, N)
+    k3 = reprieve_scan(
+        seg_ptr, seg_e, req_e.contiguous(), existing.priority.contiguous(),
+        pdb_blocked.contiguous(), existing.creation.contiguous(),
+        req_p.contiguous(), vict_pot.contiguous(), c_e.contiguous(),
+        reblock.contiguous(), nodes.used.contiguous(),
+        nodes.alloc.contiguous(), nodes.valid.contiguous(),
+        cand_rest.contiguous())
+    victim, cand = k3.victim, k3.cand
 
     # ---- pickOneNodeForPreemption (:903): lexicographic over
     # (1) PDB violations, (2) highest victim priority, (3) priority sum,
-    # (4) victim count, (5) latest earliest start of highest-prio victims ----
-    vmask = victim & (node_e_safe < N)[None]
-    idx = torch.where(vmask, node_e_safe[None], N).long()
-    prio_e = existing.priority[None].expand(B, E)
-    num_v = _scatter(vmask.to(i32), idx, N, 0, "sum")
-    sum_p = _scatter(torch.where(vmask, prio_e, 0), idx, N, 0, "sum")
-    max_p = _scatter(torch.where(vmask, prio_e, -I32_MAX), idx, N, -I32_MAX,
-                     "amax")
-    num_pdb = _scatter((vmask & pdb_blocked[None]).to(i32), idx, N, 0, "sum")
-    # earliest (min) creation among each node's highest-priority victims;
-    # pick the node where it is LATEST (GetEarliestPodStartTime, :1000-1028)
-    is_top = vmask & (prio_e == max_p[:, n_idx])
-    est = _scatter(torch.where(is_top, existing.creation[None].expand(B, E),
-                               I32_MAX), idx, N, I32_MAX, "amin")
-
+    # (4) victim count, (5) latest earliest start of highest-prio victims
+    # (GetEarliestPodStartTime, :1000-1028) ----
     big = I32_MAX
-    key0 = torch.where(cand, num_pdb, big)
-    key1 = torch.where(cand, torch.where(num_v > 0, max_p, -I32_MAX), big)
-    key2 = torch.where(cand, sum_p, big)
-    key3 = torch.where(cand, num_v, big)
-    key4 = torch.where(cand, neg_i32(est), big)   # latest earliest-start wins
+    key0 = torch.where(cand, k3.num_pdb, big)
+    key1 = torch.where(cand, torch.where(k3.num_v > 0, k3.max_p, -I32_MAX),
+                       big)
+    key2 = torch.where(cand, k3.sum_p, big)
+    key3 = torch.where(cand, k3.num_v, big)
+    key4 = torch.where(cand, neg_i32(k3.est), big)  # latest start wins
     arange_n = torch.arange(N, dtype=i32, device=dev).expand(B, N)
     best = lexsort((arange_n, key4, key3, key2, key1, key0))[:, 0]
     any_cand = cand.any(-1)

@@ -4,6 +4,7 @@
     python3 scripts/torch_cycle_profile.py [--nodes 5000] [--pods 50000]
                                            [--device cuda] [--mode batch]
     python3 scripts/torch_cycle_profile.py --mode serving
+    python3 scripts/torch_cycle_profile.py --mode preempt
 
 `--mode batch` (the default) runs the steps of kubernetes_tpu_torch's
 BatchScheduler.schedule on the flagship workload (models/workloads.py
@@ -19,10 +20,16 @@ one warm with host timers (patch snapshot, dispatch to a synchronize,
 readback), and one whole steady cycle (snapshot included) under
 torch.profiler.
 
-Either way the profiled window gives device busy time (the union of kernel
-and copy intervals), the idle share of the window, the number of device
-operations, and the top kernels by device time. Prints one JSON line.
-Imports nothing of JAX.
+`--mode preempt` runs chip_smoke.py's phase-6 storm instead (the phase-5b
+drain of the flagship backlog first, to make its cluster) and profiles the
+first three preemption bursts of wave 1, each alone: `preempt_batch` (the
+what-if, K3 and the node choice) from a synchronize to a synchronize, with
+the count of top-level aten operations it issued on the host.
+
+The profiled window gives device busy time (the union of kernel and copy
+intervals), the idle share of the window, the number of device operations,
+and the top kernels by device time. Prints one JSON line. Imports nothing of
+JAX.
 """
 
 from __future__ import annotations
@@ -165,12 +172,59 @@ def serving_profile(args, device, sync, profile, acts) -> dict:
                 **device_profile(prof, window_s))
 
 
+def host_ops(prof) -> int:
+    """Top-level aten operations the host issued in a profiled window."""
+    return sum(1 for e in prof.events() if e.name.startswith("aten::")
+               and (e.cpu_parent is None
+                    or not e.cpu_parent.name.startswith("aten::")))
+
+
+def preempt_profile(args, device, sync, profile, acts) -> dict:
+    import chip_smoke as cs
+    from kubernetes_tpu_torch.sched import preemption as P
+
+    os.environ["KTPU_OVERLOAD"] = "0"
+    bound = []
+    cs.serving_drain(cs.port_serving_api(device), args.nodes, args.pods,
+                     keep_bound=bound)
+    inner, wave, bursts = P.preempt_batch, [0], []
+
+    def profiled(*a, **kw):
+        if wave[0] != 1 or len(bursts) >= 3:
+            return inner(*a, **kw)
+        sync()
+        with profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            res = inner(*a, **kw)
+            sync()
+            window_s = time.perf_counter() - t0
+        bursts.append(dict({"preempt_batch_s": window_s,
+                            "host_aten_ops": host_ops(prof)},
+                           **device_profile(prof, window_s)))
+        return res
+
+    def on_wave(i):
+        wave[0] = i + 1
+
+    P.preempt_batch = profiled
+    try:
+        storm = cs.preempt_storm(cs.port_serving_api(device), args.nodes,
+                                 bound, n_pods=args.pods, waves=2,
+                                 on_wave=on_wave)
+    finally:
+        P.preempt_batch = inner
+    if not bursts:
+        raise SystemExit("torch_cycle_profile: wave 1 ran no preemption burst")
+    return dict(bursts[0], storm_waves=storm["waves"], bursts=bursts)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--nodes", type=int, default=5000)
     ap.add_argument("--pods", type=int, default=50000)
     ap.add_argument("--device", default="cuda")
-    ap.add_argument("--mode", choices=("batch", "serving"), default="batch")
+    ap.add_argument("--mode", choices=("batch", "serving", "preempt"),
+                    default="batch")
     args = ap.parse_args()
 
     import torch
@@ -184,7 +238,8 @@ def main() -> int:
     acts = [ProfilerActivity.CPU]
     if device.type == "cuda":
         acts.append(ProfilerActivity.CUDA)
-    run = batch_profile if args.mode == "batch" else serving_profile
+    run = {"batch": batch_profile, "serving": serving_profile,
+           "preempt": preempt_profile}[args.mode]
     body = run(args, device, sync, profile, acts)
     out = dict({"mode": args.mode,
                 "device": (torch.cuda.get_device_name(0)

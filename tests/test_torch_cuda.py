@@ -41,9 +41,10 @@ def test_kernels_match_plain_versions_exactly(cuda):
 
 
 def test_reprieve_scan_matches_plain_version_exactly(cuda):
-    """K3 on chip_smoke.py's cases (the storm's widths, empty and 110-pod
-    segments, all reblocked, R = 8, extreme int32) against its plain
-    version."""
+    """K3 on chip_smoke.py's cases (the storm's widths, empty, 110-pod and
+    2,000-pod segments, all reblocked, R = 7 and 8, 33 lanes, INT32_MIN
+    priorities, extreme int32, no pods) against its plain version, all
+    seven outputs."""
     cs = _chip_smoke()
     assert cs.check_k3(cuda, cs.k3_edge_cases(cuda, seed=1)) == 0
 

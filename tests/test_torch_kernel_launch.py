@@ -127,25 +127,28 @@ def test_k2_plain_version_past_shared_memory():
 
 
 # --------------------------------------------------------------------------- #
-# K3 reprieve_scan: its CSR and what the wrapper refuses
+# K3 reprieve_scan: its order, its arguments and what the wrapper refuses
 # --------------------------------------------------------------------------- #
 
 def _k3_args(B=2, N=3, E=5, R=4):
-    i32 = torch.int32
-    return [torch.zeros((E, R), dtype=i32), torch.zeros((B, R), dtype=i32),
-            torch.zeros((N, R), dtype=i32), torch.zeros((B, N, R), dtype=i32),
-            torch.zeros((B, N), dtype=torch.bool),
-            torch.ones((B, N), dtype=torch.bool),
-            torch.ones((B, E), dtype=torch.bool),
-            torch.zeros((B, E), dtype=torch.bool),
-            torch.zeros((B, E), dtype=torch.bool),
-            torch.zeros((N + 1,), dtype=i32),
-            torch.arange(E, dtype=i32).expand(B, E).contiguous()]
+    """K3's arguments in K3_ARGS order: every pod a potential victim on
+    node 0, no request, no clash, every node a possible candidate."""
+    i32, b8 = torch.int32, torch.bool
+    seg_ptr = torch.tensor([0] + [E] * N, dtype=i32)
+    return [seg_ptr, torch.arange(E, dtype=i32),
+            torch.zeros((E, R), dtype=i32), torch.zeros((E,), dtype=i32),
+            torch.zeros((E,), dtype=b8), torch.arange(E, dtype=i32),
+            torch.zeros((B, R), dtype=i32), torch.ones((B, E), dtype=b8),
+            torch.zeros((B, E), dtype=b8), torch.zeros((B, E), dtype=b8),
+            torch.zeros((N, R), dtype=i32), torch.zeros((N, R), dtype=i32),
+            torch.ones((N,), dtype=b8), torch.ones((B, N), dtype=b8)]
 
 
 def test_k3_check_takes_the_wrappers_shapes():
     assert K.k3_check(_k3_args()) == (2, 3, 5, 4)
     assert K.k3_check(_k3_args(B=8, N=5000, E=7, R=8)) == (8, 5000, 7, 8)
+    assert K.k3_check(_k3_args(B=33, N=1, E=2000, R=7)) == (33, 1, 2000, 7)
+    assert K.k3_check(_k3_args(B=1, N=4, E=0, R=4)) == (1, 4, 0, 4)
 
 
 def test_k3_refuses_r_past_its_registers():
@@ -157,16 +160,16 @@ def test_k3_refuses_r_past_its_registers():
 
 def test_k3_refuses_non_contiguous_inputs():
     args = _k3_args()
-    args[6] = torch.ones((5, 2), dtype=torch.bool).T      # [B, E] view
+    args[7] = torch.ones((5, 2), dtype=torch.bool).T      # vict_pot view
     with pytest.raises(ValueError, match="contiguous"):
         K.k3_check(args)
 
 
 @pytest.mark.parametrize("i,bad", [
-    (0, torch.zeros((5, 4), dtype=torch.int64)),          # req_e int64
-    (5, torch.ones((2, 3), dtype=torch.int32)),           # cand not bool
-    (9, torch.zeros((2, 3), dtype=torch.int32)),          # seg_ptr [B, N], not [N + 1]
-    (2, torch.zeros((4, 4), dtype=torch.int32)),          # alloc [N+1, R]
+    (0, torch.zeros((2, 3), dtype=torch.int32)),          # seg_ptr [B, N], not [N + 1]
+    (5, torch.zeros((5,), dtype=torch.int64)),            # creation_e int64
+    (9, torch.ones((2, 5), dtype=torch.int32)),           # reblock not bool
+    (2, torch.zeros((5, 4), dtype=torch.int64)),          # req_e int64
 ])
 def test_k3_refuses_wrong_dtypes_and_shapes(i, bad):
     args = _k3_args()
@@ -175,9 +178,24 @@ def test_k3_refuses_wrong_dtypes_and_shapes(i, bad):
         K.k3_check(args)
 
 
+@pytest.mark.parametrize("i,bad", [
+    (1, torch.zeros((4,), dtype=torch.int32)),            # seg_e [E - 1]
+    (4, torch.zeros((5,), dtype=torch.uint8)),            # pdb_e uint8
+    (11, torch.zeros((4, 4), dtype=torch.int32)),         # alloc [N + 1, R]
+    (12, torch.ones((3, 1), dtype=torch.bool)),           # valid [N, 1]
+    (13, torch.ones((3, 2), dtype=torch.bool)),           # cand_rest [N, B]
+    (6, torch.zeros((2, 5), dtype=torch.int32)),          # req_p [B, R + 1]
+])
+def test_k3_refuses_the_new_contracts_wrong_planes(i, bad):
+    args = _k3_args()
+    args[i] = bad
+    with pytest.raises(ValueError):
+        K.k3_check(args)
+
+
 def test_k3_refuses_mixed_devices():
     args = _k3_args()
-    args[3] = torch.empty((2, 3, 4), dtype=torch.int32, device="meta")
+    args[3] = torch.empty((5,), dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="meta"):
         K.reprieve_scan(*args)
     with pytest.raises(ValueError, match="meta"):
@@ -186,17 +204,28 @@ def test_k3_refuses_mixed_devices():
 
 def test_k3_plain_version_on_cpu_tensors():
     """On CPU tensors the wrapper is the plain version: here every pod is a
-    potential victim on a candidate node, all requests zero, so every one
-    is kept; the launch count does not move."""
-    from kubernetes_tpu_torch.ops.preempt import reprieve_segments
-
-    args = _k3_args()
-    node = torch.tensor([0, 2, 1, 0, 3], dtype=torch.int32)   # 3 = no node
-    args[9], args[10] = reprieve_segments(args[10].long(), node, 3)
+    potential victim on node 0, all requests and capacities zero, so every
+    node is a candidate and every pod is kept; the launch count does not
+    move."""
     before = K.reprieve_scan.launches
-    v = K.reprieve_scan(*args)
-    assert v.shape == (2, 5) and not v.any()
+    out = K.reprieve_scan(*_k3_args())
+    assert out._fields == ("victim", "cand", "num_v", "sum_p", "max_p",
+                           "num_pdb", "est")
+    assert out.victim.shape == (2, 5) and not out.victim.any()
+    assert out.cand.all()
+    assert not out.num_v.any() and not out.sum_p.any()
+    assert (out.max_p == -K.INT32_MAX).all() and (out.est == K.INT32_MAX).all()
+    assert all(t.dtype == torch.int32 and t.shape == (2, 3) for t in out[2:])
     assert K.reprieve_scan.launches == before
+
+
+def test_k3_plain_version_with_no_pods():
+    """E = 0: no walk, but pass 1 still decides every (lane, node)."""
+    args = _k3_args(E=0)
+    args[12] = torch.tensor([True, False, True])
+    out = K.reprieve_scan(*args)
+    assert out.victim.shape == (2, 0)
+    assert out.cand.tolist() == [[True, False, True]] * 2
 
 
 @pytest.mark.parametrize("node,ptr", [
@@ -205,24 +234,46 @@ def test_k3_plain_version_on_cpu_tensors():
     ([2, 1, 0, 3], [0, 1, 2, 3]),            # one each, one off-node
 ])
 def test_k3_csr_segments(node, ptr):
-    from kubernetes_tpu_torch.ops.preempt import reprieve_segments
+    from kubernetes_tpu_torch.ops.preempt import reprieve_order
 
-    order = torch.tensor([[3, 1, 0, 2], [0, 1, 2, 3]])
+    prio = [5, -2**31, 5, 0]
+    pdb = [False, False, True, False]
     node_t = torch.tensor(node, dtype=torch.int32)
-    seg_ptr, seg_e = reprieve_segments(order, node_t, 3)
+    prio_t = torch.tensor(prio, dtype=torch.int32)
+    seg_ptr, seg_e = reprieve_order(node_t, prio_t, torch.tensor(pdb), 3)
     assert seg_ptr.tolist() == ptr
-    for b in range(2):
-        e = seg_e[b].tolist()
-        # every pod once; grouped by node; each group in the lane's order
-        assert sorted(e) == [0, 1, 2, 3]
-        assert [node[x] for x in e] == sorted(node[x] for x in e)
-        rank = {x: i for i, x in enumerate(order[b].tolist())}
-        for n in range(4):
-            grp = [x for x in e if node[x] == n]
-            assert grp == sorted(grp, key=rank.get)
+    e = seg_e.tolist()
+    # every pod once; grouped by node; each group PDB-blocked first, then
+    # by jnp's wrapped -priority (INT32_MIN first), then by index
+    assert sorted(e) == [0, 1, 2, 3]
+    assert [node[x] for x in e] == sorted(node[x] for x in e)
+    neg = lambda p: p if p == -2**31 else -p
+    for n in range(4):
+        grp = [x for x in e if node[x] == n]
+        assert grp == sorted(grp, key=lambda x: (not pdb[x], neg(prio[x]), x))
 
 
 def test_k3_is_built_with_the_other_kernels():
     assert "reprieve_scan" in K.KERNELS
     assert K.library_path("reprieve_scan").name.startswith("libreprieve_scan-")
     assert K.launch_counts()["reprieve_scan"] == K.reprieve_scan.launches
+
+
+def test_k3_ablation_edits_match_the_kernel_source():
+    """scripts/k3_ablation.py times copies of csrc/reprieve_scan.cu with one
+    part taken out by a text edit: every edit must still find its text
+    exactly once, or the script would time the wrong kernel."""
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parents[1] / "scripts" / "k3_ablation.py"
+    spec = importlib.util.spec_from_file_location("k3_ablation", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    src = (K.CSRC / "reprieve_scan.cu").read_text()
+    assert set(mod.EDITS) == {"no-walk", "no-flags", "no-gathers", "no-sums",
+                              "outputs"}
+    for name, edits in mod.EDITS.items():
+        for old, new in edits:
+            assert src.count(old) == 1, name
+            assert new != old

@@ -12,8 +12,11 @@ package's (kubernetes_tpu/ops/preempt.py, sched/preemption.py).
       with a wildcard IP, anti-affinity both ways, hard spread, PDB bits, a
       nodeName preemptor, a lane with no candidate), B = 8 lanes with padded
       ones: node, victims, n_candidates and n_pdb_violations exactly equal;
-  (c) K3's plain version against a literal per-pod loop that mirrors the
-      JAX package's lax.scan step for step.
+  (c) K3 on CPU tensors (its plain version) against literal per-pod loops
+      that mirror the JAX package's per-lane what-if step for step: pass
+      1, the reprieve scan in the lane's own order and the per-node
+      summaries; the lane-independent reprieve order against each lane's
+      lexsort.
 
 Everything runs on the CPU (the port with device="cpu", where the K3
 wrapper takes its plain version). The random clusters share one fixed Dims,
@@ -41,7 +44,7 @@ from kubernetes_tpu.state.encode import Encoder
 from kubernetes_tpu_torch.ops import kernels as K
 from kubernetes_tpu_torch.ops.lattice import build_cycle as t_build_cycle
 from kubernetes_tpu_torch.ops.preempt import (preempt_batch as t_preempt_batch,
-                                              preempt_for_pod, reprieve_segments)
+                                              preempt_for_pod, reprieve_order)
 from kubernetes_tpu_torch.sched.preemption import Preemptor as TPreemptor
 from kubernetes_tpu_torch.sched.scheduler import RecordingBinder as TBinder
 from kubernetes_tpu_torch.sched.scheduler import Scheduler as TScheduler
@@ -477,8 +480,10 @@ def test_random_clusters_exercise_each_criterion():
 
 
 # --------------------------------------------------------------------- #
-# (c) K3's plain version against the JAX scan, step for step
+# (c) K3's plain version against the JAX what-if, step for step
 # --------------------------------------------------------------------- #
+
+I32_MAX, I32_MIN = 2**31 - 1, -2**31
 
 
 def _fit_np(vec, free):
@@ -495,62 +500,135 @@ def _wrap(x):
     return (x + 2**31) % 2**32 - 2**31
 
 
-def _scan_reference(req_e, req_p, alloc, used_wo, conflict_wo, cand,
-                    vict_pot, c_e, reblock, node_e_safe, order):
-    """The JAX package's reprieve step (ops/preempt.py:186-200) as a literal
-    loop over every pod of each lane's order."""
-    B, N, R = used_wo.shape
-    E = req_e.shape[0]
-    victim = np.zeros((B, E), bool)
+def _scan_reference(c):
+    """The JAX package's per-lane what-if as literal loops over the pods:
+    pass 1 (ops/preempt.py:128-156, but for the candidate test's other
+    rows, here cand_rest), the reprieve step (:183-200) over the lane's own
+    lexsort order, and the per-node summaries of the node choice
+    (:205-217). Returns K3's seven outputs."""
+    req_e, req_p, alloc, used = c["req_e"], c["req_p"], c["alloc"], c["used"]
+    vict_pot, c_e, reblock = c["vict_pot"], c["c_e"], c["reblock"]
+    node, prio, pdb, creation = c["node"], c["prio"], c["pdb"], c["creation"]
+    B, E = vict_pot.shape
+    N, R = used.shape
+    out = dict(victim=np.zeros((B, E), bool), cand=np.zeros((B, N), bool),
+               num_v=np.zeros((B, N), np.int64),
+               sum_p=np.zeros((B, N), np.int64),
+               max_p=np.full((B, N), -I32_MAX, np.int64),
+               num_pdb=np.zeros((B, N), np.int64),
+               est=np.full((B, N), I32_MAX, np.int64))
+    neg = np.where(prio == I32_MIN, prio, -prio.astype(np.int64))  # jnp's -x
     for b in range(B):
-        used = used_wo[b].astype(np.int64).copy()
-        conflict = conflict_wo[b].copy()
-        for e in order[b]:
-            n = min(node_e_safe[e], N - 1)
-            is_v = vict_pot[b, e] and cand[b, n]
-            new_used = [_wrap(int(used[n, r]) + int(req_e[e, r]))
+        # pass 1: every potential victim removed
+        used_wo = used.astype(np.int64).copy()
+        conflict = np.zeros(N, bool)
+        for e in range(E):
+            n = node[e]
+            if n >= N:
+                continue
+            if vict_pot[b, e]:
+                used_wo[n] = [_wrap(int(used_wo[n, r]) - int(req_e[e, r]))
+                              for r in range(R)]
+            elif c_e[b, e]:
+                conflict[n] = True
+        cand = out["cand"][b]
+        for n in range(N):
+            free = [_wrap(int(alloc[n, r]) - int(used_wo[n, r]))
+                    for r in range(R)]
+            cand[n] = (c["cand_rest"][b, n] and c["valid"][n]
+                       and not conflict[n]
+                       and _fit_np([int(v) for v in req_p[b]], free))
+        # pass 2: the reprieve scan
+        order = np.lexsort((np.arange(E), neg, ~pdb, ~vict_pot[b]))
+        victim = out["victim"][b]
+        for e in order:
+            n = min(node[e], N - 1)
+            is_v = vict_pot[b, e] and cand[n]
+            new_used = [_wrap(int(used_wo[n, r]) + int(req_e[e, r]))
                         for r in range(R)]
             free = [_wrap(int(alloc[n, r]) - new_used[r]) for r in range(R)]
             fit_n = _fit_np([int(v) for v in req_p[b]], free)
             new_conf = conflict[n] or c_e[b, e]
             keep = is_v and fit_n and not new_conf and not reblock[b, e]
             if keep:
-                used[n] = new_used
+                used_wo[n] = new_used
                 conflict[n] = new_conf
-            victim[b, e] = is_v and not keep
-    return victim
+            victim[e] = is_v and not keep
+        # the node choice's per-node summaries
+        vmask = victim & (node < N)
+        for e in np.flatnonzero(vmask):
+            n = node[e]
+            out["num_v"][b, n] += 1
+            out["sum_p"][b, n] = _wrap(int(out["sum_p"][b, n]) + int(prio[e]))
+            out["max_p"][b, n] = max(out["max_p"][b, n], prio[e])
+            out["num_pdb"][b, n] += bool(pdb[e])
+        for e in np.flatnonzero(vmask):
+            n = node[e]
+            if prio[e] == out["max_p"][b, n]:
+                out["est"][b, n] = min(out["est"][b, n], creation[e])
+    return out
 
 
-def _k3_case(seed, B, N, E, R, p_vict=0.7, p_reblock=0.2, extreme=False):
+def _k3_case(seed, B, N, E, R, p_vict=0.7, p_reblock=0.2, extreme=False,
+             prios=None, p_pdb=0.3, p_off=None):
+    """Random K3 inputs as numpy arrays. `extreme` draws requests,
+    allocatable and used from int32 edge values, so the sums wrap;
+    `prios` draws each pod's priority from the given values."""
     rng = np.random.default_rng(seed)
+    node = rng.integers(0, N + 1, E).astype(np.int32)    # N: on no node
+    if p_off is not None:
+        node = rng.integers(0, N, E).astype(np.int32)
+        node[rng.random(E) < p_off] = N
     if extreme:
-        edge = np.array([0, 1, -1, 2**31 - 1, -2**31, 2**30, 7], np.int64)
+        edge = np.array([0, 1, -1, I32_MAX, I32_MIN, 2**30, 7], np.int64)
         pick = lambda *s: edge[rng.integers(0, len(edge), s)].astype(np.int32)
-        req_e, req_p, alloc = pick(E, R), pick(B, R), pick(N, R)
-        used_wo = pick(B, N, R)
+        req_e, alloc, used = pick(E, R), pick(N, R), pick(N, R)
+        # the preemptor's requests from the lower edges, so that some
+        # nodes pass the candidate test and the walk's sums wrap
+        req_p = edge[[0, 1, 2, 4, 6]][rng.integers(0, 5, (B, R))].astype(
+            np.int32)
     else:
         req_e = rng.integers(0, 1500, (E, R)).astype(np.int32)
         req_e[:, 3] = 1
         req_p = rng.integers(0, 3000, (B, R)).astype(np.int32)
         req_p[:, 3] = 1
-        alloc = rng.integers(2000, 6000, (N, R)).astype(np.int32)
+        # used: a base plus the node's pods' requests; alloc leaves room
+        # for part of them, so some victims are reprieved and some not
+        total = np.zeros((N, R), np.int64)
+        np.add.at(total, node[node < N], req_e[node < N])
+        base = rng.integers(0, 1000, (N, R))
+        base[:, 3] = 0
+        used = (base + total).astype(np.int32)
+        alloc = (base + total * rng.uniform(0.4, 1.0, (N, R))
+                 + rng.integers(1000, 4000, (N, R))).astype(np.int32)
         alloc[:, 3] = 110
-        used_wo = (alloc[None] * rng.random((B, N, R))).astype(np.int32)
     if R > 4:   # zero scalar requests are ignored by the fit test
         req_p[:, 4:] *= rng.random((B, R - 4)) < 0.5
-    node_e_safe = rng.integers(0, N + 1, E).astype(np.int32)  # N: no node
-    conflict_wo = rng.random((B, N)) < 0.1
-    cand = rng.random((B, N)) < 0.8
-    vict_pot = (rng.random((B, E)) < p_vict) & (node_e_safe < N)[None]
-    c_e = rng.random((B, E)) < 0.1
-    reblock = rng.random((B, E)) < p_reblock
-    # the reprieve order: potential victims first, then a random priority
-    prio = rng.integers(0, 5, E)
-    order = np.stack([np.lexsort((np.arange(E), -prio, ~vict_pot[b]))
-                      for b in range(B)])
-    return (req_e, req_p, alloc, used_wo, conflict_wo, cand, vict_pot, c_e,
-            reblock, node_e_safe, order)
+    prio = (rng.integers(0, 5, E) if prios is None else
+            np.asarray(prios, np.int64)[rng.integers(0, len(prios), E)])
+    return dict(
+        req_e=req_e, req_p=req_p, alloc=alloc, used=used,
+        valid=rng.random(N) < 0.9, cand_rest=rng.random((B, N)) < 0.8,
+        vict_pot=(rng.random((B, E)) < p_vict) & (node < N)[None],
+        c_e=rng.random((B, E)) < 0.05, reblock=rng.random((B, E)) < p_reblock,
+        node=node, prio=prio.astype(np.int32), pdb=rng.random(E) < p_pdb,
+        creation=rng.integers(0, 1000, E).astype(np.int32))
 
+
+def _k3_args(c):
+    """K3's arguments (ops/kernels.py K3_ARGS) for a case, with the
+    lane-independent reprieve order built as preempt_batch builds it."""
+    t = torch.from_numpy
+    N = c["used"].shape[0]
+    seg_ptr, seg_e = reprieve_order(t(c["node"]), t(c["prio"]), t(c["pdb"]),
+                                    N)
+    return (seg_ptr, seg_e, t(c["req_e"]), t(c["prio"]), t(c["pdb"]),
+            t(c["creation"]), t(c["req_p"]), t(c["vict_pot"]), t(c["c_e"]),
+            t(c["reblock"]), t(c["used"]), t(c["alloc"]), t(c["valid"]),
+            t(c["cand_rest"]))
+
+
+EDGE_PRIOS = (I32_MIN, -I32_MAX, 0, 1, 5, I32_MAX)
 
 K3_CASES = {
     "B8 N12 E60 R4": dict(seed=1, B=8, N=12, E=60, R=4),
@@ -562,46 +640,152 @@ K3_CASES = {
                                        extreme=True),
     "B1 N1 E110 one 110-pod segment": dict(seed=6, B=1, N=1, E=110, R=4,
                                            p_vict=1.0),
+    "B4 N6 E90 INT32_MIN in PDB groups": dict(seed=7, B=4, N=6, E=90, R=4,
+                                              prios=EDGE_PRIOS, p_pdb=0.5),
+    "B3 N4 E40 only INT32_MIN victims": dict(seed=8, B=3, N=4, E=40, R=4,
+                                             prios=(I32_MIN,)),
+    "B2 N3 E60 wrapping priority sums": dict(
+        seed=9, B=2, N=3, E=60, R=4, prios=(I32_MAX, 2**30, -2**30)),
+    "B33 N5 E120 R7": dict(seed=10, B=33, N=5, E=120, R=7, p_off=0.05),
 }
+
+K3_OUTPUTS = ("victim", "cand", "num_v", "sum_p", "max_p", "num_pdb", "est")
 
 
 @pytest.mark.parametrize("case", list(K3_CASES))
 def test_reprieve_scan_plain_matches_jax_scan(case):
-    (req_e, req_p, alloc, used_wo, conflict_wo, cand, vict_pot, c_e, reblock,
-     node_e_safe, order) = _k3_case(**K3_CASES[case])
-    N = alloc.shape[0]
-    want = _scan_reference(req_e, req_p, alloc, used_wo, conflict_wo, cand,
-                           vict_pot, c_e, reblock, node_e_safe, order)
-    t = torch.from_numpy
-    seg_ptr, seg_e = reprieve_segments(t(order), t(node_e_safe), N)
-    got = K.reprieve_scan(t(req_e), t(req_p), t(alloc), t(used_wo),
-                          t(conflict_wo), t(cand), t(vict_pot), t(c_e),
-                          t(reblock), seg_ptr, seg_e)
-    np.testing.assert_array_equal(got.numpy(), want)
-    assert torch.equal(got, K.reprieve_scan_plain(
-        t(req_e), t(req_p), t(alloc), t(used_wo), t(conflict_wo), t(cand),
-        t(vict_pot), t(c_e), t(reblock), seg_ptr, seg_e))
+    c = _k3_case(**K3_CASES[case])
+    want = _scan_reference(c)
+    args = _k3_args(c)
+    got = K.reprieve_scan(*args)
+    assert got._fields == K3_OUTPUTS
+    for f in K3_OUTPUTS:
+        np.testing.assert_array_equal(getattr(got, f).numpy(), want[f],
+                                      err_msg=f)
+    plain = K.reprieve_scan_plain(*args)
+    for a, b in zip(got, plain):
+        assert torch.equal(a, b)
 
 
 def test_reprieve_cases_reach_both_outcomes():
-    """The K3 cases keep some potential victims and evict others."""
-    kept = evicted = 0
+    """The K3 cases keep some potential victims and evict others, on
+    candidate nodes and beside non-candidate ones, and the trap cases reach
+    their traps: a victim at INT32_MIN, a max_p left at -I32_MAX by
+    victims, and a priority sum that wraps."""
+    kept = evicted = non_cand = 0
     for case in K3_CASES.values():
-        args = _k3_case(**case)
-        v = _scan_reference(*args)
+        c = _k3_case(**case)
+        out = _scan_reference(c)
+        v, cand, node = out["victim"], out["cand"], c["node"]
         evicted += int(v.sum())
-        cand = args[5]
-        node_e_safe, vict_pot = args[9], args[6]
-        on_cand = np.stack([cand[b][np.minimum(node_e_safe, cand.shape[1] - 1)]
+        on_cand = np.stack([cand[b][np.minimum(node, cand.shape[1] - 1)]
                             for b in range(cand.shape[0])])
-        kept += int((vict_pot & on_cand & ~v).sum())
-    assert kept > 0 and evicted > 0
+        kept += int((c["vict_pot"] & on_cand & ~v).sum())
+        non_cand += int((~cand).sum())
+    assert kept > 0 and evicted > 0 and non_cand > 0
+    trap = _scan_reference(_k3_case(**K3_CASES[
+        "B3 N4 E40 only INT32_MIN victims"]))
+    hit = trap["num_v"] > 0
+    assert hit.any() and (trap["max_p"][hit] == -I32_MAX).all()
+    assert (trap["est"][hit] == I32_MAX).all()
+    wrap = _k3_case(**K3_CASES["B2 N3 E60 wrapping priority sums"])
+    out = _scan_reference(wrap)
+    exact = np.zeros_like(out["sum_p"])
+    for b, e in zip(*np.nonzero(out["victim"])):
+        exact[b, wrap["node"][e]] += int(wrap["prio"][e])
+    assert (exact != out["sum_p"]).any()
+    pdbg = _k3_case(**K3_CASES["B4 N6 E90 INT32_MIN in PDB groups"])
+    low = pdbg["vict_pot"] & (pdbg["prio"] == I32_MIN) & pdbg["pdb"]
+    assert low.any()
+
+
+def _one_node_case(prio, pdb, req_cpu, keep):
+    """One lane on one node of 1000 milli-cpu holding len(prio) pods of
+    req_cpu each, all potential victims; the preemptor asks for what is
+    left beside `keep` of them, so the walk reprieves the first `keep`."""
+    E = len(prio)
+    req_e = np.zeros((E, 4), np.int32)
+    req_e[:, 0], req_e[:, 3] = req_cpu, 1
+    alloc = np.array([[1000, 1000, 1000, 110]], np.int32)
+    used = req_e.sum(0, dtype=np.int64)[None].astype(np.int32)
+    req_p = np.array([[1000 - keep * req_cpu, 0, 0, 1]], np.int32)
+    return dict(req_e=req_e, req_p=req_p, alloc=alloc, used=used,
+                valid=np.ones(1, bool), cand_rest=np.ones((1, 1), bool),
+                vict_pot=np.ones((1, E), bool), c_e=np.zeros((1, E), bool),
+                reblock=np.zeros((1, E), bool),
+                node=np.zeros(E, np.int32), prio=np.array(prio, np.int32),
+                pdb=np.array(pdb, bool),
+                creation=np.arange(E, dtype=np.int32)[::-1].copy())
+
+
+def _run_k3(c):
+    got = K.reprieve_scan(*_k3_args(c))
+    want = _scan_reference(c)
+    for f in K3_OUTPUTS:
+        np.testing.assert_array_equal(getattr(got, f).numpy(), want[f],
+                                      err_msg=f)
+    return got
+
+
+def test_reprieve_order_trap_int32_min_sorts_first_in_its_pdb_group():
+    """jnp's -priority wraps: within the PDB-blocked group the victim at
+    INT32_MIN is walked FIRST, as if it had the highest priority, and is
+    the one reprieved; the priority-5 pod is evicted."""
+    got = _run_k3(_one_node_case([5, I32_MIN], [True, True], 300, 1))
+    assert got.victim[0].tolist() == [True, False]
+    assert got.num_pdb.item() == 1 and got.max_p.item() == 5
+
+
+def test_reprieve_int32_min_victims_leave_max_p_and_est_unset():
+    """Victims only at INT32_MIN never raise max_p above -I32_MAX, so none
+    is a top victim: est stays I32_MAX; their sum wraps to 0."""
+    got = _run_k3(_one_node_case([I32_MIN, I32_MIN], [False, True], 600, 0))
+    assert got.victim[0].tolist() == [True, True]
+    assert got.num_v.item() == 2 and got.sum_p.item() == 0
+    assert got.max_p.item() == -I32_MAX and got.est.item() == I32_MAX
+
+
+def test_reprieve_est_resets_when_max_p_rises():
+    """est is the least creation among the victims AT the final max_p: the
+    PDB-blocked victim walked first sets it, and the higher-priority ones
+    walked after it start it afresh."""
+    c = _one_node_case([1, 7, 7], [True, False, False], 400, 0)
+    c["creation"] = np.array([0, 9, 4], np.int32)
+    got = _run_k3(c)
+    assert got.victim[0].all() and got.max_p.item() == 7
+    assert got.est.item() == 4 and got.sum_p.item() == 15
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_reprieve_order_is_each_lanes_lexsort_on_its_potential_victims(seed):
+    """One order over [E] serves every lane: on each node, restricted to a
+    lane's potential victims, it equals that lane's own JAX order
+    lexsort((e, -prio, ~pdb, ~vict_pot[b])); pods on no node come last."""
+    c = _k3_case(seed=20 + seed, B=6, N=7, E=150, R=4, prios=EDGE_PRIOS,
+                 p_pdb=0.5)
+    node, prio, pdb, vp = c["node"], c["prio"], c["pdb"], c["vict_pot"]
+    seg_ptr, seg_e = reprieve_order(torch.from_numpy(node),
+                                    torch.from_numpy(prio),
+                                    torch.from_numpy(pdb), 7)
+    ptr, seg = seg_ptr.tolist(), seg_e.tolist()
+    assert sorted(seg) == list(range(150))
+    assert sorted(seg[ptr[7]:]) == sorted(np.flatnonzero(node == 7).tolist())
+    neg = np.where(prio == I32_MIN, prio, -prio.astype(np.int64))
+    for b in range(6):
+        order = np.lexsort((np.arange(150), neg, ~pdb, ~vp[b]))
+        for n in range(7):
+            want = [e for e in order if node[e] == n and vp[b, e]]
+            got = [e for e in seg[ptr[n]:ptr[n + 1]] if vp[b, e]]
+            assert got == want
 
 
 def test_reprieve_segments_group_the_order_by_node():
-    order = torch.tensor([[4, 0, 3, 1, 2, 5], [5, 2, 1, 0, 4, 3]])
     node = torch.tensor([1, 0, 1, 2, 0, 2], dtype=torch.int32)  # 2 = no node
-    seg_ptr, seg_e = reprieve_segments(order, node, 2)
+    prio = torch.tensor([3, 1, 9, 0, 4, 2], dtype=torch.int32)
+    pdb = torch.tensor([False, False, False, False, True, False])
+    seg_ptr, seg_e = reprieve_order(node, prio, pdb, 2)
     assert seg_ptr.tolist() == [0, 2, 4]
-    assert seg_e.tolist() == [[4, 1, 0, 2, 3, 5], [1, 4, 2, 0, 5, 3]]
+    # node 0: the PDB-blocked pod 4 first; node 1: priority 9 before 3;
+    # the pods on no node last, in the same order
+    assert seg_e.tolist() == [4, 1, 2, 0, 5, 3]
     assert seg_ptr.dtype == seg_e.dtype == torch.int32

@@ -12,7 +12,9 @@ Phases, each fatal on failure (exit code != 0, no result line):
      edge shapes (edge_cases: class counts around a warp's 32 lanes, node
      counts off the block size, both K1 variants, words with bit 31 set,
      extreme int32 requests; K2 counters in shared memory and in the
-     scratch past 227 KB, one-domain rows, N = 1);
+     scratch past 227 KB, one-domain rows, N = 1; K3 at R = 4..8 and, in
+     its wide variant, R = 9, 16, 20 and 64 — 33 lanes, extreme int32,
+     INT32_MIN priorities, a 2,000-pod segment);
   3. the flagship cycle — 5,000 nodes × 50,000 pods (models/workloads.py
      make_nodes / flagship_pods) — through BatchScheduler(device="cuda"):
      launch counts of the cycle, placements and final state planes against
@@ -21,6 +23,10 @@ Phases, each fatal on failure (exit code != 0, no result line):
      3b. the port-and-volume cycle — 5,000 nodes × 20,000 pods with host
      ports and attachable volumes (port_volume_workload) — the same checks
      but the warm runs, and K1 on the real words of its first wave;
+     3c. the flagship dispatch with explain=True on the card and on the
+     CPU: placements unchanged, the ExplainResult's integer fields equal
+     and their sha256 the JAX package's, its f32 fields within
+     EXPLAIN_F32_ATOL;
   4. per-kernel times from CUDA events at the flagship cycle's inputs,
      each kernel first checked exactly against its plain version there —
      device time with the host's launch work hidden behind a GPU spin
@@ -47,10 +53,20 @@ Phases, each fatal on failure (exit code != 0, no result line):
      inputs (and on phase 2's K3 edge cases: empty, 110-pod and 2,000-pod
      segments, all reblocked, R = 7 and 8, 33 lanes, INT32_MIN priorities,
      extreme int32, no pods). Prints each wave's split (snapshot, build_cycle,
-     what-if, K3, readback) and K3's time against its bound;
+     what-if, K3, readback) and K3's time against its bound, and K3's wide
+     variant (R = 16) timed beside R = 4 at the first burst's widths;
   7. BASELINE config 5: BatchScheduler(device="cuda") on 5,000 nodes x
      100,000 gang pods (gang_workload_pods): placements, dead groups and
-     rejection rounds equal the JAX package's; cold and warm cycle times.
+     rejection rounds equal the JAX package's; cold and warm cycle times;
+  8. the run-collapsed engine (KTPU_ASSIGN=runs, torch ops, no hand
+     kernel) on bench.py's `classes` shapes, 5,000 nodes x 50,000 pods of
+     200 deployments: 8a BatchScheduler(device="cuda") — placed count,
+     placement sha256, class runs and collapse ratio equal the JAX
+     package's, every run through the closed form, epochs per dispatch,
+     cold and median warm cycle; 8b the scan and the runs engine on 2,000
+     pods, placements bit-equal; 8c Scheduler(device="cuda") draining the
+     backlog in waves of 4,096 — per-wave counts, class runs and the
+     binder's order equal the JAX package's, per-wave times.
 
 Prints a `kernels` JSON line, the nvidia-smi name/power line, and last
 `{"ok": true, "device": {...}}`. Imports nothing of JAX.
@@ -183,6 +199,64 @@ JAX_GANG = {
     "dead_sha256":
         "7b5a5ae764f1c0ae89c6fc5ce90ed1b381634937bc1cabd4fb6a61294efaf80e",
     "rounds": 3,
+}
+
+# Phase 3c: the flagship dispatch with explain=True (the waves engine, class
+# granularity): sha256 over the ExplainResult's integer fields, each [:P]
+# as little-endian int32 in EXPLAIN_INT_FIELDS order (explain_sha256), from
+# the JAX package (JAX 0.9.0 on the CPU). Reproduce with `JAX_PLATFORMS=cpu
+# python3 scripts/flagship_reference.py --package jax --explain`.
+EXPLAIN_INT_FIELDS = ("reasons", "valid_nodes", "feasible_nodes",
+                      "rejected_any", "top_nodes", "part_node")
+JAX_EXPLAIN_SHA256 = \
+    "328870681a33234d5f0e6ab9feb95a9b077591ba0174dcf1da96c42f4f292566"
+# its f32 fields (top_scores, score_parts), card against the port's CPU
+# run: the same f32 expression tree op for op; the tolerance leaves room
+# for a reduction-order rounding (tests/torch_parity.py F32_ATOL)
+EXPLAIN_F32_ATOL = 1e-4
+
+# Phase 8: the run-collapsed engine (KTPU_ASSIGN=runs) on bench.py's
+# `classes` stage shapes — make_nodes(5000) x deployment_backlog_pods(50000,
+# deployments=200) — and the JAX package's results there (JAX 0.9.0 on the
+# CPU): 8a BatchScheduler's placed count and placement sha256 and the
+# wave's class runs and collapse ratio (plan_runs); reproduce with
+# `JAX_PLATFORMS=cpu python3 scripts/flagship_reference.py --package jax
+# --workload classes --engine runs`. 8c the Scheduler's drain of that
+# backlog in waves of SERVING_BATCH, per wave (attempted, scheduled,
+# unschedulable, micro, snapshot mode, rows patched, class runs), then the
+# binder's order; reproduce with `JAX_PLATFORMS=cpu python3
+# scripts/flagship_reference.py --package jax --path serving --workload
+# classes --engine runs`. 8b holds the runs engine against the scan on
+# CLASSES_SCAN_PODS pods of CLASSES_SCAN_DEPLOYMENTS deployments.
+CLASSES_NODES, CLASSES_PODS, CLASSES_DEPLOYMENTS = 5000, 50000, 200
+CLASSES_SCAN_PODS, CLASSES_SCAN_DEPLOYMENTS = 2000, 20
+JAX_CLASSES = {
+    "scheduled": 50000,
+    "sha256":
+        "13e15552d0640cb740bd45a7a5594f27c8fb0639de597bf618e3069a8a0091f4",
+    "n_runs": 200,
+    "collapse_ratio": 250.0,
+}
+JAX_CLASSES_DRAIN = {
+    "waves": [
+        (4096, 4096, 0, 0, "full", 5000, 17),
+        (4096, 4096, 0, 0, "full", 5000, 17),
+        (4096, 4096, 0, 0, "full", 5000, 18),
+        (4096, 4096, 0, 0, "full", 5000, 17),
+        (4096, 4096, 0, 0, "full", 5000, 17),
+        (4096, 4096, 0, 0, "full", 5000, 18),
+        (4096, 4096, 0, 0, "full", 5000, 17),
+        (4096, 4096, 0, 0, "patch", 6659, 18),
+        (4096, 4096, 0, 0, "full", 5000, 17),
+        (4096, 4096, 0, 0, "full", 5000, 17),
+        (4096, 4096, 0, 0, "patch", 6472, 18),
+        (4096, 4096, 0, 0, "patch", 6809, 17),
+        (848, 848, 0, 0, "patch", 7199, 4),
+        (3, 3, 0, 1, "patch", 1697, 1),
+    ],
+    "bound": 50003,
+    "bound_sha256":
+        "8b32e1b9810c4e1e6e47720bda5a34834050019a993e40817f46f9bb8f1e08fa",
 }
 
 # the kernels every wave-engine path launches (K3 runs only in preemption)
@@ -349,6 +423,12 @@ def check_kernels(device, cases_k1, cases_k2) -> dict:
     return err
 
 
+# phase 2's K3 case at the storm's first-burst widths with five scalar
+# resources (R = 16, the wide variant); PERF.md's kernel table times it
+K3_WIDE_CASE = "wide R=16 B=8 N=5120 E=65536 (the storm's first-burst widths)"
+K3_NARROW_CASE = "R=4 B=8 N=5120 E=65536 (the storm's first-burst widths)"
+
+
 def k3_inputs(gen, device, B, N, E, R, p_vict=0.7, p_cand=0.8,
               p_reblock=0.2, p_clash=0.05, extreme=False, node_of=None,
               prios=None):
@@ -381,6 +461,8 @@ def k3_inputs(gen, device, B, N, E, R, p_vict=0.7, p_cand=0.8,
         req_e, alloc, used = pick(E, R), pick(N, R), pick(N, R)
         low = edge[[0, 1, 2, 4, 6]]   # so that some nodes are candidates
         req_p = low[torch.randint(0, len(low), (B, R), generator=gen)]
+        if R > 8:   # most scalar requests zero, or no node is a candidate
+            req_p[:, 4:] *= flags(B, R - 4, p=0.2)
     else:
         req_e = ints(E, R, lo=0, hi=1500)
         req_e[:, 3] = 1
@@ -415,7 +497,10 @@ def k3_edge_cases(device, seed: int = 0):
     reblocked, R = 8 with zero scalar requests, R = 7 with 33 lanes (past a
     warp), INT32_MIN and INT32_MAX priorities (the order and max_p traps,
     wrapping priority sums), extreme int32 requests, no pods, one lane of
-    one node."""
+    one node; then the wide variant (R = 9, 16, 20, 64: five scalar
+    resources bucket to 16) at 33 lanes, the storm's first-burst widths,
+    extreme int32, a 2,000-pod segment, INT32_MIN priorities and no
+    pods."""
     import torch
 
     gen = torch.Generator().manual_seed(seed)
@@ -447,6 +532,20 @@ def k3_edge_cases(device, seed: int = 0):
          k3_inputs(gen, device, 5, 129, 3000, 6, extreme=True)),
         ("no pods B=2 N=10 E=0", k3_inputs(gen, device, 2, 10, 0, 4)),
         ("B=1 N=1 E=1", k3_inputs(gen, device, 1, 1, 1, 4)),
+        # the wide variant: R past the registers', as Dims buckets it
+        ("wide R=9 B=33 N=200 E=3000",
+         k3_inputs(gen, device, 33, 200, 3000, 9)),
+        (K3_WIDE_CASE, k3_inputs(gen, device, 8, 5120, 65536, 16)),
+        (K3_NARROW_CASE, k3_inputs(gen, device, 8, 5120, 65536, 4)),
+        ("wide R=16 extreme int32 B=33 N=129 E=3000",
+         k3_inputs(gen, device, 33, 129, 3000, 16, extreme=True)),
+        ("wide R=20 2000-pod segment B=4 N=3 E=4000",
+         k3_inputs(gen, device, 4, 3, 4000, 20, p_cand=1.0, p_reblock=0.05,
+                   p_clash=0.0, node_of=long_seg)),
+        ("wide R=64 INT32_MIN/MAX priorities B=33 N=100 E=2000",
+         k3_inputs(gen, device, 33, 100, 2000, 64, prios=edge_prios)),
+        ("wide R=16 no pods B=2 N=10 E=0",
+         k3_inputs(gen, device, 2, 10, 0, 16)),
     ]
 
 
@@ -464,6 +563,33 @@ def k3_diff(a, b) -> int:
             d = max(d, int((x.to(torch.int64) - y.to(torch.int64)).abs()
                            .max()))
     return d
+
+
+def k3_wide_row(device, wide, narrow) -> dict:
+    """K3's wide variant (R = 16) at the storm's first-burst widths, timed
+    beside the registers variant on inputs of the same B, N and E at R = 4
+    (phase 2's K3_WIDE_CASE and K3_NARROW_CASE), each with its bound."""
+    from kubernetes_tpu_torch.ops import kernels as K
+
+    out = {}
+    for name, args in (("R16", wide), ("R4", narrow)):
+        b, by = k3_bound(args, K.reprieve_scan(*args))
+        out[name] = dict(
+            variant=K.k3_launch_config(args[10].shape[0],
+                                       args[10].shape[1]).variant,
+            shape=[args[7].shape[0], args[10].shape[0], args[7].shape[1],
+                   args[10].shape[1]],
+            ms=device_ms(lambda: K.reprieve_scan(*args), device),
+            call_ms=time_ms(lambda: K.reprieve_scan(*args), device),
+            plain_ms=time_ms(lambda: K.reprieve_scan_plain(*args), device,
+                             reps=3),
+            bound_ms=b, bound_by=by)
+        r = out[name]
+        print(f"  reprieve_scan {name} ({r['variant']} variant, B N E R = "
+              f"{r['shape']}): {r['ms']:.4f} ms on the device, "
+              f"{r['call_ms']:.4f} ms per call (plain {r['plain_ms']:.4f} "
+              f"ms, bound {r['bound_ms']:.6f} ms by {r['bound_by']})")
+    return out
 
 
 def check_k3(device, cases) -> int:
@@ -718,7 +844,8 @@ def fresh_pods(T, n_pods: int) -> list:
 
 def serving_drain(api, n_nodes: int, n_pods: int,
                   batch_size: int = SERVING_BATCH,
-                  on_wave=None, keep_bound=None) -> dict:
+                  on_wave=None, keep_bound=None,
+                  workload: str = "flagship") -> dict:
     """Phase 5b: the wave loop. A Scheduler(RecordingBinder, batch_size,
     microwave=True) on a still clock over make_nodes(n_nodes), with
     base_dims sized to the drain (N, P = batch_size, E = n_pods) and a
@@ -731,12 +858,17 @@ def serving_drain(api, n_nodes: int, n_pods: int,
     active queue is empty. Then 3 fresh single pods arrive: the next
     schedule_pending must be a micro wave. `on_wave(i)` is called after each
     wave's run (chip_smoke.py reads its timings there). The binder's
-    (pod key, node) list is appended to `keep_bound` when one is given."""
+    (pod key, node) list is appended to `keep_bound` when one is given.
+    `workload="classes"` drains deployment_backlog_pods(n_pods,
+    deployments=200) instead (phase 8c); each wave also records the class
+    runs the run-collapsed engine reported (0 under the other engines)."""
     import dataclasses
 
     T = api.types
     nodes = api.workloads.make_nodes(n_nodes)
-    pods = api.workloads.flagship_pods(n_pods)
+    pods = (api.workloads.flagship_pods(n_pods) if workload == "flagship"
+            else api.workloads.deployment_backlog_pods(
+                n_pods, deployments=CLASSES_DEPLOYMENTS))
     by_key = {p.key: p for p in pods}
     binder = api.RecordingBinder()
     s = api.scheduler(binder=binder, batch_size=batch_size, microwave=True,
@@ -755,7 +887,8 @@ def serving_drain(api, n_nodes: int, n_pods: int,
         waves.append(dict(attempted=st.attempted, scheduled=st.scheduled,
                           unschedulable=st.unschedulable, micro=st.micro,
                           mode=s.cache.last_snapshot_mode,
-                          patch_rows=s.cache.last_patch_rows))
+                          patch_rows=s.cache.last_patch_rows,
+                          class_runs=st.class_runs))
         if on_wave is not None:
             on_wave(len(waves) - 1)
 
@@ -1598,6 +1731,234 @@ def gang_phase(device) -> dict:
                 errs={"contention_scan": d1})
 
 
+# --------------------------------------------------------------------------- #
+# phase 3c: decision provenance, phase 8: the run-collapsed engine (shared
+# with scripts/flagship_reference.py)
+# --------------------------------------------------------------------------- #
+
+def explain_sha256(exp: dict, n: int) -> str:
+    """sha256 over an ExplainResult's integer fields (numpy arrays by
+    name), each [:n] as little-endian int32, in EXPLAIN_INT_FIELDS
+    order."""
+    import numpy as np
+
+    h = hashlib.sha256()
+    for f in EXPLAIN_INT_FIELDS:
+        h.update(np.ascontiguousarray(np.asarray(exp[f])[:n],
+                                      dtype="<i4").tobytes())
+    return h.hexdigest()
+
+
+def port_explain_cycle(device, nodes, pods):
+    """BatchScheduler.schedule's encode and dispatch with explain=True, on
+    `device`. Returns (placements by node name, ExplainResult as numpy
+    arrays by field)."""
+    from kubernetes_tpu_torch.sched.cycle import (UNSCHEDULABLE_TAINT_KEY,
+                                                  schedule_batch)
+    from kubernetes_tpu_torch.state.arrays import tables_to_torch
+    from kubernetes_tpu_torch.state.encode import Encoder
+
+    enc = Encoder()
+    enc.vocabs.label_keys.intern(UNSCHEDULABLE_TAINT_KEY)
+    enc.vocabs.label_vals.intern("")
+    tables, ex, pe, d = enc.encode_cluster(nodes, [], pods)
+    keys = (enc.vocabs.label_keys.get(UNSCHEDULABLE_TAINT_KEY),
+            enc.vocabs.label_vals.get(""))
+    tt, (ext, pet) = tables_to_torch(tables, (ex, pe), device)
+    res, exp = schedule_batch(tt, pet, keys, d.D, ext,
+                              has_node_name=d.has_node_name, explain=True)
+    sync(device)
+    idx = res.node.cpu().tolist()[:len(pods)]
+    return ([nodes[i].name if i >= 0 else None for i in idx],
+            {f: t.cpu().numpy() for f, t in zip(exp._fields, exp)})
+
+
+def explain_phase(device, nodes, pods) -> dict:
+    """Phase 3c: the flagship dispatch with explain=True on the card and on
+    the CPU. The placements equal the JAX package's; the integer fields
+    equal between the two runs and their sha256 the JAX package's; the f32
+    fields within EXPLAIN_F32_ATOL."""
+    import numpy as np
+    import torch
+
+    card_s = []
+    for _ in range(2):    # cold, then warm
+        t0 = time.perf_counter()
+        placed, exp = port_explain_cycle(device, nodes, pods)
+        card_s.append(time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    placed_c, exp_c = port_explain_cycle(torch.device("cpu"), nodes, pods)
+    cpu_s = time.perf_counter() - t0
+    if assignments_sha256(placed) != JAX_ASSIGNMENTS_SHA256 \
+            or placed_c != placed:
+        fail("explain=True changed the flagship placements")
+    for f in EXPLAIN_INT_FIELDS:
+        if not np.array_equal(exp[f], exp_c[f]):
+            fail(f"explain field {f} differs between the card and the CPU")
+    f32_err = max(float(np.abs(exp[f] - exp_c[f]).max())
+                  for f in ("top_scores", "score_parts"))
+    if not f32_err <= EXPLAIN_F32_ATOL:
+        fail(f"explain's f32 fields differ from the CPU run by {f32_err} "
+             f"(> {EXPLAIN_F32_ATOL})")
+    sha = explain_sha256(exp, len(pods))
+    if sha != JAX_EXPLAIN_SHA256:
+        fail(f"explain's integer fields differ from the JAX package's "
+             f"(sha256 {sha})")
+    failed = exp["part_node"][:len(pods)] < 0
+    print(f"    {sum(a is not None for a in placed)} placed, "
+          f"{sum(a is None for a in placed)} unschedulable, "
+          f"{int(failed.sum())} with no feasible node; encode and explain "
+          f"dispatch {card_s[0]:.3f} s cold and {card_s[1]:.3f} s warm on "
+          f"the card, {cpu_s:.3f} s on the CPU; integer "
+          f"fields equal (sha256 equal to the JAX package's), f32 fields "
+          f"within {f32_err:.3g} (tolerance {EXPLAIN_F32_ATOL})")
+    return {"card_cold_s": card_s[0], "card_warm_s": card_s[1],
+            "cpu_s": cpu_s, "f32_max_abs_err": f32_err, "sha256": sha}
+
+
+def classes_plan(nodes, pods) -> dict:
+    """The run plan (ops/runs.py plan_runs) of one wave holding `pods`, as
+    BatchScheduler encodes it: class runs and collapse ratio."""
+    from kubernetes_tpu_torch.ops.runs import plan_runs
+    from kubernetes_tpu_torch.sched.cycle import UNSCHEDULABLE_TAINT_KEY
+    from kubernetes_tpu_torch.state.encode import Encoder
+
+    enc = Encoder()
+    enc.vocabs.label_keys.intern(UNSCHEDULABLE_TAINT_KEY)
+    enc.vocabs.label_vals.intern("")
+    _t, _ex, pe, _d = enc.encode_cluster(nodes, [], pods)
+    plan = plan_runs(pe.cls, pe.priority, pe.creation, pe.valid,
+                     pe.node_name_req)
+    return {"n_runs": plan.n_runs,
+            "collapse_ratio": round(plan.collapse_ratio, 2)}
+
+
+def runs_phase(device) -> dict:
+    """Phase 8, under KTPU_ASSIGN=runs: 8a BatchScheduler(device) on the
+    `classes` shapes against JAX_CLASSES, the runs that took the closed
+    form and those that fell back, epochs per dispatch, cold and median of
+    3 warm cycles; 8b the scan and the runs engine on CLASSES_SCAN_PODS
+    pods, placements bit-equal; 8c the Scheduler(device) drain of the
+    backlog against JAX_CLASSES_DRAIN, per-wave times."""
+    import os
+
+    from kubernetes_tpu_torch import BatchScheduler
+    from kubernetes_tpu_torch.models.workloads import (deployment_backlog_pods,
+                                                       make_nodes)
+    from kubernetes_tpu_torch.ops import kernels as K
+    from kubernetes_tpu_torch.ops import runs as RN
+
+    saved = os.environ.get("KTPU_ASSIGN")
+    out = {}
+    try:
+        os.environ["KTPU_ASSIGN"] = "runs"
+        nodes = make_nodes(CLASSES_NODES)
+        pods = deployment_backlog_pods(CLASSES_PODS,
+                                       deployments=CLASSES_DEPLOYMENTS)
+        t_phase = time.perf_counter()
+        sched = BatchScheduler(device=device)
+        RN.reset_run_stats()
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = sched.schedule(nodes, [], pods)
+        sync(device)
+        cold_s = time.perf_counter() - t0
+        stats, launches = dict(RN.assign_runs.stats), K.launch_counts()
+        warm = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            again = sched.schedule(nodes, [], pods)
+            sync(device)
+            warm.append(time.perf_counter() - t0)
+            if again.assignments != res.assignments:
+                fail("a warm runs-engine cycle placed differently")
+        got = dict(scheduled=res.scheduled,
+                   sha256=assignments_sha256(res.assignments),
+                   **classes_plan(nodes, pods))
+        epochs = stats["epochs"] / max(stats["dispatches"], 1)
+        print(f"  8a: scheduled {got['scheduled']} of {CLASSES_PODS}, "
+              f"{got['n_runs']} class runs (collapse ratio "
+              f"{got['collapse_ratio']}); {stats['closed']} runs took the "
+              f"closed form, {stats['fallback']} fell back; {epochs:.2f} "
+              f"epochs per dispatch; cycle {cold_s:.3f} s cold, warm "
+              f"{[round(t, 4) for t in warm]} s, median "
+              f"{statistics.median(warm):.4f} s; launches {launches}")
+        if got != JAX_CLASSES:
+            bad = [k for k in JAX_CLASSES if got.get(k) != JAX_CLASSES[k]]
+            fail(f"the runs-engine cycle differs from the JAX package's in "
+                 f"{bad}: {got}")
+        if stats["fallback"] or stats["closed"] != got["n_runs"]:
+            fail(f"the closed form did not take every run: {stats}")
+        print(f"      placed count, placement sha256, class runs and "
+              f"collapse ratio equal the JAX package's "
+              f"({time.perf_counter() - t_phase:.1f} s)")
+        out["batch"] = dict(got, cold_s=cold_s, warm_s=warm,
+                            median_warm_s=statistics.median(warm),
+                            closed=stats["closed"],
+                            fallback=stats["fallback"],
+                            epochs_per_dispatch=epochs, launches=launches)
+
+        t_phase = time.perf_counter()
+        small = deployment_backlog_pods(CLASSES_SCAN_PODS,
+                                        deployments=CLASSES_SCAN_DEPLOYMENTS)
+        cmp = {}
+        for engine in ("scan", "runs"):
+            os.environ["KTPU_ASSIGN"] = engine
+            t0 = time.perf_counter()
+            r = BatchScheduler(device=device).schedule(nodes, [], small)
+            sync(device)
+            cmp[engine] = (r.assignments, time.perf_counter() - t0)
+        if cmp["scan"][0] != cmp["runs"][0]:
+            bad = sum(a != b for a, b in zip(cmp["scan"][0], cmp["runs"][0]))
+            fail(f"the runs engine's placements differ from the scan's "
+                 f"({bad} pods)")
+        print(f"  8b: {CLASSES_SCAN_PODS} pods of {CLASSES_SCAN_DEPLOYMENTS} "
+              f"deployments: runs equal to the scan, placements bit-equal "
+              f"({sum(a is not None for a in cmp['runs'][0])} placed); scan "
+              f"{cmp['scan'][1]:.3f} s, runs {cmp['runs'][1]:.3f} s "
+              f"({time.perf_counter() - t_phase:.1f} s)")
+        out["scan_vs_runs"] = {"pods": CLASSES_SCAN_PODS,
+                               "scan_s": cmp["scan"][1],
+                               "runs_s": cmp["runs"][1]}
+
+        t_phase = time.perf_counter()
+        os.environ["KTPU_ASSIGN"] = "runs"
+        os.environ["KTPU_OVERLOAD"] = "0"
+        marks = [time.perf_counter()]
+        K.reset_launch_counts()
+        drain = serving_drain(port_serving_api(device), CLASSES_NODES,
+                              CLASSES_PODS, workload="classes",
+                              on_wave=lambda i: marks.append(
+                                  time.perf_counter()))
+        wave_s = [b - a for a, b in zip(marks, marks[1:])]
+        waves = [(w["attempted"], w["scheduled"], w["unschedulable"],
+                  w["micro"], w["mode"], w["patch_rows"], w["class_runs"])
+                 for w in drain["waves"]]
+        for w, t in zip(waves, wave_s):
+            print(f"  8c wave: attempted {w[0]} scheduled {w[1]} "
+                  f"unschedulable {w[2]} micro {w[3]} {w[4]} "
+                  f"({w[5]} rows) class runs {w[6]}: {t:.3f} s")
+        ref = JAX_CLASSES_DRAIN
+        if waves != [tuple(w) for w in ref["waves"]]:
+            fail(f"8c's per-wave counts, modes or class runs differ from the "
+                 f"JAX package's: {waves}")
+        if (drain["bound"], drain["bound_sha256"]) != (ref["bound"],
+                                                       ref["bound_sha256"]):
+            fail("8c's binder order differs from the JAX package's")
+        print(f"      {drain['bound']} bound in {len(waves)} waves; per-wave "
+              f"counts, class runs and binder order equal the JAX "
+              f"package's ({time.perf_counter() - t_phase:.1f} s)")
+        out["drain"] = {"waves": waves, "wave_s": wave_s,
+                        "bound": drain["bound"],
+                        "launches": K.launch_counts()}
+    finally:
+        if saved is None:
+            os.environ.pop("KTPU_ASSIGN", None)
+        else:
+            os.environ["KTPU_ASSIGN"] = saved
+    return out
+
+
 def check_drain(drain, who: str, ref: dict) -> None:
     waves = [(w["attempted"], w["scheduled"], w["unschedulable"], w["micro"],
               w["mode"], w["patch_rows"]) for w in drain["waves"]]
@@ -1632,7 +1993,8 @@ def main() -> int:
 
     print("[2] kernels against their plain versions on the card")
     errs = check_kernels(device, *edge_cases(device))
-    errs["reprieve_scan"] = check_k3(device, k3_edge_cases(device))
+    k3_cases = dict(k3_edge_cases(device))
+    errs["reprieve_scan"] = check_k3(device, list(k3_cases.items()))
 
     print("[3] flagship cycle, 5000 nodes x 50000 pods, BatchScheduler(cuda)")
     from kubernetes_tpu_torch.models.workloads import flagship_pods, make_nodes
@@ -1646,6 +2008,11 @@ def main() -> int:
         fail("placements differ from the JAX package's (sha256)")
     print(f"    scheduled {res.scheduled} == JAX package's {JAX_SCHEDULED}; "
           f"placement sha256 equal; cycle {cycle_s * 1e3:.1f} ms (median of 3)")
+
+    print("[3c] the flagship dispatch with explain=True, card and CPU")
+    t0 = time.perf_counter()
+    explain = explain_phase(device, make_nodes(5000), flagship_pods(50000))
+    print(f"    phase 3c {time.perf_counter() - t0:.1f} s")
 
     print(f"[3b] port-and-volume cycle, {PV_NODES} nodes x {PV_PODS} pods, "
           f"BatchScheduler(cuda)")
@@ -1694,6 +2061,8 @@ def main() -> int:
     storm = preempt_phase(device, serving["bound"])
     k3 = storm["row"]
     k3["max_abs_err"] = max(k3["max_abs_err"], errs["reprieve_scan"])
+    k3["wide"] = k3_wide_row(device, k3_cases[K3_WIDE_CASE],
+                             k3_cases[K3_NARROW_CASE])
     rows.append(k3)
 
     print(f"[7] gang jobs (BASELINE config 5): {GANG_NODES} nodes x "
@@ -1707,6 +2076,12 @@ def main() -> int:
                          max_abs_err=gang["errs"].get(name))
         r["max_abs_err"] = max(r["max_abs_err"], storm["errs"][name],
                                gang["errs"].get(name, 0))
+
+    print(f"[8] run-collapsed engine (KTPU_ASSIGN=runs): {CLASSES_NODES} "
+          f"nodes x {CLASSES_PODS} pods of {CLASSES_DEPLOYMENTS} deployments")
+    t0 = time.perf_counter()
+    runs = runs_phase(device)
+    print(f"    phase 8 {time.perf_counter() - t0:.1f} s")
 
     steady = serving["steady"]["cycles"]
     print(json.dumps({"kernels": rows, "cycle_ms": cycle_s * 1e3,
@@ -1737,7 +2112,7 @@ def main() -> int:
                           "wave0_vips_per_s": storm["wave0_vips_per_s"],
                           "later_vips_per_s": storm["later_vips_per_s"],
                           "wall_s": storm["storm_s"]},
-                      "gang": gang}))
+                      "gang": gang, "explain": explain, "runs": runs}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -43,15 +43,13 @@ def _frac(total: Array, cap: Array) -> Array:
     return torch.where(cap > 0, total.float() / torch.clamp(cap_f, min=1.0), 0.0)
 
 
-def resource_scores_row(
-    req_vec: Array, used: Array, alloc: Array
-) -> tuple[Array, Array, Array]:
-    """(least_requested, balanced_allocation, most_requested), each [B, N]
-    f32 on 0..100, for request vectors [B, R] against used/alloc [N, R]
-    (least_requested.go:60-77, balanced_resource_allocation.go:68-102,
-    most_requested.go:52-70)."""
-    total = used[None] + req_vec[:, None, :]  # [B, N, R]
-    cpu_cap, mem_cap = alloc[:, 0], alloc[:, 1]
+def resource_scores(total: Array, alloc: Array
+                    ) -> tuple[Array, Array, Array]:
+    """(least_requested, balanced_allocation, most_requested), each f32 on
+    0..100, for the requests `total` [..., R] a node would hold against
+    its allocatable `alloc` [..., R] (least_requested.go:60-77,
+    balanced_resource_allocation.go:68-102, most_requested.go:52-70)."""
+    cpu_cap, mem_cap = alloc[..., 0], alloc[..., 1]
     cpu_t, mem_t = total[..., 0], total[..., 1]
 
     def least(t, cap):
@@ -71,3 +69,11 @@ def resource_scores_row(
         (cf >= 1.0) | (mf >= 1.0), 0.0,
         MAX_NODE_SCORE - torch.abs(cf - mf) * MAX_NODE_SCORE)
     return least_score, balanced, most_score
+
+
+def resource_scores_row(
+    req_vec: Array, used: Array, alloc: Array
+) -> tuple[Array, Array, Array]:
+    """resource_scores, each [B, N], for request vectors [B, R] against
+    used/alloc [N, R]."""
+    return resource_scores(used[None] + req_vec[:, None, :], alloc)

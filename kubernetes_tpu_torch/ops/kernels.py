@@ -17,7 +17,8 @@ Each wrapper takes its plain version for tensors on the CPU and launches its
 kernel for tensors on a CUDA device — never falling back from one to the
 other — and counts its launches in `<wrapper>.launches`. The launch shape
 (K1's variant and grid, K2's segments and counter storage) is chosen
-in plain Python, `k1_launch_config` / `k2_launch_config`.
+in plain Python, `k1_launch_config` / `k2_launch_config` /
+`k3_launch_config`.
 
 Build: `nvcc -gencode arch=compute_90a,code=sm_90a` into one shared library
 per source with a plain C interface, loaded with ctypes, at first use. The
@@ -52,7 +53,7 @@ _I = ctypes.c_int
 _ARGTYPES = {
     "contention_scan_launch": [_P] * 21 + [_I] * 11 + [_P],
     "domain_rank_launch": [_P] * 3 + [_I] * 7 + [_P],
-    "reprieve_scan_launch": [_P] * 17 + [_I] * 4 + [_P],
+    "reprieve_scan_launch": [_P] * 17 + [_I] * 6 + [_P],
 }
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
@@ -378,7 +379,44 @@ domain_rank.launches = 0
 # K3 reprieve_scan
 # --------------------------------------------------------------------------- #
 
-K3_MAX_R = 8    # resource slots K3 carries in registers
+K3_MAX_R = 8    # widest R K3 carries in registers
+K3_WARPS = 4    # warps (= nodes) per block
+K3_STAGE = 128  # segment positions a warp stages
+
+
+class K3Launch(NamedTuple):
+    variant: str      # "registers" (R = 4..8) or "wide" (R > 8)
+    warps: int        # warps (= nodes) per block
+    blocks: int
+    smem_bytes: int   # dynamic shared memory (0: the static stage)
+
+
+def k3_wide_smem_bytes(R: int) -> int:
+    """Dynamic shared memory one warp of K3's wide variant uses, as
+    csrc/reprieve_scan.cu wide_words lays it out: the staged window (pod
+    ids, priorities, creations, one PDB word per 32 positions, [R, stage]
+    requests) and the lanes' carries ([R, 32] request vectors and used
+    words, the node's [R] capacity)."""
+    return 4 * (3 * K3_STAGE + K3_STAGE // 32 + R * K3_STAGE + 2 * R * 32 + R)
+
+
+def k3_launch_config(N: int, R: int) -> K3Launch:
+    """K3's variant and grid: one warp per node; R = 4..8 the registers
+    variant (K3_WARPS nodes per block, a kernel per R), wider R the wide
+    variant with its carries in shared memory, as many warps per block as
+    fit. Raises ValueError below the four fixed slots, or when one warp's
+    shared memory would exceed the card's."""
+    if R < 4:
+        raise ValueError(f"K3 needs the 4 fixed resource slots, got R={R}")
+    if R <= K3_MAX_R:
+        return K3Launch("registers", K3_WARPS, -(-N // K3_WARPS), 0)
+    per_warp = k3_wide_smem_bytes(R)
+    if per_warp > SMEM_MAX:
+        raise ValueError(f"K3 at R={R} needs {per_warp} bytes of shared "
+                         f"memory for one warp, over the {SMEM_MAX} a block "
+                         f"can use")
+    warps = max(1, min(K3_WARPS, N, SMEM_MAX // per_warp))
+    return K3Launch("wide", warps, -(-N // warps), warps * per_warp)
 
 
 class K3Out(NamedTuple):
@@ -485,8 +523,8 @@ K3_BOOL = {"pdb_e", "vict_pot", "c_e", "reblock", "valid", "cand_rest"}
 def k3_check(args) -> Tuple[int, int, int, int]:
     """What K3 takes, checked before a launch: one device, contiguous
     tensors, int32 CSR/requests/priorities/creations and bool flags,
-    consistent shapes, 4 <= R <= K3_MAX_R. Returns (B, N, E, R); raises
-    ValueError."""
+    consistent shapes, an R k3_launch_config takes. Returns (B, N, E, R);
+    raises ValueError."""
     _check(args, args[0].device)
     named = dict(zip(K3_ARGS, args))
     req_e, req_p, used = named["req_e"], named["req_p"], named["used"]
@@ -506,9 +544,7 @@ def k3_check(args) -> Tuple[int, int, int, int]:
         if tuple(t.shape) != want[name]:
             raise ValueError(f"{name} has shape {tuple(t.shape)}, "
                              f"expected {want[name]}")
-    if not 4 <= R <= K3_MAX_R:
-        raise ValueError(f"K3 carries 4 to {K3_MAX_R} resource slots in "
-                         f"registers, got R={R}")
+    k3_launch_config(N, R)
     return B, N, E, R
 
 
@@ -527,12 +563,13 @@ def reprieve_scan(seg_ptr, seg_e, req_e, prio_e, pdb_e, creation_e, req_p,
     if device.type == "cpu":
         return reprieve_scan_plain(*args)
     B, N, E, R = k3_check(args)
+    cfg = k3_launch_config(N, R)
     victim = torch.zeros((B, E), dtype=torch.bool, device=device)
     cand = torch.empty((B, N), dtype=torch.bool, device=device)
     planes = torch.empty((5, B, N), dtype=torch.int32, device=device)
     _launch("reprieve_scan", *(t.data_ptr() for t in args),
             victim.data_ptr(), cand.data_ptr(), planes.data_ptr(), B, N, E,
-            R, _stream(device))
+            R, cfg.warps, cfg.smem_bytes, _stream(device))
     reprieve_scan.launches += 1
     return K3Out(victim, cand, *planes.unbind(0))
 

@@ -54,3 +54,11 @@ def volume_components_row(
     lim = nodes.vol_limit[None]                                # [1, N, DR]
     limit_ok = ((lim < 0) | (cnt <= lim)).all(-1)
     return absent | ~conflict, absent | limit_ok
+
+
+def volume_ok_row(tables: ClusterTables, vol_any: Array, vol_rw: Array,
+                  cls: Array) -> Array:
+    """[B, N] bool: both volume predicates (the diagnosis surface)."""
+    conflict_free, limit_ok = volume_components_row(tables, vol_any, vol_rw,
+                                                    cls)
+    return conflict_free & limit_ok

@@ -2,15 +2,17 @@
 JAX package's sched/cycle.py).
 
 encode (state/encode.py) → tensors on the device (state/arrays.py
-tables_to_torch) → build_cycle → initial_state → assign_waves (or the
-sequential scan for a batch with a `spec.nodeName` pod; either inside the
-gang engine's rounds, ops/gang.py, for a batch with gang-grouped pods) →
-node names. The serving path (sched/scheduler.py) takes its tensors from
-the resident cache instead (state/cache.py, through `snapshot_with_keys`).
+tables_to_torch) → build_cycle → initial_state → the engine KTPU_ASSIGN
+names: assign_waves (the default), the run-collapsed assign_runs
+(KTPU_ASSIGN=runs) or the sequential scan (KTPU_ASSIGN=scan, and every
+waves batch with a `spec.nodeName` pod); any of them inside the gang
+engine's rounds (ops/gang.py) for a batch with gang-grouped pods → node
+names, and with `explain` the decision attribution of the wave
+(ops/assign.py explain_assignments). The serving path
+(sched/scheduler.py) takes its tensors from the resident cache instead
+(state/cache.py, through `snapshot_with_keys`).
 
-The port has no run-collapsed engine, extra score plugins, prewarmer or mesh
-yet: KTPU_ASSIGN=runs raises NotImplementedError naming the ROADMAP item
-that ports it.
+The port has no extra score plugins, prewarmer or mesh yet.
 """
 
 from __future__ import annotations
@@ -22,9 +24,11 @@ from typing import Dict, List, Optional, Sequence
 import torch
 
 from ..api.types import Node, Pod
-from ..ops.assign import AssignResult, assign_batch, initial_state
+from ..ops.assign import (AssignResult, assign_batch, explain_assignments,
+                          initial_state, mask_components)
 from ..ops.gang import GangArrays, assign_gang
 from ..ops.lattice import build_cycle
+from ..ops.runs import assign_runs, plan_runs
 from ..ops.waves import assign_waves
 from ..state.arrays import ClusterTables, PodArrays, tables_to_torch, to_device
 from ..state.dims import Dims
@@ -72,32 +76,61 @@ def _taint_scalars(encoder: Encoder):
 
 
 def _engine() -> str:
-    """Assignment engine from KTPU_ASSIGN: 'waves' (default, ops/waves.py)
-    or 'scan' (the sequential spec, ops/assign.py). 'runs' is not ported yet;
-    unrecognized values normalize to 'waves', as in the JAX package."""
+    """Assignment engine from KTPU_ASSIGN: 'waves' (default, ops/waves.py),
+    'runs' (the run-collapsed engine, ops/runs.py) or 'scan' (the
+    sequential spec, ops/assign.py); unrecognized values normalize to
+    'waves', as in the JAX package."""
     eng = os.environ.get("KTPU_ASSIGN", "waves")
-    if eng == "runs":
-        raise NotImplementedError(
-            "KTPU_ASSIGN=runs: the run-collapsed engine (ops/runs.py) is not "
-            "ported yet — ROADMAP A9")
-    return eng if eng == "scan" else "waves"
+    return eng if eng in ("waves", "runs", "scan") else "waves"
+
+
+# gang batches at least this large take the JAX package's host-rounds route
+# there, which attributes nothing under explain (its sched/cycle.py
+# _schedule_gang_host_rounds); the port's one gang route keeps that contract
+_GANG_HOST_THRESHOLD = int(os.environ.get(
+    "KTPU_GANG_HOST_ROUNDS_ABOVE", "65536"))
+
+
+def _resolve_rc(pending: PodArrays, runs) -> int:
+    """The run-collapsed engine's run capacity: the snapshot's RunPlan when
+    the cache emitted one, else planned from the pending arrays (one [P]
+    readback per column)."""
+    if runs is not None:
+        return runs.rc
+    return plan_runs(*(t.cpu().numpy() for t in (
+        pending.cls, pending.priority, pending.creation, pending.valid,
+        pending.node_name_req))).rc
 
 
 def schedule_batch(tables: ClusterTables, pending: PodArrays, keys: tuple,
                    D: int, existing: PodArrays,
                    has_node_name: bool = False,
                    gang: Optional[GangArrays] = None,
-                   return_waves: bool = False):
+                   return_waves: bool = False,
+                   runs=None,
+                   explain: bool = False):
     """One cycle on tensors: build_cycle → initial_state → the engine. A
-    batch holding a `spec.nodeName` pod runs through the sequential scan:
-    the class-granular wave path cannot express a per-pod host constraint.
-    With `gang` (gang-grouped pods in the batch) the engine runs inside the
-    gang engine's rejection rounds. With `return_waves` the result comes
-    with the wave index per pod — None where the scan ran (the JAX
-    package's contract)."""
+    waves batch holding a `spec.nodeName` pod runs through the sequential
+    scan: the class-granular wave path cannot express a per-pod host
+    constraint (the runs engine keeps such a batch: it splits runs on
+    nodeName and takes those pods one by one). With `gang` (gang-grouped
+    pods in the batch) the engine runs inside the gang engine's rejection
+    rounds. `runs` is the snapshot's RunPlan (ops/runs.py) for the runs
+    engine. With `return_waves` the result comes with the wave index per
+    pod — None where another engine ran; with `explain` with the wave's
+    ExplainResult ("pod" granularity for the scan, "class" otherwise; None
+    for a gang batch of the JAX package's host-rounds size). The two cannot
+    be combined."""
+    if explain and return_waves:
+        raise ValueError("explain and return_waves cannot be combined")
     engine = _engine()
     if engine == "waves" and has_node_name:
         engine = "scan"
+    rc = _resolve_rc(pending, runs) if engine == "runs" else 0
+
+    def runs_fn(t, cy, pe, ini):
+        return assign_runs(t, cy, pe, ini, rc)
+
     uk, ev = keys
     cyc = build_cycle(tables, existing, uk, ev, D)
     init = initial_state(tables, cyc)
@@ -109,15 +142,33 @@ def schedule_batch(tables: ClusterTables, pending: PodArrays, keys: tuple,
         else:
             res, _ = assign_gang(
                 tables, cyc, pending, init, gang,
-                engine_fn=assign_batch if engine == "scan" else None)
+                engine_fn={"scan": assign_batch, "runs": runs_fn}.get(engine))
     elif engine == "scan":
         res = assign_batch(tables, cyc, pending, init)
+    elif engine == "runs":
+        res = runs_fn(tables, cyc, pending, init)
     elif return_waves:
         res, waves = assign_waves(tables, cyc, pending, init,
                                   return_waves=True)
     else:
         res = assign_waves(tables, cyc, pending, init)
+    if explain:
+        if gang is not None and engine == "waves" \
+                and pending.valid.shape[0] >= _GANG_HOST_THRESHOLD:
+            return res, None
+        return res, explain_assignments(
+            tables, cyc, pending, res,
+            granularity="pod" if engine == "scan" else "class")
     return (res, waves) if return_waves else res
+
+
+def _diagnose(tables: ClusterTables, pending: PodArrays, keys: tuple, D: int,
+              existing: PodArrays):
+    """Per-predicate [P, N] component masks (PredicateFailureReason
+    analog) against the cycle's initial state."""
+    uk, ev = keys
+    return mask_components(tables, build_cycle(tables, existing, uk, ev, D),
+                           pending)
 
 
 @dataclass

@@ -6,8 +6,9 @@ The analog of the reference's Scheduler struct and its wiring
 per-pod scheduleOne loop (scheduler.go:596-763) replaced by a per-*wave*
 batched cycle: pop up to `batch_size` pods, snapshot the resident cache
 (state/cache.py: full, patch or cached), run one cycle on the device
-(sched/cycle.py schedule_batch: the wave engine with the K1/K2 kernels),
-read the placements back, then assume and bind.
+(sched/cycle.py schedule_batch: the wave engine with the K1/K2 kernels, or
+the engine KTPU_ASSIGN names), read the placements back, then assume and
+bind.
 
 Event handlers mirror eventhandlers.go:
   * assigned-pod add/update/delete      → cache            (:360-362)
@@ -25,13 +26,16 @@ what-ifs for every failed priority pod that is not gang-grouped. A batch
 with gang-grouped pods runs the gang engine (ops/gang.py); pods of rejected
 groups take the ordinary unschedulable path.
 
-The dispatch runs on the calling thread: no watchdog, no CPU fallback. Not
-ported yet, each refused with NotImplementedError naming its ROADMAP item:
-decision provenance (A9), extenders and framework plugins (A11), mesh
-serving (A13), the bind-intent ledger and fencing (A14); KTPU_ASSIGN=runs
-(A9) raises at the first wave. The prewarmer, the dispatch supervisor and
-real telemetry (A10) are absent; telemetry keeps its disabled path
-(sched/telemetry.py).
+Decision provenance (sched/explain.py; KTPU_EXPLAIN or `enable_explain`)
+runs the attribution reduction in each wave's dispatch and renders it into
+metrics, events and the why-pending map.
+
+The dispatch runs on the calling thread: no watchdog, no CPU fallback, so
+no degraded path to attribute. Not ported yet, each refused with
+NotImplementedError naming its ROADMAP item: extenders and framework
+plugins (A11), mesh serving (A13), the bind-intent ledger and fencing
+(A14). The prewarmer, the dispatch supervisor and real telemetry (A10) are
+absent; telemetry keeps its disabled path (sched/telemetry.py).
 """
 
 from __future__ import annotations
@@ -46,8 +50,10 @@ from ..state.arrays import resolve_device
 from ..state.cache import SchedulerCache
 from ..state.dims import Dims, bucket
 from ..state.encode import Encoder
-from .cycle import (UNSCHEDULABLE_TAINT_KEY, micro_snapshot_with_keys,
-                    schedule_batch, snapshot_with_keys)
+from .cycle import (UNSCHEDULABLE_TAINT_KEY, _engine,
+                    micro_snapshot_with_keys, schedule_batch,
+                    snapshot_with_keys)
+from .explain import build_explainer
 from .overload import build_governor
 from .queue import PriorityQueue
 from .telemetry import NullTelemetry
@@ -79,13 +85,17 @@ class RecordingBinder:
 class CycleStats:
     """Per-wave outcome; feeds the scheduling metrics
     (metrics/metrics.go:32-99). The JAX package's fields, less those only
-    its unported paths fill (aborted dispatches, run-collapse telemetry,
-    fleet ticks)."""
+    its unported paths fill (aborted dispatches, fleet ticks)."""
 
     attempted: int = 0
     scheduled: int = 0
     unschedulable: int = 0
     bind_errors: int = 0
+    # run-collapsed engine telemetry (ops/runs.py, KTPU_ASSIGN=runs): how
+    # many class runs the queue-ordered wave factored into, and the
+    # scan-step reduction P_valid/runs the collapse bought this wave
+    class_runs: int = 0
+    collapse_ratio: float = 0.0
     # pods sent back to the queue without a failure verdict: the rest of a
     # wave whose commit breaker opened mid-wave
     requeued: int = 0
@@ -146,9 +156,6 @@ class Scheduler:
         microwave: Optional[bool] = None,
         device="cuda",
     ) -> None:
-        if os.environ.get("KTPU_EXPLAIN", "0") not in ("", "0", "off"):
-            raise _unported("KTPU_EXPLAIN: decision provenance "
-                            "(sched/explain.py)", "A9")
         if extenders:
             raise _unported("extenders (extender/)", "A11")
         if framework is not None:
@@ -170,6 +177,12 @@ class Scheduler:
         self.clock = clock
         self.encoder = Encoder()
         self.telemetry = NullTelemetry()
+        # decision provenance (sched/explain.py): with KTPU_EXPLAIN on (or
+        # enable_explain()), every wave's dispatch also runs the
+        # attribution reduction and this explainer renders it; None keeps
+        # the dispatch without it
+        self.explainer = build_explainer(name=scheduler_name,
+                                         clock=self.clock)
         # overload governor (sched/overload.py): brownout modes,
         # priority-aware shedding into the queue's deferred lane, adaptive
         # wave sizing, and the commit-path circuit breaker. None when
@@ -199,6 +212,16 @@ class Scheduler:
         # every micro wave encodes at ONE fixed pending capacity
         self._micro_p = bucket(self.micro_max_batch)
         self.micro_waves = 0
+
+    def enable_explain(self, sink=None) -> None:
+        """Force decision provenance on for this scheduler (the
+        KubeSchedulerConfiguration `decisionProvenance: true` path)."""
+        if self.explainer is None:
+            self.explainer = build_explainer(
+                name=self.scheduler_name, clock=self.clock, enabled=True,
+                sink=sink)
+        elif sink is not None and self.explainer.sink is None:
+            self.explainer.sink = sink
 
     # ------------------------------------------------------------------ #
     # event handlers (eventhandlers.go)
@@ -379,13 +402,23 @@ class Scheduler:
         snap, keys = (self._micro_snapshot_keys(pending) if micro
                       else self._snapshot_keys(pending))
         span.mark("snapshot")
-        # the engine from KTPU_ASSIGN; a nodeName-bearing batch takes the
-        # literal scan; gang-grouped pods run the gang engine's rounds
+        # the engine from KTPU_ASSIGN; a nodeName-bearing batch reroutes
+        # the wave engine to the literal scan (the runs engine keeps it);
+        # gang-grouped pods run the gang engine's rounds
         # (sched/cycle.py schedule_batch)
-        res = schedule_batch(snap.tables, snap.pending, keys, snap.dims.D,
+        eng = _engine()
+        wave_engine = "scan" if (snap.dims.has_node_name
+                                 and eng == "waves") else eng
+        if wave_engine == "runs" and snap.runs is not None:
+            stats.class_runs = snap.runs.n_runs
+            stats.collapse_ratio = round(snap.runs.collapse_ratio, 2)
+        explain_on = self.explainer is not None
+        out = schedule_batch(snap.tables, snap.pending, keys, snap.dims.D,
                              snap.existing,
                              has_node_name=snap.dims.has_node_name,
-                             gang=snap.gang)
+                             gang=snap.gang, runs=snap.runs,
+                             explain=explain_on)
+        res, wave_exp = out if explain_on else (out, None)
         # intern the NEXT wave's backlog before reading this one back (the
         # JAX package does it while its dispatch runs): the vocabulary and
         # class ids — tie-breaks in the wave engine — come out in its order.
@@ -396,7 +429,20 @@ class Scheduler:
             self.encoder.intern_pods(backlog)
         span.mark("dispatch")
         node_idx = res.node.cpu().tolist()
+        if wave_exp is not None:
+            wave_exp = type(wave_exp)(*(t.cpu().numpy() for t in wave_exp))
         span.mark("readback")
+
+        # ---- decision provenance: render the wave's attribution (events,
+        # metrics, the why-pending map); the returned record rides this
+        # wave's telemetry record ---- #
+        explain_rec = None
+        if wave_exp is not None:
+            try:
+                explain_rec = self.explainer.observe_wave(
+                    batch, node_idx, wave_exp, snap.node_order, now=now)
+            except Exception:  # noqa: BLE001 - provenance must never
+                explain_rec = None  # take down a wave
 
         failures: List[Tuple[Pod, int]] = []
         commits: List[Tuple[Pod, str, int]] = []
@@ -459,8 +505,10 @@ class Scheduler:
             from .metrics import MICRO_WAVES
 
             MICRO_WAVES.inc(scheduler=self.scheduler_name)
-        self.telemetry.finish_wave(span, stats=stats, dims=snap.dims,
-                                   micro=micro)
+        self.telemetry.finish_wave(
+            span, stats=stats, engine=wave_engine, dims=snap.dims,
+            micro=micro,
+            extra={"explain": explain_rec} if explain_rec else None)
         return stats
 
     # ------------------------------------------------------------------ #
@@ -511,6 +559,10 @@ class Scheduler:
             total.shed += s.shed
             total.requeued += s.requeued
             total.commit_paused += s.commit_paused
+            if s.class_runs:
+                # run-collapse telemetry: keep the last non-empty wave's
+                total.class_runs = s.class_runs
+                total.collapse_ratio = s.collapse_ratio
             total.assignments.update(s.assignments)
             if self.queue.lengths()[0] == 0:
                 break

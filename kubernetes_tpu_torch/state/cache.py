@@ -30,12 +30,15 @@ shares `base.tables`, tests compare two), exactly as the JAX package's
 non-donated jit patch leaves its inputs intact.
 
 Not ported: mesh-resident sharding, the donated in-place patch and its
-double buffer (ROADMAP A13), the patch-scatter compile ladder (the port has
-no compile step), and the run-collapsed engine's run plan (A9).
+double buffer (ROADMAP A13) and the patch-scatter compile ladder (the port
+has no compile step). Under KTPU_ASSIGN=runs every snapshot carries the
+run-collapsed engine's RunPlan (ops/runs.py), counted on the host from the
+same staging columns as the pending tensors.
 """
 
 from __future__ import annotations
 
+import os
 import threading
 from dataclasses import dataclass, replace
 from typing import Dict, List, Optional, Sequence, Set, Tuple
@@ -121,6 +124,9 @@ class Snapshot:
                          # device when any pending pod is gang-grouped; None
                          # routes the plain engines
     device: Optional[torch.device] = None  # where the tensors live
+    runs: object = None  # ops/runs.py RunPlan when KTPU_ASSIGN=runs: the
+                         # host-counted run-length encoding of the pending
+                         # wave (run capacity + collapse telemetry)
 
 
 class SchedulerCache:
@@ -588,6 +594,10 @@ class SchedulerCache:
         with self._mu:
             pe_host = encoder.build_pod_arrays(
                 list(pending), d, self._node_slot, capacity=d.P)
+            runs_plan = self._run_plan_from_cols(
+                pe_host.cls, pe_host.priority, pe_host.creation,
+                pe_host.valid, pe_host.node_name_req) \
+                if self._runs_wanted() else None
             gang = self._gang_arrays(encoder, pending, d, device)
         return Snapshot(
             generation=base.generation,
@@ -600,7 +610,27 @@ class SchedulerCache:
             existing_keys=base.existing_keys,
             gang=gang,
             device=device,
+            runs=runs_plan,
         )
+
+    @staticmethod
+    def _runs_wanted() -> bool:
+        return os.environ.get("KTPU_ASSIGN") == "runs"
+
+    @staticmethod
+    def _run_plan_from_cols(cls, priority, creation, valid, nnr):
+        """RunPlan over host staging columns (numpy, no device readback)."""
+        from ..ops.runs import plan_runs
+
+        return plan_runs(cls, priority, creation, valid, nnr)
+
+    def _run_plan_from_stage(self):
+        stage = self._pending_stage
+        if stage is None:
+            return None
+        rows = stage.rows
+        return self._run_plan_from_cols(rows[:, 2], rows[:, 3], rows[:, 4],
+                                        stage.valid, rows[:, 5])
 
     @staticmethod
     def _registry_sizes(encoder: Encoder) -> Dict[str, int]:
@@ -706,6 +736,9 @@ class SchedulerCache:
         )
         pe = encoder.build_pod_arrays(list(pending), d, self._node_slot,
                                       capacity=d.P)
+        runs_plan = self._run_plan_from_cols(
+            pe.cls, pe.priority, pe.creation, pe.valid,
+            pe.node_name_req) if self._runs_wanted() else None
         snap = Snapshot(
             generation=gen,
             node_order=list(self._node_names),
@@ -717,6 +750,7 @@ class SchedulerCache:
             existing_keys=tuple(self._pod_keys),
             gang=self._gang_arrays(encoder, pending, d, device),
             device=device,
+            runs=runs_plan,
         )
         self._encoder = encoder
         self._reg_sizes = self._registry_sizes(encoder)
@@ -866,6 +900,14 @@ class SchedulerCache:
         else:
             pe = self._pending_block(encoder, pending, pending_keys, d,
                                      snap.pending, device)
+        runs_plan = None
+        if self._runs_wanted():
+            # an identical batch keeps its plan; otherwise the pending stage
+            # (just brought current) has the columns
+            if pending_keys == snap.pending_keys and snap.runs is not None:
+                runs_plan = snap.runs
+            else:
+                runs_plan = self._run_plan_from_stage()
 
         new_snap = Snapshot(
             generation=gen,
@@ -878,6 +920,7 @@ class SchedulerCache:
             existing_keys=tuple(self._pod_keys),
             gang=self._gang_arrays(encoder, pending, d, device),
             device=device,
+            runs=runs_plan,
         )
         self._dirty_nodes.clear()
         self._dirty_pods.clear()

@@ -12,6 +12,10 @@ many pods a package places, and a hash of where.
         --path preempt
     JAX_PLATFORMS=cpu python3 scripts/flagship_reference.py --package jax \\
         --workload gang --pods 100000
+    JAX_PLATFORMS=cpu python3 scripts/flagship_reference.py --package jax \\
+        --explain
+    JAX_PLATFORMS=cpu python3 scripts/flagship_reference.py --package jax \\
+        --workload classes --engine runs [--path serving]
 
 `--path batch` (the default) runs `BatchScheduler.schedule` of the JAX
 package (`kubernetes_tpu`) or of the PyTorch port (`kubernetes_tpu_torch`)
@@ -40,6 +44,17 @@ as counts and sha256).
 (jobs of 8 to 64 all-or-nothing members, 2% of them larger than any node);
 besides the placements it prints the dead groups (count and sha256) and the
 gang engine's rejection rounds.
+
+`--workload classes` is bench.py's `classes` stage: make_nodes(N) x
+deployment_backlog_pods(P, deployments=200), a Deployment scale-out backlog
+of 200 class runs; on the batch path it also prints the wave's class runs
+and collapse ratio (ops/runs.py plan_runs), on the serving path it drains
+that backlog (chip_smoke.py phase 8c) instead of running phase 5.
+`--engine` sets KTPU_ASSIGN (waves, the default; runs; scan).
+
+`--explain` (batch path) dispatches the cycle as BatchScheduler does but
+with explain=True and adds the sha256 of the ExplainResult's integer fields
+(chip_smoke.py explain_sha256) to the line.
 """
 
 from __future__ import annotations
@@ -101,17 +116,63 @@ def serving(args) -> dict:
 
         api = chip_smoke.port_serving_api(torch.device(args.device))
     t0 = time.perf_counter()
-    steady = chip_smoke.serving_steady(api, args.nodes,
-                                       chip_smoke.SERVING_STEADY_PODS)
+    steady = {"cycles": []}
+    if args.workload == "flagship":
+        steady = chip_smoke.serving_steady(api, args.nodes,
+                                           chip_smoke.SERVING_STEADY_PODS)
     t1 = time.perf_counter()
-    drain = chip_smoke.serving_drain(api, args.nodes, args.pods)
+    drain = chip_smoke.serving_drain(api, args.nodes, args.pods,
+                                     workload=args.workload)
     t2 = time.perf_counter()
     timing = ("snapshot_s", "dispatch_s", "readback_s", "map_s")
     return {"package": args.package, "path": "serving", "nodes": args.nodes,
+            "workload": args.workload, "engine": args.engine,
             "steady": [{k: v for k, v in c.items() if k not in timing}
                        for c in steady["cycles"]],
             "drain_pods": args.pods, "drain": drain,
             "steady_seconds": t1 - t0, "drain_seconds": t2 - t1}
+
+
+def jax_classes_plan(nodes, pods) -> dict:
+    """chip_smoke.classes_plan from the JAX package: the wave's class runs
+    and collapse ratio (its ops/runs.py plan_runs on its encoding)."""
+    from kubernetes_tpu.ops.runs import plan_runs
+    from kubernetes_tpu.sched.cycle import UNSCHEDULABLE_TAINT_KEY
+    from kubernetes_tpu.state.encode import Encoder
+
+    enc = Encoder()
+    enc.vocabs.label_keys.intern(UNSCHEDULABLE_TAINT_KEY)
+    enc.vocabs.label_vals.intern("")
+    _t, _ex, pe, _d = enc.encode_cluster(nodes, [], pods)
+    plan = plan_runs(pe.cls, pe.priority, pe.creation, pe.valid,
+                     pe.node_name_req)
+    return {"n_runs": plan.n_runs,
+            "collapse_ratio": round(plan.collapse_ratio, 2)}
+
+
+def jax_explain_sha256(nodes, pods) -> str:
+    """The JAX package's BatchScheduler dispatch with explain=True: the
+    sha256 of its ExplainResult's integer fields."""
+    import jax
+    import jax.numpy as jnp
+
+    import chip_smoke
+    from kubernetes_tpu.sched.cycle import (UNSCHEDULABLE_TAINT_KEY,
+                                            _schedule_batch)
+    from kubernetes_tpu.state.encode import Encoder
+
+    enc = Encoder()
+    enc.vocabs.label_keys.intern(UNSCHEDULABLE_TAINT_KEY)
+    enc.vocabs.label_vals.intern("")
+    tables, ex, pe, d = enc.encode_cluster(nodes, [], pods)
+    keys = (jnp.int32(enc.vocabs.label_keys.get(UNSCHEDULABLE_TAINT_KEY)),
+            jnp.int32(enc.vocabs.label_vals.get("")))
+    _res, exp = _schedule_batch(
+        jax.device_put(tables), jax.device_put(pe), keys, d.D,
+        jax.device_put(ex), has_node_name=d.has_node_name, explain=True)
+    exp = jax.device_get(exp)
+    return chip_smoke.explain_sha256(
+        {f: getattr(exp, f) for f in exp._fields}, len(pods))
 
 
 def preempt(args) -> dict:
@@ -172,9 +233,15 @@ def main() -> int:
                     help="pending pods (default 50,000 for the batch path, "
                     "chip_smoke.SERVING_PODS for the serving drain)")
     ap.add_argument("--workload",
-                    choices=("flagship", "ports-volumes", "gang"),
+                    choices=("flagship", "ports-volumes", "gang", "classes"),
                     default="flagship")
+    ap.add_argument("--engine", choices=("waves", "runs", "scan"),
+                    default="waves", help="KTPU_ASSIGN")
+    ap.add_argument("--explain", action="store_true",
+                    help="batch path: also hash the dispatch's "
+                    "ExplainResult")
     args = ap.parse_args()
+    os.environ["KTPU_ASSIGN"] = args.engine
     if args.path == "preempt":
         print(json.dumps(preempt(args)))
         return 0
@@ -207,6 +274,12 @@ def main() -> int:
         nodes = workloads.make_nodes(args.nodes)
         pods = workloads.gang_workload_pods(args.pods)
         rounds = count_gang_rounds(args.package)
+    elif args.workload == "classes":
+        import chip_smoke
+
+        nodes = workloads.make_nodes(args.nodes)
+        pods = workloads.deployment_backlog_pods(
+            args.pods, deployments=chip_smoke.CLASSES_DEPLOYMENTS)
     else:
         from chip_smoke import port_volume_workload
 
@@ -218,7 +291,7 @@ def main() -> int:
     digest = hashlib.sha256(
         "\n".join(a or "-" for a in res.assignments).encode()).hexdigest()
     out = {"package": args.package, "workload": args.workload,
-           "nodes": args.nodes,
+           "engine": args.engine, "nodes": args.nodes,
            "pods": args.pods, "scheduled": res.scheduled,
            "failed": res.failed, "seconds": seconds,
            "sha256": digest}
@@ -226,6 +299,24 @@ def main() -> int:
         from chip_smoke import gang_summary
 
         out.update(gang_summary(pods, res.assignments), rounds=rounds[0])
+    if args.workload == "classes":
+        if args.package == "jax":
+            out.update(jax_classes_plan(nodes, pods))
+        else:
+            from chip_smoke import classes_plan
+
+            out.update(classes_plan(nodes, pods))
+    if args.explain:
+        if args.package == "jax":
+            out["explain_sha256"] = jax_explain_sha256(nodes, pods)
+        else:
+            import torch
+
+            from chip_smoke import explain_sha256, port_explain_cycle
+
+            _placed, exp = port_explain_cycle(torch.device(args.device),
+                                              nodes, pods)
+            out["explain_sha256"] = explain_sha256(exp, len(pods))
     print(json.dumps(out))
     return 0
 

@@ -40,22 +40,23 @@ FLAGS = ("f[u] = (a.vict_pot[row] != 0) | ((a.c_e[row] != 0) << 1) |\n"
          "                 ((a.reblock[row] != 0) << 2);")
 ROWS = ("for (int r = 0; r < R; ++r) "
         "q[r] = (uint32_t)a.req_e[(size_t)e * R + r];\n"
+        "      }\n"
         "      s.prio[i] = a.prio_e[e];\n"
         "      s.cre[i] = a.creation_e[e];\n"
         "      pdb = a.pdb_e[e] != 0;")
 SUMS = ("if (vm != 0) {\n#pragma unroll\n"
-        "            for (int r = 0; r < R; ++r) {")
+        "            for (int r = 0; r < nr; ++r) {")
 EDITS = {
     "no-walk": [("if (__any_sync(kFull, cand)) {",
                  "if (false && __any_sync(kFull, cand)) {")],
     "no-flags": [(FLAGS, "f[u] = 1u + 0u * (unsigned)row;")],
     "no-gathers": [(ROWS, "for (int r = 0; r < R; ++r) q[r] = 1u;\n"
+                          "      }\n"
                           "      s.prio[i] = e;\n"
                           "      s.cre[i] = e;\n"
                           "      pdb = false;")],
     "no-sums": [(SUMS, SUMS.replace("if (vm != 0)", "if (false)"))],
-    "outputs": [("    if (lanes != 0) {\n      uint32_t used[R], rem[R];",
-                 "    if (false) {\n      uint32_t used[R], rem[R];")],
+    "outputs": [("    if (lanes != 0) {", "    if (false) {")],
 }
 
 

@@ -5,6 +5,7 @@
                                            [--device cuda] [--mode batch]
     python3 scripts/torch_cycle_profile.py --mode serving
     python3 scripts/torch_cycle_profile.py --mode preempt
+    python3 scripts/torch_cycle_profile.py --mode runs
 
 `--mode batch` (the default) runs the steps of kubernetes_tpu_torch's
 BatchScheduler.schedule on the flagship workload (models/workloads.py
@@ -25,6 +26,14 @@ drain of the flagship backlog first, to make its cluster) and profiles the
 first three preemption bursts of wave 1, each alone: `preempt_batch` (the
 what-if, K3 and the node choice) from a synchronize to a synchronize, with
 the count of top-level aten operations it issued on the host.
+
+`--mode runs` runs chip_smoke.py's phase 8a instead: BatchScheduler under
+KTPU_ASSIGN=runs on make_nodes × deployment_backlog_pods(P,
+deployments=200), once cold, then once warm with a host timer around each
+closed-form run (its context, admission epochs and commit; the epochs
+counted), and three runs of the warm cycle (runs 100-102) each alone under
+torch.profiler, with their host aten-op counts and the host ops that took
+the most CPU time (the readbacks' waits among them).
 
 The profiled window gives device busy time (the union of kernel and copy
 intervals), the idle share of the window, the number of device operations,
@@ -218,12 +227,68 @@ def preempt_profile(args, device, sync, profile, acts) -> dict:
     return dict(bursts[0], storm_waves=storm["waves"], bursts=bursts)
 
 
+def runs_profile(args, device, sync, profile, acts) -> dict:
+    from kubernetes_tpu_torch import BatchScheduler
+    from kubernetes_tpu_torch.models.workloads import (deployment_backlog_pods,
+                                                       make_nodes)
+    from kubernetes_tpu_torch.ops import runs as R
+
+    os.environ["KTPU_ASSIGN"] = "runs"
+    nodes = make_nodes(args.nodes)
+    pods = deployment_backlog_pods(args.pods, deployments=200)
+    sched = BatchScheduler(device=device)
+    sched.schedule(nodes, [], pods)
+    sync()
+    inner, runs, profiled = R._closed_run, [], []
+
+    def timed(*a, **kw):
+        i = len(runs)
+        e0 = R.assign_runs.stats["epochs"]
+        sync()
+        t0 = time.perf_counter()
+        if 100 <= i < 103:
+            with profile(activities=acts) as prof:
+                out = inner(*a, **kw)
+                sync()
+        else:
+            out = inner(*a, **kw)
+            sync()
+        dt = time.perf_counter() - t0
+        epochs = R.assign_runs.stats["epochs"] - e0
+        runs.append((dt, epochs))
+        if 100 <= i < 103:
+            top = sorted(prof.key_averages(), key=lambda k: -k.self_cpu_time_total)
+            profiled.append(dict(
+                {"run": i, "run_s": dt, "epochs": epochs,
+                 "host_aten_ops": host_ops(prof),
+                 "top_host_ops": [{"name": k.key, "count": k.count,
+                                   "self_cpu_ms": k.self_cpu_time_total / 1e3}
+                                  for k in top[:8]]},
+                **device_profile(prof, dt)))
+        return out
+
+    R._closed_run = timed
+    try:
+        t0 = time.perf_counter()
+        sched.schedule(nodes, [], pods)
+        sync()
+        warm_s = time.perf_counter() - t0
+    finally:
+        R._closed_run = inner
+    run_s = sum(dt for dt, _ in runs)
+    epochs = sum(e for _, e in runs)
+    return dict(profiled[0], warm_cycle_s=warm_s, closed_runs=len(runs),
+                closed_runs_s=run_s, cycle_epochs=epochs,
+                s_per_epoch=run_s / max(epochs, 1), profiled_runs=profiled)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--nodes", type=int, default=5000)
     ap.add_argument("--pods", type=int, default=50000)
     ap.add_argument("--device", default="cuda")
-    ap.add_argument("--mode", choices=("batch", "serving", "preempt"),
+    ap.add_argument("--mode", choices=("batch", "serving", "preempt",
+                                       "runs"),
                     default="batch")
     args = ap.parse_args()
 
@@ -239,7 +304,7 @@ def main() -> int:
     if device.type == "cuda":
         acts.append(ProfilerActivity.CUDA)
     run = {"batch": batch_profile, "serving": serving_profile,
-           "preempt": preempt_profile}[args.mode]
+           "preempt": preempt_profile, "runs": runs_profile}[args.mode]
     body = run(args, device, sync, profile, acts)
     out = dict({"mode": args.mode,
                 "device": (torch.cuda.get_device_name(0)

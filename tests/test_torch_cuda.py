@@ -43,8 +43,8 @@ def test_kernels_match_plain_versions_exactly(cuda):
 def test_reprieve_scan_matches_plain_version_exactly(cuda):
     """K3 on chip_smoke.py's cases (the storm's widths, empty, 110-pod and
     2,000-pod segments, all reblocked, R = 7 and 8, 33 lanes, INT32_MIN
-    priorities, extreme int32, no pods) against its plain version, all
-    seven outputs."""
+    priorities, extreme int32, no pods; the wide variant at R = 9, 16, 20
+    and 64) against its plain version, all seven outputs."""
     cs = _chip_smoke()
     assert cs.check_k3(cuda, cs.k3_edge_cases(cuda, seed=1)) == 0
 
@@ -118,3 +118,69 @@ def test_cuda_gang_cycle_matches_cpu_cycle(cuda):
     cpu = ktt.BatchScheduler(device="cpu")
     assert gpu.schedule(nodes, [], pods).assignments == \
         cpu.schedule(nodes, [], pods).assignments
+
+
+def _scalar_storm(device, record=None):
+    """A small preemption storm with five scalar resources (R = 16, K3's
+    wide variant): 40 nodes full of low-priority pods holding GPUs and
+    hugepages, then 12 vips asking for two GPUs each, through the port's
+    Scheduler with a Preemptor on `device`."""
+    from kubernetes_tpu_torch.api import types as T
+    from kubernetes_tpu_torch.sched.preemption import Preemptor
+    from kubernetes_tpu_torch.sched.scheduler import RecordingBinder, Scheduler
+
+    names = ("example.com/fpga", "hugepages-1Gi", "hugepages-2Mi",
+             "nvidia.com/gpu", "vendor.example/nic")
+
+    def res(cpu, gpu, prio_mod=0):
+        return T.Resources.make(cpu=cpu, memory="1Gi", scalars=dict(
+            zip(names, (prio_mod % 2, 0, 1 + prio_mod % 3, gpu, 1))))
+
+    clock = {"t": 0.0}
+    s = Scheduler(binder=RecordingBinder(), clock=lambda: clock["t"],
+                  preemptor=Preemptor(), device=device)
+    for i in range(40):
+        s.on_node_add(T.Node(
+            name=f"n{i}", labels={"kubernetes.io/hostname": f"n{i}"},
+            allocatable=T.Resources.make(cpu=8, memory="32Gi", pods=110,
+                                         scalars=dict(zip(names,
+                                                          (2, 1, 8, 4, 8))))))
+    for i in range(160):
+        p = T.Pod(name=f"low{i}", requests=res("1", 1, i), priority=i % 4,
+                  creation_index=i)
+        p.node_name = f"n{i % 40}"
+        s.on_pod_add(p)
+    for i in range(12):
+        s.on_pod_add(T.Pod(name=f"vip{i}", requests=res("2", 2, i),
+                           priority=100, creation_index=1000 + i))
+    waves = []
+    for _ in range(4):
+        st = s.schedule_pending()
+        waves.append((st.attempted, st.scheduled, st.unschedulable))
+        clock["t"] += 61.0
+    return dict(waves=waves, bound=list(s.binder.bound),
+                evicted=list(s.preemptor.evictor.evicted))
+
+
+def test_cuda_preempt_storm_at_r16_matches_cpu(cuda, monkeypatch):
+    """C1: a storm at R = 16 (five scalar resources) on the card — K3's
+    wide variant in every burst — equals the same storm on the CPU, and K3
+    equals its plain version on the first burst's inputs."""
+    from kubernetes_tpu_torch.ops import kernels as K
+    from kubernetes_tpu_torch.ops import preempt as OP
+
+    monkeypatch.setenv("KTPU_OVERLOAD", "0")
+    cs = _chip_smoke()
+    rec = cs.Recorder(OP, "reprieve_scan")
+    K.reset_launch_counts()
+    try:
+        gpu = _scalar_storm("cuda")
+    finally:
+        rec.restore()
+    assert K.launch_counts()["reprieve_scan"] > 0
+    assert rec.args[2].shape[1] == 16       # req_e [E, R]
+    assert K.k3_launch_config(rec.args[10].shape[0], 16).variant == "wide"
+    assert gpu == _scalar_storm("cpu")
+    assert gpu["evicted"]
+    assert cs.k3_diff(K.reprieve_scan(*rec.args),
+                      K.reprieve_scan_plain(*rec.args)) == 0

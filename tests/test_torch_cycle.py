@@ -1,7 +1,7 @@
 """The port's BatchScheduler end to end against the JAX package's, on the CPU
 (device="cpu"): exact assignments on the flagship workload, the nodeName
-batch (sequential-scan route), the engine it does not port yet
-(KTPU_ASSIGN=runs, for a gang batch too) raising, the CUDA default refusing to run
+batch (sequential-scan route), the run-collapsed engine (KTPU_ASSIGN=runs, for a
+gang batch too) against the JAX package's, the CUDA default refusing to run
 without a GPU, and the port's import boundary: neither kubernetes_tpu_torch
 nor its scripts (chip_smoke.py, scripts/torch_cycle_profile.py) import JAX
 or the JAX package."""
@@ -69,21 +69,22 @@ def test_scan_engine_env_matches_jax(monkeypatch):
 
 def test_gang_batch_raises(monkeypatch):
     """A gang batch runs its rejection rounds on the engine KTPU_ASSIGN
-    names; the run-collapsed one is not ported and raises naming A9 (the
-    rounds on the wave engine: tests/test_torch_gang.py)."""
+    names; under the run-collapsed one (which raised before it was
+    ported) the rounds give the JAX package's placements (the rounds on
+    the wave engine: tests/test_torch_gang.py)."""
     monkeypatch.setenv("KTPU_ASSIGN", "runs")
     nodes = make_nodes(8, zones=2, racks_per_zone=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        ktt.BatchScheduler(device="cpu").schedule(
-            nodes, [], gang_workload_pods(16))
+    ref, got = _both(nodes, [], gang_workload_pods(16))
+    assert got.assignments == ref.assignments
 
 
 def test_runs_engine_raises(monkeypatch):
+    """KTPU_ASSIGN=runs (which raised before the run-collapsed engine was
+    ported) gives the JAX package's placements."""
     monkeypatch.setenv("KTPU_ASSIGN", "runs")
     nodes = make_nodes(8, zones=2, racks_per_zone=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        ktt.BatchScheduler(device="cpu").schedule(
-            nodes, [], flagship_pods(8, groups=2))
+    ref, got = _both(nodes, [], flagship_pods(8, groups=2))
+    assert got.assignments == ref.assignments
 
 
 def test_default_device_is_cuda_and_raises_without_one(monkeypatch):

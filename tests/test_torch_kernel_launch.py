@@ -152,10 +152,49 @@ def test_k3_check_takes_the_wrappers_shapes():
 
 
 def test_k3_refuses_r_past_its_registers():
-    with pytest.raises(ValueError, match="resource slots"):
-        K.k3_check(_k3_args(R=9))
+    """R past the registers variant takes the wide one (every width Dims
+    buckets to); K3 refuses only R below the fixed slots and an R whose one
+    warp would not fit in shared memory."""
+    for R in (9, 16, 20, 64):
+        assert K.k3_check(_k3_args(R=R)) == (2, 3, 5, R)
+        assert K.k3_launch_config(5000, R).variant == "wide"
     with pytest.raises(ValueError, match="resource slots"):
         K.k3_check(_k3_args(R=3))
+    with pytest.raises(ValueError, match="shared memory"):
+        K.k3_check(_k3_args(R=400))
+
+
+@pytest.mark.parametrize("N,R,variant,warps,blocks", [
+    (5000, 4, "registers", 4, 1250),    # the storm's first burst
+    (5000, 8, "registers", 4, 1250),
+    (5000, 9, "wide", 4, 1250),
+    (5000, 16, "wide", 4, 1250),        # five scalar resources
+    (3, 20, "wide", 3, 1),              # fewer nodes than warps
+    (5000, 64, "wide", 4, 1250),
+    (5000, 100, "wide", 2, 2500),       # fewer warps fit a block
+])
+def test_k3_launch_config_variant_and_grid(N, R, variant, warps, blocks):
+    cfg = K.k3_launch_config(N, R)
+    assert (cfg.variant, cfg.warps, cfg.blocks) == (variant, warps, blocks)
+    assert cfg.smem_bytes == (0 if variant == "registers"
+                              else warps * K.k3_wide_smem_bytes(R))
+    assert cfg.smem_bytes <= K.SMEM_MAX
+
+
+def test_k3_wide_shared_memory_matches_the_kernel_layout():
+    """csrc/reprieve_scan.cu wide_words: the window (pod ids, priorities,
+    creations: 3 x 128 words; 4 PDB words; [R, 128] requests) and the
+    carries ([R, 32] request vectors and used words, [R] capacity)."""
+    assert K.k3_wide_smem_bytes(16) == 4 * (3 * 128 + 4 + 16 * 128
+                                            + 2 * 16 * 32 + 16)
+    src = (K.CSRC / "reprieve_scan.cu").read_text()
+    assert "return 3 * kStage + kChunks + R * kStage + 2 * R * 32 + R;" in src
+    widest = max(R for R in range(9, 1000)
+                 if K.k3_wide_smem_bytes(R) <= K.SMEM_MAX)
+    K.k3_launch_config(1, widest)
+    with pytest.raises(ValueError, match=str(K.k3_wide_smem_bytes(
+            widest + 1))):
+        K.k3_launch_config(1, widest + 1)
 
 
 def test_k3_refuses_non_contiguous_inputs():

@@ -16,13 +16,17 @@ package's (kubernetes_tpu/ops/preempt.py, sched/preemption.py).
       that mirror the JAX package's per-lane what-if step for step: pass
       1, the reprieve scan in the lane's own order and the per-node
       summaries; the lane-independent reprieve order against each lane's
-      lexsort.
+      lexsort;
+  (d) five scalar resources (R = 16, the width of K3's wide variant):
+      `preempt_batch` on (b)'s clusters with scalar requests and capacities,
+      and a Scheduler preemption pass that scalar requests decide.
 
 Everything runs on the CPU (the port with device="cpu", where the K3
 wrapper takes its plain version). The random clusters share one fixed Dims,
 so the JAX side compiles its burst program once.
 """
 
+import dataclasses
 import random
 
 import jax
@@ -789,3 +793,135 @@ def test_reprieve_segments_group_the_order_by_node():
     # the pods on no node last, in the same order
     assert seg_e.tolist() == [4, 1, 2, 0, 5, 3]
     assert seg_ptr.dtype == seg_e.dtype == torch.int32
+
+
+# --------------------------------------------------------------------- #
+# C1: five scalar resources (R = 9 slots, bucketed to 16) — the width K3's
+# wide variant takes on the card; here the plain version, both packages
+# --------------------------------------------------------------------- #
+
+SCALARS = ("example.com/fpga", "hugepages-1Gi", "hugepages-2Mi",
+           "nvidia.com/gpu", "vendor.example/nic")
+
+
+def _with_scalars(res, rng, node):
+    """`res` with the five scalar resources: a node holds 8 of each, a pod
+    asks for 0-3 of each (0 is ignored by the fit test)."""
+    amounts = {s: 8 if node else rng.randrange(4) for s in SCALARS}
+    return dataclasses.replace(res, scalars=tuple(sorted(amounts.items())))
+
+
+def _r16_cluster(seed):
+    nodes, existing, pending, pdb = _random_cluster(seed)
+    rng = random.Random(seed)
+    nodes = [dataclasses.replace(n, allocatable=_with_scalars(
+        n.allocatable, rng, True)) for n in nodes]
+    existing = [dataclasses.replace(p, requests=_with_scalars(
+        p.requests, rng, False)) for p in existing]
+    pending = [dataclasses.replace(p, requests=_with_scalars(
+        p.requests, rng, False)) for p in pending]
+    return nodes, existing, pending, pdb
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_preempt_batch_matches_jax_at_r16(seed):
+    """preempt_batch at R = 16 (five scalar resources): the port's what-if
+    (K3's plain version on the CPU) against the JAX package's, every
+    field exact, with scalar requests deciding some fits."""
+    nodes, existing, pending, pdb = _r16_cluster(seed)
+    enc = Encoder()
+    enc.vocabs.label_keys.intern(UNSCHEDULABLE_TAINT_KEY)
+    enc.vocabs.label_vals.intern("")
+    base = dataclasses.replace(BASE, R=16)
+    tables, ex, pe, d = enc.encode_cluster(nodes, existing, pending, base)
+    assert d.R == 16 and (d.N, d.E, d.D) == (BASE.N, BASE.E, BASE.D)
+    uk = enc.vocabs.label_keys.get(UNSCHEDULABLE_TAINT_KEY)
+    ev = enc.vocabs.label_vals.get("")
+    rows = [0, 1, 2, 3, 4, 5, 5, 7]
+    cls = np.asarray(pe.cls)[rows].astype(np.int32)
+    nnr = np.asarray(pe.node_name_req)[rows].astype(np.int32)
+    prio = np.asarray(pe.priority)[rows].astype(np.int32)
+    ref = _j_burst(jax.device_put(tables), jax.device_put(ex),
+                   jnp.asarray(cls), jnp.asarray(nnr), jnp.asarray(prio),
+                   jnp.asarray(pdb), jnp.int32(uk), jnp.int32(ev))
+    tt, (ext,) = tables_to_torch(tables, (ex,), CPU)
+    assert tt.nodes.alloc.shape[1] == 16
+    cyc = t_build_cycle(tt, ext, uk, ev, BASE.D)
+    got = t_preempt_batch(tt, cyc, ext, torch.from_numpy(cls),
+                          torch.from_numpy(nnr), torch.from_numpy(prio),
+                          BASE.D, torch.from_numpy(pdb))
+    for f in ref._fields:
+        np.testing.assert_array_equal(as_np(getattr(got, f)),
+                                      as_np(getattr(ref, f)), err_msg=f)
+
+
+def test_r16_clusters_reach_victims_and_scalar_misfits():
+    """The R = 16 seeds above evict, and the scalar slots bind: with them
+    taken away some lanes' victims differ."""
+    moved = victims = 0
+    for seed in range(4):
+        for scal in (True, False):
+            nodes, existing, pending, pdb = (_r16_cluster(seed) if scal
+                                             else _random_cluster(seed))
+            enc = Encoder()
+            enc.vocabs.label_keys.intern(UNSCHEDULABLE_TAINT_KEY)
+            enc.vocabs.label_vals.intern("")
+            base = dataclasses.replace(BASE, R=16)
+            tables, ex, pe, _ = enc.encode_cluster(nodes, existing, pending,
+                                                   base)
+            uk = enc.vocabs.label_keys.get(UNSCHEDULABLE_TAINT_KEY)
+            ev = enc.vocabs.label_vals.get("")
+            tt, (ext,) = tables_to_torch(tables, (ex,), CPU)
+            cyc = t_build_cycle(tt, ext, uk, ev, BASE.D)
+            rows = [0, 1, 2, 3, 4, 5, 5, 7]
+            out = t_preempt_batch(
+                tt, cyc, ext, torch.from_numpy(np.asarray(pe.cls)[rows]),
+                torch.from_numpy(np.asarray(pe.node_name_req)[rows]),
+                torch.from_numpy(np.asarray(pe.priority)[rows]), BASE.D,
+                torch.from_numpy(pdb))
+            if scal:
+                with_s = out.victims.clone()
+                victims += int(out.victims.sum())
+            elif not torch.equal(with_s, out.victims):
+                moved += 1
+    assert victims > 0 and moved > 0
+
+
+def five_scalar_resources_preempt(d):
+    """The Scheduler's preemption pass at R = 16: a vip needs two GPUs and
+    a hugepage on a full node; the low-priority holders are evicted."""
+    T = d.T
+
+    def res(cpu, gpu, huge):
+        return T.Resources.make(cpu=cpu, memory="1Gi", scalars={
+            "nvidia.com/gpu": gpu, "hugepages-2Mi": huge,
+            "example.com/fpga": 0, "hugepages-1Gi": 0,
+            "vendor.example/nic": 1})
+
+    for i in range(2):
+        d.s.on_node_add(T.Node(name=f"n{i}", labels={HOSTNAME: f"n{i}"},
+                               allocatable=T.Resources.make(
+                                   cpu=4, memory="8Gi", pods=110, scalars={
+                                       "nvidia.com/gpu": 2,
+                                       "hugepages-2Mi": 4,
+                                       "example.com/fpga": 1,
+                                       "hugepages-1Gi": 1,
+                                       "vendor.example/nic": 4})))
+    for i, (node, prio) in enumerate((("n0", 1), ("n0", 3), ("n1", 2),
+                                      ("n1", 2))):
+        p = T.Pod(name=f"g{i}", requests=res("500m", 1, 1), priority=prio,
+                  creation_index=i)
+        p.node_name = node
+        d.s.on_pod_add(p)
+    d.s.on_pod_add(T.Pod(name="vip", requests=res("500m", 2, 1),
+                         priority=100, creation_index=10))
+    d.wave()
+    d.clock.t = 5.0
+    d.wave()
+
+
+def test_preempt_scenario_with_five_scalar_resources_matches_jax():
+    rec = run_both(five_scalar_resources_preempt)
+    # n1's victims top out at priority 2, n0's at 3
+    assert rec["evicted"] == ["default/g2", "default/g3"]
+    assert rec["bound"] == [("default/vip", "n1")]

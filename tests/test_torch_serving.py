@@ -527,7 +527,6 @@ def test_unported_arguments_raise(kw, item):
 
 
 @pytest.mark.parametrize("env,val,item", [
-    ("KTPU_EXPLAIN", "1", "A9"),
     ("KTPU_MESH", "auto", "A13"),
     ("KTPU_MESH", "4", "A13"),
 ])
@@ -538,17 +537,21 @@ def test_unported_switches_raise(monkeypatch, env, val, item):
 
 
 def test_gang_batch_and_runs_engine_raise(monkeypatch):
-    """The run-collapsed engine is not ported: KTPU_ASSIGN=runs raises at
-    the first wave, for a gang batch (whose rounds would run it) as for a
-    plain one."""
+    """KTPU_ASSIGN=runs (which raised at the first wave before the
+    run-collapsed engine was ported) schedules a gang batch (its rounds
+    run the engine) and a plain one; each wave reports its class runs."""
     monkeypatch.setenv("KTPU_ASSIGN", "runs")
     s = TScheduler(binder=TBinder(), device="cpu")
     s.on_node_add(TT.Node(name="n0", allocatable=TT.Resources.make(
         cpu="4", memory="8Gi", pods=110)))
-    s.on_pod_add(TT.Pod(name="g0", pod_group="job", min_member=2,
-                        requests=TT.Resources.make(cpu="1", memory="1Gi")))
-    with pytest.raises(NotImplementedError, match="A9"):
-        s.schedule_pending()
+    for i in range(2):
+        s.on_pod_add(TT.Pod(name=f"g{i}", pod_group="job", min_member=2,
+                            requests=TT.Resources.make(cpu="1",
+                                                       memory="1Gi"),
+                            creation_index=i))
+    st = s.schedule_pending()
+    assert st.scheduled == 2 and st.class_runs == 1
+    assert st.collapse_ratio == 2.0
     monkeypatch.delenv("KTPU_ASSIGN")
     s2 = TScheduler(binder=TBinder(), device="cpu")
     s2.on_node_add(TT.Node(name="n0", allocatable=TT.Resources.make(
@@ -556,8 +559,8 @@ def test_gang_batch_and_runs_engine_raise(monkeypatch):
     s2.on_pod_add(TT.Pod(name="p0", requests=TT.Resources.make(
         cpu="1", memory="1Gi")))
     monkeypatch.setenv("KTPU_ASSIGN", "runs")
-    with pytest.raises(NotImplementedError, match="A9"):
-        s2.schedule_pending()
+    st = s2.schedule_pending()
+    assert st.scheduled == 1 and st.class_runs == 1
 
 
 def test_cache_refuses_a_mesh():

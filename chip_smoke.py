@@ -66,7 +66,24 @@ Phases, each fatal on failure (exit code != 0, no result line):
      cold and median warm cycle; 8b the scan and the runs engine on 2,000
      pods, placements bit-equal; 8c Scheduler(device="cuda") draining the
      backlog in waves of 4,096 — per-wave counts, class runs and the
-     binder's order equal the JAX package's, per-wave times.
+     binder's order equal the JAX package's, per-wave times;
+  9. the serving Scheduler's resilience layer (KTPU_OVERLOAD=0): 9a a
+     ledger-backed leader draining 5b's backlog dies at post_intent, a warm
+     standby fed the same informer events (read-only under warm_standby)
+     recovers and drains the rest — exactly once, its first led wave a
+     patch snapshot with K1/K2, equal to the JAX package's drill
+     (JAX_RESTART); 9b 5b's drain with a hang and an error and no fallback
+     (each abandoned, requeued, re-run on the card), then one error with
+     fallback_device="cpu" (a degraded CPU wave equal to 5b's, the prober
+     re-admitting the card); 9c a cluster growing from 4,000 to 5,000
+     nodes with the prewarmer and without (placements equal; the warm's
+     K1/K2, from its thread on its stream, against their plain versions);
+     9d a 5b wave's flight record against the JAX package's phase names,
+     the device split, watch→bind p50/p99 on a running clock, and one wave
+     under KTPU_PROFILE whose `cycle` range holds K1/K2. Every phase but
+     9b checks that no dispatch fell back, and every phase but 9c that no
+     warm ran (the Scheduler's prewarmer is off unless asked for), so the
+     launch counts of phases 5-8 are the main path's own.
 
 Prints a `kernels` JSON line, the nvidia-smi name/power line, and last
 `{"ok": true, "device": {...}}`. Imports nothing of JAX.
@@ -258,6 +275,68 @@ JAX_CLASSES_DRAIN = {
     "bound_sha256":
         "8b32e1b9810c4e1e6e47720bda5a34834050019a993e40817f46f9bb8f1e08fa",
 }
+
+# Phase 9: the serving Scheduler's resilience layer on phase 5b's backlog.
+# 9a: the leader dies at post_intent of its RESTART_CRASH_WAVE-th
+# intent-writing wave (its first three waves place nothing, so it is its
+# sixth wave); 9a's reference from the JAX package (JAX 0.9.0 on the CPU,
+# KTPU_OVERLOAD=0, its prewarmer off). Reproduce with `JAX_PLATFORMS=cpu
+# python3 scripts/flagship_reference.py --package jax --path restart`.
+RESTART_CRASH_WAVE = 3
+JAX_RESTART = {
+    "leader_waves": [
+        [4096, 0, 4096, 0, "full", 5000],
+        [4096, 0, 4096, 0, "full", 5000],
+        [4096, 0, 4096, 0, "full", 5000],
+        [4096, 384, 3712, 0, "patch", 1],
+        [4096, 4096, 0, 0, "patch", 768],
+    ],
+    "crashed_wave": 6,
+    "intents_left_at_crash": 1,
+    "bound_at_crash": 4480,
+    "report": {"replayed_intents": 1, "already_bound": 0, "completed": 4096,
+               "released": 0, "dropped": 0, "stale_skipped": 0,
+               "forgotten_assumes": 0, "errors": 0},
+    "standby_waves": [
+        [4096, 4096, 0, 0, "patch", 0],
+        [4096, 4096, 0, 0, "patch", 4353],
+        [4096, 4096, 0, 0, "patch", 4353],
+        [4096, 4096, 0, 0, "patch", 4353],
+        [4096, 4096, 0, 0, "full", 5000],
+        [4096, 4096, 0, 0, "patch", 4473],
+        [4096, 4096, 0, 0, "full", 5000],
+        [4096, 4096, 0, 0, "patch", 4338],
+        [4096, 4096, 0, 0, "patch", 4338],
+        [4096, 4096, 0, 0, "patch", 4338],
+        [464, 464, 0, 0, "patch", 4338],
+    ],
+    "bound": 50000,
+    "bind_log_sha256":
+        "0d0faec37822cc93beb0c68b82e39777dcfd89741802be867bd1a0305a835a2a",
+    "bound_set_sha256":
+        "a0f828f95d3d473df4331c58286a23075966aaa6831cd52439b6b09e52603b14",
+    "double_bind_attempts": 0,
+    "unretired": 0,
+    "intents_written": 14,
+    "intents_retired": 14,
+}
+# the phase names of one healthy bulk wave's flight record in the JAX
+# package (the same run's leader, its first wave)
+JAX_WAVE_PHASES = ["pump", "pop", "snapshot", "prewarm", "dispatch", "readback", "intent-write", "bind-commit", "retire", "requeue"]
+# 9b's supervisor knobs: a warm deadline of max(3 s, 8 x the best warm
+# time), a cold one of 120 s, a prober backing off from 50 ms
+SUPERVISOR_ENV = {"KTPU_DISPATCH_DEADLINE_FLOOR": "3",
+                  "KTPU_DISPATCH_DEADLINE_MULT": "8",
+                  "KTPU_DISPATCH_COLD_DEADLINE": "120",
+                  "KTPU_PROBE_BACKOFF": "0.05",
+                  "KTPU_PROBE_BACKOFF_CAP": "1",
+                  "KTPU_PROBE_DEADLINE": "10"}
+# 9b's faults, by wave of the drain (0-based): a hang and an error with no
+# fallback, then one error with fallback_device="cpu" configured
+HANG_WAVE, ERROR_WAVE, FALLBACK_WAVE = 8, 9, 11
+# 9c: the cluster grows from GROWTH_FROM to GROWTH_TO nodes in steps of
+# GROWTH_STEP, one wave of GROWTH_BATCH fresh pods at each step
+GROWTH_FROM, GROWTH_TO, GROWTH_STEP, GROWTH_BATCH = 4000, 5000, 100, 256
 
 # the kernels every wave-engine path launches (K3 runs only in preemption)
 WAVE_KERNELS = ("contention_scan", "domain_rank")
@@ -764,12 +843,23 @@ def port_serving_api(device):
     from kubernetes_tpu_torch.state.dims import Dims
     from kubernetes_tpu_torch.state.encode import Encoder
 
+    from kubernetes_tpu_torch.sched.ledger import BindIntentLedger
+    from kubernetes_tpu_torch.storage.store import Storage
+    from kubernetes_tpu_torch.utils import faultline
+
     def dispatch(snap, keys):
         node = schedule_batch(snap.tables, snap.pending, keys, snap.dims.D,
                               snap.existing,
                               has_node_name=snap.dims.has_node_name).node
         sync(device)
         return node
+
+    made = []
+
+    def scheduler(**kw):
+        s = ktt.Scheduler(device=device, **kw)
+        made.append(s)
+        return s
 
     return pytypes.SimpleNamespace(
         types=types, workloads=workloads, Dims=Dims, Encoder=Encoder,
@@ -779,8 +869,29 @@ def port_serving_api(device):
             cache, enc, pods, base, device=device),
         dispatch=dispatch,
         readback=lambda node: node.cpu().tolist(),
-        scheduler=lambda **kw: ktt.Scheduler(device=device, **kw),
-        preemptor=ktt.Preemptor)
+        scheduler=scheduler, made=made, preemptor=ktt.Preemptor,
+        ledger=BindIntentLedger, storage=Storage, faultline=faultline)
+
+
+def settle(api, phase: str, fallback_ok: bool = False,
+           prewarm_ok: bool = False) -> None:
+    """Joins the background warms of every Scheduler the phase made (no
+    thread of the port may outlive the script), and checks that each ran
+    every dispatch on its own device: unless the phase configured one, no
+    fallback may have served a wave. Unless the phase turned the prewarmer
+    on, no warm ran either, so the launch counts read after this are the
+    main path's own."""
+    for s in api.made:
+        s.prewarmer.wait(300)
+        if s.prewarmer.warm_log and not prewarm_ok:
+            fail(f"phase {phase}: the prewarmer warmed "
+                 f"{len(s.prewarmer.warm_log)} signatures")
+        if fallback_ok:
+            continue
+        st = s.supervisor.stats
+        if st.fallback_dispatches or st.degraded_cycles:
+            fail(f"phase {phase}: a dispatch fell back "
+                 f"({st.fallback_dispatches} fallback dispatches)")
 
 
 def bound_sha256(bound) -> str:
@@ -845,7 +956,8 @@ def fresh_pods(T, n_pods: int) -> list:
 def serving_drain(api, n_nodes: int, n_pods: int,
                   batch_size: int = SERVING_BATCH,
                   on_wave=None, keep_bound=None,
-                  workload: str = "flagship") -> dict:
+                  workload: str = "flagship", clock=None,
+                  before_wave=None, after_wave=None, keep=None) -> dict:
     """Phase 5b: the wave loop. A Scheduler(RecordingBinder, batch_size,
     microwave=True) on a still clock over make_nodes(n_nodes), with
     base_dims sized to the drain (N, P = batch_size, E = n_pods) and a
@@ -861,7 +973,12 @@ def serving_drain(api, n_nodes: int, n_pods: int,
     (pod key, node) list is appended to `keep_bound` when one is given.
     `workload="classes"` drains deployment_backlog_pods(n_pods,
     deployments=200) instead (phase 8c); each wave also records the class
-    runs the run-collapsed engine reported (0 under the other engines)."""
+    runs the run-collapsed engine reported (0 under the other engines).
+    `clock` replaces the still clock; `before_wave(w, s)` and
+    `after_wave(w, s)` run around wave w (phase 9b injects faults there);
+    a wave whose dispatch was abandoned is retried once the device is
+    re-admitted and listed under "aborted" (wave, pods), not in "waves".
+    The Scheduler is appended to `keep` when one is given."""
     import dataclasses
 
     T = api.types
@@ -872,8 +989,10 @@ def serving_drain(api, n_nodes: int, n_pods: int,
     by_key = {p.key: p for p in pods}
     binder = api.RecordingBinder()
     s = api.scheduler(binder=binder, batch_size=batch_size, microwave=True,
-                      clock=FakeClock(),
+                      clock=clock or FakeClock(),
                       base_dims=api.Dims(N=n_nodes, P=batch_size, E=n_pods))
+    if keep is not None:
+        keep.append(s)
     if s.governor is not None:
         # wall-clock wave sizing would make the waves depend on the host
         fail("phase 5 runs with KTPU_OVERLOAD=0 (the overload governor off)")
@@ -892,12 +1011,27 @@ def serving_drain(api, n_nodes: int, n_pods: int,
         if on_wave is not None:
             on_wave(len(waves) - 1)
 
-    for w in range(4 * (n_pods // batch_size + 2)):
+    w, aborted = 0, []
+    while w < 4 * (n_pods // batch_size + 2):
         first = len(binder.bound)
-        note(s.run_until_idle(max_waves=1))
+        if before_wave is not None and not (aborted and aborted[-1][0] == w):
+            before_wave(w, s)  # once per wave, not again on its retry
+        st = s.run_until_idle(max_waves=1)
+        if st.aborted:
+            # an abandoned dispatch (phase 9b): the batch is back in the
+            # queue untouched; retry the same wave once the prober has
+            # re-admitted the device, with no informer events between
+            aborted.append((w, st.aborted))
+            if not s.supervisor.wait_recovered(60):
+                fail(f"the device was not re-admitted after wave {w}")
+            continue
+        note(st)
+        if after_wave is not None:
+            after_wave(w, s)
         for key, node in binder.bound[first:]:
             s.on_pod_add(dataclasses.replace(by_key[key], node_name=node))
         s.on_node_update(nodes[w % n_nodes])
+        w += 1
         if s.queue.lengths()[0] == 0:
             break
     for p in fresh_pods(T, n_pods):
@@ -905,10 +1039,181 @@ def serving_drain(api, n_nodes: int, n_pods: int,
     note(s.schedule_pending())
     if keep_bound is not None:
         keep_bound.extend(binder.bound)
-    return {"waves": waves, "bound": len(binder.bound),
-            "bound_sha256": bound_sha256(binder.bound),
-            "counts": list(s.cache.counts()),
-            "queue": list(s.queue.lengths())}
+    out = {"waves": waves, "bound": len(binder.bound),
+           "bound_sha256": bound_sha256(binder.bound),
+           "counts": list(s.cache.counts()),
+           "queue": list(s.queue.lengths())}
+    if aborted:
+        out["aborted"] = aborted
+    return out
+
+
+# --------------------------------------------------------------------------- #
+# phase 9a: crash and takeover (shared with scripts/flagship_reference.py)
+# --------------------------------------------------------------------------- #
+
+class DurableBinder:
+    """The Binding registry a crash cannot erase: binds survive the
+    leader's death, and — like the apiserver's already-assigned guard — a
+    second bind of one pod is REFUSED and counted."""
+
+    def __init__(self):
+        self.bound = {}            # pod key → node name
+        self.double_bind_attempts = 0
+        self.bind_log = []         # every accepted (key, node), in order
+
+    def bind(self, pod, node_name):
+        if pod.key in self.bound:
+            self.double_bind_attempts += 1
+            return False
+        self.bound[pod.key] = node_name
+        self.bind_log.append((pod.key, node_name))
+        return True
+
+
+def _wave_row(st, s) -> tuple:
+    return (st.attempted, st.scheduled, st.unschedulable, st.micro,
+            s.cache.last_snapshot_mode, s.cache.last_patch_rows)
+
+
+def restart_drill(api, n_nodes: int, n_pods: int,
+                  batch_size: int = SERVING_BATCH, on_wave=None,
+                  keep=None) -> dict:
+    """Phase 9a: phase 5b's backlog (make_nodes(n_nodes) x
+    flagship_pods(n_pods), still clock, microwave=True) drained by a leader
+    Scheduler with a BindIntentLedger over one store, while a standby
+    incarnation over the same store gets the same informer events (a bound
+    pod leaves its pending queue and enters its cache) and beats
+    warm_standby() after each leader wave — which must leave its queue
+    lengths, its assumes and the binder's log unchanged. The leader dies
+    (proc.crash) at post_intent of its RESTART_CRASH_WAVE-th intent-writing
+    wave: that wave's intent is durable, none of its Bindings are. The
+    standby then runs recover() against informer truth (the binder), beats
+    once more (its informer now holds the recovered Bindings, and the
+    backlog its first led wave pops is the one after the crashed wave's),
+    and drains the rest. Returns the per-wave counts and snapshot modes of
+    both, the RecoveryReport, the binder's outcome and the ledger counters;
+    `timing` holds the host times (not compared). `on_wave(role, w)` is
+    called after each wave."""
+    import dataclasses
+
+    nodes = api.workloads.make_nodes(n_nodes)
+    pods = api.workloads.flagship_pods(n_pods)
+    by_key = {p.key: p for p in pods}
+    store = api.storage()
+    binder = DurableBinder()
+    fl = api.faultline
+
+    def boot():
+        s = api.scheduler(binder=binder, batch_size=batch_size,
+                          microwave=True, clock=FakeClock(),
+                          ledger=api.ledger(store),
+                          base_dims=api.Dims(N=n_nodes, P=batch_size,
+                                             E=n_pods))
+        if s.governor is not None:
+            fail("phase 9 runs with KTPU_OVERLOAD=0 (the governor off)")
+        for n in nodes:
+            s.on_node_add(n)
+        for p in pods:
+            s.on_pod_add(p)
+        if keep is not None:
+            keep.append(s)
+        return s
+
+    leader, standby = boot(), boot()
+    seen = 0       # binder entries the standby's informer has delivered
+
+    def inform_standby(w=None):
+        """The standby's informer: each new Binding moves its pod out of
+        the pending queue into the cache; then a node update (wave w)."""
+        nonlocal seen
+        for key, node in binder.bind_log[seen:]:
+            standby.on_pod_delete(by_key[key])
+            standby.on_pod_add(dataclasses.replace(by_key[key],
+                                                   node_name=node))
+        seen = len(binder.bind_log)
+        if w is not None:
+            standby.on_node_update(nodes[w % n_nodes])
+
+    leader_waves, beats = [], []
+    fl.install(f"proc.crash@post_intent:{RESTART_CRASH_WAVE}")
+    w = 0
+    try:
+        while w < 4 * (n_pods // batch_size + 2):
+            first = len(binder.bind_log)
+            st = leader.schedule_pending()
+            leader_waves.append(_wave_row(st, leader))
+            for key, node in binder.bind_log[first:]:
+                leader.on_pod_add(dataclasses.replace(by_key[key],
+                                                      node_name=node))
+            leader.on_node_update(nodes[w % n_nodes])
+            inform_standby(w)
+            before = (standby.queue.lengths(), standby.cache.counts(),
+                      len(binder.bind_log))
+            t0 = time.perf_counter()
+            standby.warm_standby()
+            beats.append(time.perf_counter() - t0)
+            if (standby.queue.lengths(), standby.cache.counts(),
+                    len(binder.bind_log)) != before:
+                fail("warm_standby changed the standby's queue, its assumes "
+                     "or the binder")
+            if on_wave is not None:
+                on_wave("leader", w)
+            w += 1
+        fail("the leader never crashed")
+    except fl.InjectedCrash:
+        crashed_wave = len(leader_waves) + 1
+    finally:
+        fl.uninstall()
+    intents_left = len(api.ledger(store).unretired())
+    at_crash = len(binder.bind_log)
+
+    def truth(key):
+        pod = by_key.get(key)
+        node = binder.bound.get(key, "")
+        return dataclasses.replace(pod, node_name=node) if node else pod
+
+    t0 = time.perf_counter()
+    report = standby.recover(lookup=truth)
+    recover_s = time.perf_counter() - t0
+    # the takeover's last standby beat: the recovered Bindings reach its
+    # informer, and warm_standby interns and snapshots the backlog its
+    # first led wave pops (the crashed wave's pods, which the earlier beats
+    # held, are bound now)
+    inform_standby()
+    t0 = time.perf_counter()
+    standby.warm_standby()
+    beats.append(time.perf_counter() - t0)
+    standby_waves, led_s = [], []
+    while w < 8 * (n_pods // batch_size + 2):
+        t0 = time.perf_counter()
+        st = standby.run_until_idle(max_waves=1)
+        led_s.append(time.perf_counter() - t0)
+        standby_waves.append(_wave_row(st, standby))
+        if on_wave is not None:
+            on_wave("standby", w)
+        inform_standby(w)
+        w += 1
+        if standby.queue.lengths()[0] == 0:
+            break
+    rep = dataclasses.asdict(report)
+    rep["errors"] = len(rep["errors"])
+    return {
+        "leader_waves": leader_waves, "crashed_wave": crashed_wave,
+        "intents_left_at_crash": intents_left, "bound_at_crash": at_crash,
+        "report": rep, "standby_waves": standby_waves,
+        "bound": len(binder.bound),
+        "bind_log_sha256": bound_sha256(binder.bind_log),
+        "bound_set_sha256": bound_sha256(sorted(binder.bound.items())),
+        "double_bind_attempts": binder.double_bind_attempts,
+        "unretired": len(api.ledger(store).unretired()),
+        "intents_written": leader.ledger.intents_written
+        + standby.ledger.intents_written,
+        "intents_retired": leader.ledger.intents_retired
+        + standby.ledger.intents_retired,
+        "timing": {"recover_s": recover_s, "standby_beat_s": beats,
+                   "led_wave_s": led_s},
+    }
 
 
 # --------------------------------------------------------------------------- #
@@ -1349,6 +1654,7 @@ def serving_phase(device) -> dict:
         for r in recs:
             r.restore()
     drain_s = time.perf_counter() - t0
+    settle(cuda_api, "5b")
     launches_b = K.launch_counts()
     for i, (w, t) in enumerate(zip(drain["waves"], timer.waves)):
         print(f"  wave {i:2d}: {'micro' if w['micro'] else 'bulk '} "
@@ -1370,8 +1676,9 @@ def serving_phase(device) -> dict:
     check_drain(drain, "the JAX package's", JAX_DRAIN)
 
     t0 = time.perf_counter()
-    cpu_drain = serving_drain(port_serving_api(torch.device("cpu")),
-                              SERVING_NODES, SERVING_PODS)
+    cpu_api = port_serving_api(torch.device("cpu"))
+    cpu_drain = serving_drain(cpu_api, SERVING_NODES, SERVING_PODS)
+    settle(cpu_api, "5b (CPU)")
     print(f"    the port's CPU run of the drain took "
           f"{time.perf_counter() - t0:.1f} s")
     if cpu_drain != drain:
@@ -1392,6 +1699,7 @@ def serving_phase(device) -> dict:
              "serving wave's inputs")
     errs = {"contention_scan": d1, "domain_rank": d2}
     return dict(steady=steady, drain=drain, timer=timer.waves, bound=bound,
+                sched=cuda_api.made[0],
                 drain_s=drain_s, sched_s=sched_s, pods_s=pods_s,
                 launches_a=launches_a, launches_b=launches_b, errs=errs,
                 inputs={"contention_scan": a1, "domain_rank": (dom, nd)})
@@ -1545,6 +1853,7 @@ def run_storm(device, bound, split: bool, recs=()) -> tuple:
         timer.restore()
         for r in recs:
             r.restore()
+    settle(api, "6")
     return storm, timer, time.perf_counter() - t0, K.launch_counts()
 
 
@@ -1926,10 +2235,12 @@ def runs_phase(device) -> dict:
         os.environ["KTPU_OVERLOAD"] = "0"
         marks = [time.perf_counter()]
         K.reset_launch_counts()
-        drain = serving_drain(port_serving_api(device), CLASSES_NODES,
+        api = port_serving_api(device)
+        drain = serving_drain(api, CLASSES_NODES,
                               CLASSES_PODS, workload="classes",
                               on_wave=lambda i: marks.append(
                                   time.perf_counter()))
+        settle(api, "8c")
         wave_s = [b - a for a, b in zip(marks, marks[1:])]
         waves = [(w["attempted"], w["scheduled"], w["unschedulable"],
                   w["micro"], w["mode"], w["patch_rows"], w["class_runs"])
@@ -1959,6 +2270,400 @@ def runs_phase(device) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------- #
+# phase 9: the resilience layer — ledger and takeover, supervisor, prewarmer,
+# telemetry
+# --------------------------------------------------------------------------- #
+
+class KernelThreads:
+    """Counts K1/K2 wrapper calls by the thread that made them (the
+    supervisor's dispatch worker, the prewarm thread, any other) and keeps
+    the first prewarm-thread call's inputs with the stream it ran on.
+    Installed by patching the names ops/waves.py calls."""
+
+    def __init__(self):
+        from kubernetes_tpu_torch.ops import waves as W
+
+        self.W, self.saved = W, {n: getattr(W, n) for n in WAVE_KERNELS}
+        self.counts = {}
+        self.warm_args, self.warm_side_stream = {}, {}
+
+        def spy(name):
+            fn = self.saved[name]
+
+            def run(*args):
+                import threading
+
+                import torch
+
+                who = threading.current_thread().name
+                role = ("dispatch" if who.startswith("ktpu-dispatch")
+                        else "prewarm" if who.startswith("ktpu-prewarm")
+                        else "other")
+                key = (name, role)
+                self.counts[key] = self.counts.get(key, 0) + 1
+                if role == "prewarm" and name not in self.warm_args:
+                    dev = args[0].device
+                    self.warm_side_stream[name] = (
+                        dev.type == "cuda"
+                        and torch.cuda.current_stream(dev)
+                        != torch.cuda.default_stream(dev))
+                    self.warm_args[name] = tuple(
+                        a.clone() if hasattr(a, "clone") else a for a in args)
+                return fn(*args)
+            return run
+
+        for n in WAVE_KERNELS:
+            setattr(W, n, spy(n))
+
+    def count(self, role: str) -> dict:
+        return {n: self.counts.get((n, role), 0) for n in WAVE_KERNELS}
+
+    def restore(self):
+        for n, fn in self.saved.items():
+            setattr(self.W, n, fn)
+
+
+def _phase_durations(sched, phase: str) -> list:
+    return [dt for r in sched.telemetry.recorder.records()
+            for p, dt in r["phases"] if p == phase
+            and r.get("stats", {}).get("scheduled", 0) > 0]
+
+
+def restart_phase(device) -> dict:
+    """9a on the card against the JAX package's drill (JAX_RESTART)."""
+    api = port_serving_api(device)
+    keep = []
+    spy = KernelThreads()
+    marks = {}
+
+    def on_wave(role, w):
+        if role == "standby" and "first_led" not in marks:
+            marks["first_led"] = (spy.count("dispatch"), w)
+        if role == "leader":
+            marks["last_leader"] = spy.count("dispatch")
+
+    t0 = time.perf_counter()
+    try:
+        drill = restart_drill(api, SERVING_NODES, SERVING_PODS,
+                              on_wave=on_wave, keep=keep)
+    finally:
+        spy.restore()
+    wall = time.perf_counter() - t0
+    timing = drill.pop("timing")
+    leader, standby = keep
+    got = json.loads(json.dumps(drill))
+    if JAX_RESTART is None or got != JAX_RESTART:
+        diff = {k: (got[k], (JAX_RESTART or {}).get(k)) for k in got
+                if got[k] != (JAX_RESTART or {}).get(k)}
+        fail(f"9a differs from the JAX package's drill: {diff}")
+    if drill["double_bind_attempts"] or drill["unretired"] \
+            or drill["bound"] != standby.cache.counts()[1]:
+        fail("9a: not every placed pod was bound exactly once")
+    first_mode = drill["standby_waves"][0][4]
+    if first_mode == "full":
+        fail("9a: the standby's first led wave re-encoded in full")
+    before, after = marks["last_leader"], marks["first_led"][0]
+    led = {n: after[n] - before[n] for n in WAVE_KERNELS}
+    if device.type == "cuda" and not all(led.values()):
+        fail(f"9a: K1/K2 did not launch in the first led wave: {led}")
+    settle(api, "9a")
+    iw = _phase_durations(leader, "intent-write") \
+        + _phase_durations(standby, "intent-write")
+    rep = drill["report"]
+    print(f"  leader: {len(drill['leader_waves'])} waves, died at post_intent "
+          f"of wave {drill['crashed_wave']} ({drill['bound_at_crash']} bound, "
+          f"{drill['intents_left_at_crash']} intent left); standby beats "
+          f"{statistics.median(timing['standby_beat_s']):.4f} s median")
+    print(f"  recover(): {timing['recover_s']:.4f} s — replayed "
+          f"{rep['replayed_intents']}, completed {rep['completed']}, "
+          f"already bound {rep['already_bound']}, released "
+          f"{rep['released']}, dropped {rep['dropped']}")
+    print(f"  first led wave: {first_mode} snapshot, "
+          f"{timing['led_wave_s'][0]:.4f} s, K1/K2 launches {led}; "
+          f"{len(drill['standby_waves'])} led waves")
+    print(f"  {drill['bound']} bound exactly once (0 double binds, 0 "
+          f"unretired); intents written {drill['intents_written']}, retired "
+          f"{drill['intents_retired']}; intent write "
+          f"{statistics.median(iw) * 1e3:.3f} ms median per wave "
+          f"(max {max(iw) * 1e3:.3f}); equal to the JAX package's drill "
+          f"({wall:.1f} s)")
+    return dict(drill=drill, timing=timing, intent_write_ms=[
+        x * 1e3 for x in iw], first_led_launches=led,
+        first_led_mode=first_mode, wall_s=wall)
+
+
+def supervisor_phase(device, ref_bound) -> dict:
+    """9b: phase 5b's drain with a hang and an error on the card and no
+    fallback configured (each abandoned, requeued and re-run on the card),
+    then one error with fallback_device="cpu" configured (a degraded wave
+    on the CPU equal to 5b's, the prober re-admitting the card)."""
+    import os
+
+    import torch
+
+    api = port_serving_api(device)
+    fl = api.faultline
+    keep, spy = [], KernelThreads()
+    marks = {}
+
+    def before(w, s):
+        marks[w] = len(s.binder.bound)
+        if w == HANG_WAVE:
+            fl.install("device.hang@cycle:1")
+        elif w == ERROR_WAVE:
+            fl.install("device.error@cycle:1")
+        elif w == FALLBACK_WAVE:
+            s.supervisor.fallback_device = torch.device("cpu")
+            fl.install("device.error@cycle:1")
+        else:
+            fl.uninstall()
+        if w == FALLBACK_WAVE + 1:
+            marks["next_before"] = spy.count("dispatch")
+
+    def after(w, s):
+        if w == FALLBACK_WAVE:
+            marks["degraded"] = list(s.binder.bound[marks[w]:])
+            marks["degraded_cycles"] = s.supervisor.stats.degraded_cycles
+            if not s.supervisor.wait_recovered(60):
+                fail("9b: the prober did not re-admit the card")
+        if w == FALLBACK_WAVE + 1:
+            marks["next_after"] = spy.count("dispatch")
+
+    saved = {k: os.environ.get(k) for k in SUPERVISOR_ENV}
+    os.environ.update(SUPERVISOR_ENV)
+    t0 = time.perf_counter()
+    try:
+        drain = serving_drain(api, SERVING_NODES, SERVING_PODS,
+                              before_wave=before, after_wave=after,
+                              keep=keep)
+    finally:
+        fl.uninstall()
+        spy.restore()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    wall = time.perf_counter() - t0
+    settle(api, "9b", fallback_ok=True)
+    st = keep[0].supervisor.stats
+    counts = [w[:4] for w in JAX_DRAIN["waves"]]
+    got = [(w["attempted"], w["scheduled"], w["unschedulable"], w["micro"])
+           for w in drain["waves"]]
+    if got != [tuple(c) for c in counts] or (
+            drain["bound"], drain["bound_sha256"]) != (
+            JAX_DRAIN["bound"], JAX_DRAIN["bound_sha256"]):
+        fail(f"9b's drain differs from 5b's: {got}")
+    if drain.get("aborted") != [[HANG_WAVE, SERVING_BATCH],
+                                [ERROR_WAVE, SERVING_BATCH]] and \
+            drain.get("aborted") != [(HANG_WAVE, SERVING_BATCH),
+                                     (ERROR_WAVE, SERVING_BATCH)]:
+        fail(f"9b: abandoned waves {drain.get('aborted')}")
+    if (st.abandoned, st.watchdog_timeouts, st.fallback_dispatches,
+            st.degraded_cycles, marks["degraded_cycles"]) != (2, 1, 1, 1, 1):
+        fail(f"9b: supervisor counters {st}")
+    lo = marks[FALLBACK_WAVE]
+    if marks["degraded"] != [tuple(b) for b in
+                             ref_bound[lo: lo + len(marks["degraded"])]]:
+        fail("9b: the degraded wave's placements differ from 5b's wave")
+    nxt = {n: marks["next_after"][n] - marks["next_before"][n]
+           for n in WAVE_KERNELS}
+    if device.type == "cuda" and not all(nxt.values()):
+        fail(f"9b: the wave after re-admission launched no K1/K2: {nxt}")
+    print(f"  hang at wave {HANG_WAVE}: abandoned after "
+          f"{st.watchdog_timeouts} watchdog timeout; error at wave "
+          f"{ERROR_WAVE}: abandoned; each batch requeued and re-run on the "
+          f"card (abandoned {st.abandoned}, fallback_dispatches 0 before "
+          f"wave {FALLBACK_WAVE})")
+    print(f"  wave {FALLBACK_WAVE} with fallback_device='cpu': degraded onto "
+          f"the CPU in {st.degraded_cycle_seconds[0]:.3f} s, "
+          f"{len(marks['degraded'])} placements equal to 5b's wave; the "
+          f"prober re-admitted the card ({st.recoveries} recoveries, "
+          f"{st.probes} probes); the next wave launched {nxt} on the card")
+    print(f"  binder order equal to 5b's and the JAX package's "
+          f"({drain['bound']} bound, {wall:.1f} s)")
+    return dict(stats=dict(abandoned=st.abandoned,
+                           watchdog_timeouts=st.watchdog_timeouts,
+                           device_errors=st.device_errors,
+                           fallback_dispatches=st.fallback_dispatches,
+                           degraded_cycles=st.degraded_cycles,
+                           degraded_cycle_seconds=st.degraded_cycle_seconds,
+                           recoveries=st.recoveries, probes=st.probes,
+                           last_recovery_s=st.last_recovery_s),
+                next_wave_launches=nxt, wall_s=wall)
+
+
+def growth_run(device, prewarm: bool) -> dict:
+    """9c, one run: GROWTH_FROM nodes growing to GROWTH_TO in steps of
+    GROWTH_STEP, a wave of GROWTH_BATCH fresh flagship pods at each step
+    (still clock, binds confirmed between waves)."""
+    import dataclasses
+
+    import torch
+
+    api = port_serving_api(device)
+    T = api.types
+    nodes = api.workloads.make_nodes(GROWTH_TO)
+    steps = list(range(GROWTH_FROM, GROWTH_TO + 1, GROWTH_STEP))
+    pods = api.workloads.flagship_pods(len(steps) * GROWTH_BATCH)
+    by_key = {p.key: p for p in pods}
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    s = api.scheduler(binder=api.RecordingBinder(), batch_size=GROWTH_BATCH,
+                      clock=FakeClock())
+    s.prewarmer.enabled = prewarm
+    added, rows = 0, []
+    for i, n in enumerate(steps):
+        for node in nodes[added:n]:
+            s.on_node_add(node)
+        added = n
+        for p in pods[i * GROWTH_BATCH:(i + 1) * GROWTH_BATCH]:
+            s.on_pod_add(p)
+        first = len(s.binder.bound)
+        t0 = time.perf_counter()
+        st = s.schedule_pending()
+        wave_s = time.perf_counter() - t0
+        rows.append(dict(nodes=n, N=s.telemetry.recorder.records()[-1][
+            "bucket"]["N"], mode=s.cache.last_snapshot_mode,
+            scheduled=st.scheduled, wave_s=wave_s))
+        for key, node in s.binder.bound[first:]:
+            s.on_pod_add(dataclasses.replace(by_key[key], node_name=node))
+    s.prewarmer.wait(120)
+    settle(api, "9c", prewarm_ok=prewarm)
+    log = [(d.N, d.E, eng) for d, eng in s.prewarmer.warm_log]
+    if len(set(log)) != len(log):
+        fail(f"9c: the prewarmer warmed one signature twice: {log}")
+    return dict(rows=rows, bound=list(s.binder.bound), warm_log=log,
+                warm_s=sorted(s.prewarmer.warm.values()))
+
+
+def growth_phase(device) -> dict:
+    """9c: the growth with the prewarmer and without; the warm's K1/K2
+    launches (prewarm thread, prewarm stream) against their plain
+    versions."""
+    from kubernetes_tpu_torch.ops import kernels as K
+
+    spy = KernelThreads()
+    try:
+        warm = growth_run(device, prewarm=True)
+    finally:
+        spy.restore()
+    cold = growth_run(device, prewarm=False)
+    if warm["bound"] != cold["bound"]:
+        fail("9c: placements differ with and without the prewarmer")
+    if not warm["warm_log"] or not any(n > GROWTH_FROM for n, _e, _g in
+                                       warm["warm_log"]):
+        fail(f"9c: the prewarmer never warmed a larger bucket: "
+             f"{warm['warm_log']}")
+    errs = {}
+    a1 = spy.warm_args.get("contention_scan")
+    a2 = spy.warm_args.get("domain_rank")
+    if a1 is None or a2 is None:
+        fail("9c: the warm dispatch launched no K1/K2 from the prewarm thread")
+    if device.type == "cuda" and not all(spy.warm_side_stream.values()):
+        fail("9c: the warm's kernels ran on the default stream")
+    errs["contention_scan"] = k1_diff(K.contention_scan(*a1),
+                                      K.contention_scan_plain(*a1))
+    errs["domain_rank"] = k2_diff(K.domain_rank(*a2),
+                                  K.domain_rank_plain(*a2))
+    sync(device)
+    if any(errs.values()):
+        fail(f"9c: a warm launch disagrees with its plain version: {errs}")
+    print(f"  warms: {warm['warm_log']} (N, E, engine), "
+          f"{[round(x, 4) for x in warm['warm_s']]} s; prewarm-thread "
+          f"launches {spy.count('prewarm')} on the prewarm stream, equal to "
+          f"their plain versions {errs}")
+    out = {"warm_log": warm["warm_log"], "warm_s": warm["warm_s"],
+           "prewarm_launches": spy.count("prewarm"), "errs": errs,
+           "steps": []}
+    prev = None
+    for rw, rc in zip(warm["rows"], cold["rows"]):
+        crossed = prev is not None and rw["N"] != prev
+        prev = rw["N"]
+        out["steps"].append(dict(nodes=rw["nodes"], N=rw["N"],
+                                 mode=rw["mode"], scheduled=rw["scheduled"],
+                                 warm_wave_s=rw["wave_s"],
+                                 cold_wave_s=rc["wave_s"], crossed=crossed))
+        if crossed:
+            print(f"  first wave at N={rw['N']} ({rw['nodes']} nodes, "
+                  f"{rw['mode']}): {rw['wave_s']:.4f} s with the prewarmer, "
+                  f"{rc['wave_s']:.4f} s without")
+    print(f"  placements equal with and without the prewarmer "
+          f"({len(warm['bound'])} bound)")
+    return out
+
+
+def telemetry_phase(device, serving_sched) -> dict:
+    """9d: one 5b wave's flight record (phase names against the JAX
+    package's, the device split), the watch→bind p50/p99 of a drain on a
+    running clock, and one wave under KTPU_PROFILE."""
+    import os
+    import tempfile
+
+    recs = [r for r in serving_sched.telemetry.recorder.records()
+            if r.get("stats", {}).get("scheduled") == SERVING_BATCH]
+    if not recs:
+        fail("9d: no full 5b wave in the flight recorder")
+    rec = recs[0]
+    names = [p for p, _ in rec["phases"]]
+    if JAX_WAVE_PHASES is None or names != JAX_WAVE_PHASES:
+        fail(f"9d: phase names {names} differ from the JAX package's")
+    split = rec.get("device_split") or {}
+    if set(split) != {"launch_s", "execute_s", "readback_s"} or (
+            device.type == "cuda" and not split["execute_s"] > 0):
+        fail(f"9d: device split {split}")
+    print(f"  5b wave {rec['seq']}: phases {names} equal the JAX package's; "
+          f"device split launch {split['launch_s']:.6f} s, execute "
+          f"{split['execute_s']:.6f} s, readback {split['readback_s']:.6f} s")
+    api = port_serving_api(device)
+    keep = []
+    t0 = time.perf_counter()
+    drain = serving_drain(api, SERVING_NODES, SERVING_PODS,
+                          clock=time.monotonic, keep=keep)
+    q = keep[0].telemetry.latency_quantiles()
+    print(f"  a drain on a running clock: {drain['bound']} bound in "
+          f"{len(drain['waves'])} waves; watch→bind p50 {q[0.5]:.4f} s, p99 "
+          f"{q[0.99]:.4f} s ({time.perf_counter() - t0:.1f} s)")
+    settle(api, "9d")
+    prof = tempfile.mkdtemp(prefix="ktpu-profile-")
+    os.environ["KTPU_PROFILE"] = prof
+    try:
+        s = api.scheduler(binder=api.RecordingBinder(),
+                          batch_size=SERVING_BATCH, clock=FakeClock())
+    finally:
+        os.environ.pop("KTPU_PROFILE", None)
+    for n in api.workloads.make_nodes(SERVING_NODES):
+        s.on_node_add(n)
+    for p in api.workloads.flagship_pods(SERVING_BATCH):
+        s.on_pod_add(p)
+    s.schedule_pending()
+    path = s.telemetry.stop_profile()
+    settle(api, "9d")
+    if path is None:
+        fail("9d: KTPU_PROFILE wrote no trace")
+    events = json.load(open(path))["traceEvents"]
+    cycles = [e for e in events if e.get("name") == "cycle"
+              and e.get("ph") == "X"]
+    if len(cycles) != 1:
+        fail(f"9d: {len(cycles)} cycle ranges in the trace")
+    c = cycles[0]
+    inside = [e for e in events if e.get("cat") == "kernel"
+              and c["ts"] <= e["ts"] and e["ts"] + e.get("dur", 0)
+              <= c["ts"] + c["dur"]]
+    found = {n: sum(n in e["name"] for e in inside) for n in WAVE_KERNELS}
+    if device.type == "cuda" and not all(found.values()):
+        fail(f"9d: the cycle range holds no K1/K2 kernel events: {found}")
+    busy = sum(e.get("dur", 0) for e in inside)
+    print(f"  KTPU_PROFILE: {os.path.basename(path)} ({os.path.getsize(path)} "
+          f"bytes); the cycle range ({c['dur'] / 1e3:.2f} ms) holds "
+          f"{len(inside)} kernels, {found}; kernel time {busy / 1e3:.2f} ms "
+          f"({busy / max(c['dur'], 1):.1%} of the range)")
+    return dict(phases=names, device_split=split,
+                p50_s=q[0.5], p99_s=q[0.99], profile_kernels=found,
+                profile_cycle_ms=c["dur"] / 1e3, profile_kernel_ms=busy / 1e3)
+
+
 def check_drain(drain, who: str, ref: dict) -> None:
     waves = [(w["attempted"], w["scheduled"], w["unschedulable"], w["micro"],
               w["mode"], w["patch_rows"]) for w in drain["waves"]]
@@ -1970,6 +2675,8 @@ def check_drain(drain, who: str, ref: dict) -> None:
 
 
 def main() -> int:
+    import os
+
     import torch
 
     if not torch.cuda.is_available():
@@ -2083,6 +2790,30 @@ def main() -> int:
     runs = runs_phase(device)
     print(f"    phase 8 {time.perf_counter() - t0:.1f} s")
 
+    os.environ["KTPU_OVERLOAD"] = "0"
+    t9 = time.perf_counter()
+    print(f"[9a] crash and takeover: a ledger-backed leader and a warm "
+          f"standby, {SERVING_NODES} nodes x {SERVING_PODS} pods")
+    restart = restart_phase(device)
+    print(f"[9b] the dispatch supervisor on 5b's drain: a hang and an error "
+          f"with no fallback, then one error with fallback_device='cpu'")
+    sup = supervisor_phase(device, serving["bound"])
+    print(f"[9c] growth from {GROWTH_FROM} to {GROWTH_TO} nodes, waves of "
+          f"{GROWTH_BATCH}, with the prewarmer and without")
+    growth = growth_phase(device)
+    print("[9d] telemetry: a 5b wave's flight record, watch→bind latency, "
+          "KTPU_PROFILE")
+    tel = telemetry_phase(device, serving["sched"])
+    print(f"    phase 9 {time.perf_counter() - t9:.1f} s")
+    for r in rows[:2]:
+        name = r["name"]
+        r["resilience"] = dict(
+            first_led_launches=restart["first_led_launches"][name],
+            next_wave_after_readmission=sup["next_wave_launches"][name],
+            prewarm_launches=growth["prewarm_launches"][name],
+            prewarm_max_abs_err=growth["errs"][name])
+        r["max_abs_err"] = max(r["max_abs_err"], growth["errs"][name])
+
     steady = serving["steady"]["cycles"]
     print(json.dumps({"kernels": rows, "cycle_ms": cycle_s * 1e3,
                       "build_s": build_s,
@@ -2112,7 +2843,13 @@ def main() -> int:
                           "wave0_vips_per_s": storm["wave0_vips_per_s"],
                           "later_vips_per_s": storm["later_vips_per_s"],
                           "wall_s": storm["storm_s"]},
-                      "gang": gang, "explain": explain, "runs": runs}))
+                      "gang": gang, "explain": explain, "runs": runs,
+                      "resilience": {
+                          "restart": {k: restart[k] for k in (
+                              "timing", "intent_write_ms", "first_led_mode",
+                              "wall_s")},
+                          "supervisor": sup, "growth": growth,
+                          "telemetry": tel}}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

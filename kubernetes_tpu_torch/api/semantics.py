@@ -1,16 +1,18 @@
-"""Label-selector matching, pod at a time (a copy of the two functions of the
-JAX package's api/semantics.py that the preemption driver needs:
-`Preemptor._pdb_blocked` matches PodDisruptionBudget selectors against the
-labels of the existing pods on the host).
+"""Pod-at-a-time semantics (a copy of the three functions of the JAX
+package's api/semantics.py that the port's host side needs: the preemption
+pass's `Preemptor._pdb_blocked` matches PodDisruptionBudget selectors
+against the labels of the existing pods, and intent replay's
+`Scheduler.node_fits` checks a node's resources).
 
-labels.Requirement.Matches — apimachinery labels/selector.go:192-215.
+labels.Requirement.Matches — apimachinery labels/selector.go:192-215;
+PodFitsResources — predicates.go:789-845.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, List, Tuple
 
-from .types import LabelSelector, Op, Requirement
+from .types import LabelSelector, Node, Op, Pod, Requirement, Resources
 
 
 def requirement_matches(req: Requirement, labels: Dict[str, str]) -> bool:
@@ -42,3 +44,29 @@ def selector_matches(sel: LabelSelector, labels: Dict[str, str]) -> bool:
     preemption driver drops nil and empty PDB selectors before it gets here:
     for a PDB they match nothing (sched/preemption.py)."""
     return all(requirement_matches(r, labels) for r in sel.requirements)
+
+
+def pod_fits_resources(
+    pod: Pod, node: Node, used: Resources, used_pods: int
+) -> Tuple[bool, List[str]]:
+    """PodFitsResources (predicates.go:789-845): pods count, CPU, memory,
+    ephemeral storage, then every scalar resource."""
+    alloc = node.allocatable
+    fails: List[str] = []
+    if used_pods + 1 > alloc.pods:
+        fails.append("pods")
+    req = pod.requests
+    if req.milli_cpu == 0 and req.memory_kib == 0 and req.ephemeral_kib == 0 and not req.scalars:
+        return (not fails, fails)
+    if req.milli_cpu > alloc.milli_cpu - used.milli_cpu:
+        fails.append("cpu")
+    if req.memory_kib > alloc.memory_kib - used.memory_kib:
+        fails.append("memory")
+    if req.ephemeral_kib > alloc.ephemeral_kib - used.ephemeral_kib:
+        fails.append("ephemeral-storage")
+    used_scalars = dict(used.scalars)
+    alloc_scalars = dict(alloc.scalars)
+    for name, amount in req.scalars:
+        if amount > alloc_scalars.get(name, 0) - used_scalars.get(name, 0):
+            fails.append(name)
+    return (not fails, fails)

@@ -33,6 +33,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 from typing import Dict, NamedTuple, Sequence, Tuple
 
@@ -56,6 +57,11 @@ _ARGTYPES = {
     "reprieve_scan_launch": [_P] * 17 + [_I] * 6 + [_P],
 }
 _LIBS: Dict[str, ctypes.CDLL] = {}
+# one lock around every build and load: the dispatch supervisor's worker and
+# the prewarmer's background warm launch kernels from their own threads, and
+# two first uses must neither both run nvcc into one file nor load a
+# half-written library
+_BUILD_LOCK = threading.RLock()
 
 
 def _nvcc() -> str:
@@ -79,47 +85,66 @@ def library_path(name: str) -> Path:
 def build(names: Sequence[str] = KERNELS) -> Dict[str, str]:
     """Compile every named kernel library that is not built yet, one nvcc
     per source, all started together. Returns each library's compiler log
-    (ptxas register/shared-memory report). Raises on a failed build."""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for name in names:
-        out = library_path(name)
-        if out.exists():
-            continue
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                        stderr=subprocess.STDOUT, text=True),
-                       tmp, out)
-    failed = []
-    for name, (proc, tmp, out) in procs.items():
-        log, _ = proc.communicate()
-        out.with_suffix(".log").write_text(log)
-        if proc.returncode != 0:
-            failed.append(f"{name}:\n{log}")
-            continue
-        os.replace(tmp, out)
-    if failed:
-        raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
-    logs = {}
-    for name in names:
-        log = library_path(name).with_suffix(".log")
-        logs[name] = log.read_text() if log.exists() else ""
-    return logs
+    (ptxas register/shared-memory report). Raises on a failed build.
+    Thread-safe: one build at a time in a process; each nvcc writes a
+    temporary named by process and thread, moved into place atomically."""
+    with _BUILD_LOCK:
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        procs = {}
+        for name in names:
+            out = library_path(name)
+            if out.exists():
+                continue
+            tmp = out.with_suffix(
+                f".{os.getpid()}.{threading.get_ident()}.tmp")
+            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+                   str(CSRC / f"{name}.cu")]
+            procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                            stderr=subprocess.STDOUT,
+                                            text=True), tmp, out)
+        failed = []
+        for name, (proc, tmp, out) in procs.items():
+            log, _ = proc.communicate()
+            out.with_suffix(".log").write_text(log)
+            if proc.returncode != 0:
+                failed.append(f"{name}:\n{log}")
+                continue
+            os.replace(tmp, out)
+        if failed:
+            raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
+        logs = {}
+        for name in names:
+            log = library_path(name).with_suffix(".log")
+            logs[name] = log.read_text() if log.exists() else ""
+        return logs
 
 
 def _library(name: str) -> ctypes.CDLL:
     lib = _LIBS.get(name)
-    if lib is None:
-        build((name,))
-        lib = ctypes.CDLL(str(library_path(name)))
-        fn = getattr(lib, f"{name}_launch")
-        fn.argtypes = _ARGTYPES[f"{name}_launch"]
-        fn.restype = ctypes.c_int
-        lib.kernel_error_string.argtypes = [ctypes.c_int]
-        lib.kernel_error_string.restype = ctypes.c_char_p
-        _LIBS[name] = lib
+    if lib is not None:
+        return lib
+    with _BUILD_LOCK:
+        lib = _LIBS.get(name)
+        if lib is None:
+            build((name,))
+            lib = ctypes.CDLL(str(library_path(name)))
+            fn = getattr(lib, f"{name}_launch")
+            fn.argtypes = _ARGTYPES[f"{name}_launch"]
+            fn.restype = ctypes.c_int
+            lib.kernel_error_string.argtypes = [ctypes.c_int]
+            lib.kernel_error_string.restype = ctypes.c_char_p
+            _LIBS[name] = lib
     return lib
+
+
+_COUNT_LOCK = threading.Lock()
+
+
+def _count(wrapper) -> None:
+    """One more launch of `wrapper`'s kernel (kernels launch from the
+    serving thread, the dispatch worker and the prewarm thread)."""
+    with _COUNT_LOCK:
+        wrapper.launches += 1
 
 
 def _check(tensors: Sequence[torch.Tensor], device: torch.device) -> None:
@@ -130,12 +155,17 @@ def _check(tensors: Sequence[torch.Tensor], device: torch.device) -> None:
             raise ValueError("kernel inputs must be contiguous")
 
 
+class KernelLaunchError(RuntimeError):
+    """A kernel's launch returned a CUDA error: the context is unusable from
+    here on (the dispatch supervisor marks the backend lost)."""
+
+
 def _launch(name: str, *args) -> None:
     lib = _library(name)
     err = getattr(lib, f"{name}_launch")(*args)
     if err != 0:
-        raise RuntimeError(f"{name} launch failed: "
-                           f"{lib.kernel_error_string(err).decode()}")
+        raise KernelLaunchError(f"{name} launch failed: "
+                                f"{lib.kernel_error_string(err).decode()}")
 
 
 def _stream(device: torch.device) -> int:
@@ -285,7 +315,7 @@ def contention_scan(A, req, has_p, pw, ww, tw, has_v, va, vr,
             keep.data_ptr(), *(t.data_ptr() for t in out),
             SC, N, R, PW, PT, VW, DR, int(cfg.variant == "shared"),
             cfg.warps, cfg.blocks, cfg.smem_bytes, _stream(device))
-    contention_scan.launches += 1
+    _count(contention_scan)
     return keep, out
 
 
@@ -368,7 +398,7 @@ def domain_rank(dom: torch.Tensor, num_domains: int) -> torch.Tensor:
             scratch.data_ptr() if scratch is not None else None, rows, N,
             num_domains, cfg.segments, cfg.seg, cfg.blocks, cfg.smem_bytes,
             _stream(device))
-    domain_rank.launches += 1
+    _count(domain_rank)
     return rank
 
 
@@ -570,7 +600,7 @@ def reprieve_scan(seg_ptr, seg_e, req_e, prio_e, pdb_e, creation_e, req_p,
     _launch("reprieve_scan", *(t.data_ptr() for t in args),
             victim.data_ptr(), cand.data_ptr(), planes.data_ptr(), B, N, E,
             R, cfg.warps, cfg.smem_bytes, _stream(device))
-    reprieve_scan.launches += 1
+    _count(reprieve_scan)
     return K3Out(victim, cand, *planes.unbind(0))
 
 

@@ -14,8 +14,7 @@ ones) into operator-facing surfaces:
   * the `scheduler_unschedulable_reasons_total{predicate}` /
     `scheduler_scheduled_score_share{component}` metric series;
   * the wave record: `observe_wave`'s return value rides the telemetry's
-    `finish_wave(extra=...)` (the port's telemetry keeps its disabled
-    path, ROADMAP A10);
+    `finish_wave(extra=...)` into the flight recorder;
   * the why-pending surface: `why(key)` returns the pod's latest
     attribution (the JAX package serves it over HTTP; the port's server
     comes with ROADMAP A11).

@@ -12,14 +12,18 @@ PodEligibleToPreemptOthers (generic_scheduler.go:1085): a pod that already has
 a nominated node is assumed to be waiting for its victims to exit and does not
 preempt again.
 
-The dispatch runs on the calling thread, on the snapshot's device: a failed
-launch raises (no supervisor, no fallback to another device). The API-backed
-evictor waits for the apiserver client (ROADMAP A11).
+Each burst runs under the scheduler's dispatch supervisor
+(sched/supervisor.py), on its worker thread and the snapshot's device; a
+failed burst re-runs on the configured fallback device, or — with none
+configured, or a hung primary — evicts nothing, and the un-handled pods take
+the ordinary unschedulable path. The API-backed evictor waits for the
+apiserver client (ROADMAP A11).
 """
 
 from __future__ import annotations
 
 import os
+from dataclasses import replace
 from typing import Callable, List, Optional, Sequence, Set, Tuple
 
 import numpy as np
@@ -28,6 +32,7 @@ import torch
 from ..api.types import Pod
 from ..ops.lattice import build_cycle
 from ..ops.preempt import PreemptResult, preempt_batch
+from ..state.arrays import to_device
 from ..state.cache import Snapshot
 
 # preemptor lanes per burst dispatch: bursts larger than this chunk; unused
@@ -175,13 +180,45 @@ class Preemptor:
             chunk = eligible[lo: lo + B]
             pad = chunk + [chunk[-1]] * (B - len(chunk))
             rows = [r for _, _, r in pad]
-            lane = lambda a: torch.from_numpy(
-                np.ascontiguousarray(a, np.int32)).to(device)
-            res = _preempt(snap.tables, snap.existing, lane(pend_cls[rows]),
-                           lane(pend_nnr[rows]),
-                           lane([p.priority for p, _, _ in pad]),
-                           snap.dims.D, keys, pdb_dev)
-            nodes_b, victims_b, npdb_b = _readback(res)
+            lane = lambda a, dev=device: torch.from_numpy(
+                np.ascontiguousarray(a, np.int32)).to(dev)
+            cls_b = pend_cls[rows]
+            nnr_b = pend_nnr[rows]
+            prio_b = [p.priority for p, _, _ in pad]
+
+            def _primary():
+                return _readback(_preempt(
+                    snap.tables, snap.existing, lane(cls_b), lane(nnr_b),
+                    lane(prio_b), snap.dims.D, keys, pdb_dev))
+
+            def _fallback(dev, hung=False):
+                # the same burst on the fallback device. A wedged primary's
+                # tensors are untouchable: abort crash-consistently
+                # (nothing evicted), the pods requeue
+                if hung:
+                    raise RuntimeError("preempt fallback: primary tensors "
+                                       "unreachable (hung backend)")
+                return _readback(_preempt(
+                    to_device(snap.tables, dev), to_device(snap.existing, dev),
+                    lane(cls_b, dev), lane(nnr_b, dev), lane(prio_b, dev),
+                    snap.dims.D, keys, pdb_dev.to(dev)))
+
+            supervisor = getattr(scheduler, "supervisor", None)
+            if supervisor is None:
+                nodes_b, victims_b, npdb_b = _primary()
+            else:
+                from .supervisor import DispatchAbandonedError
+
+                try:
+                    nodes_b, victims_b, npdb_b = supervisor.run(
+                        "preempt",
+                        (replace(snap.dims, has_node_name=False, P=1), B),
+                        _primary, _fallback)
+                except DispatchAbandonedError:
+                    # nothing in this chunk (or the remaining ones) was
+                    # evaluated, so nothing is evicted — every un-handled
+                    # pod takes the ordinary unschedulable path upstream
+                    break
 
             for lane_i, (pod, attempts, _row) in enumerate(chunk):
                 node_idx = int(nodes_b[lane_i])

@@ -30,33 +30,53 @@ Decision provenance (sched/explain.py; KTPU_EXPLAIN or `enable_explain`)
 runs the attribution reduction in each wave's dispatch and renders it into
 metrics, events and the why-pending map.
 
-The dispatch runs on the calling thread: no watchdog, no CPU fallback, so
-no degraded path to attribute. Not ported yet, each refused with
-NotImplementedError naming its ROADMAP item: extenders and framework
-plugins (A11), mesh serving (A13), the bind-intent ledger and fencing
-(A14). The prewarmer, the dispatch supervisor and real telemetry (A10) are
-absent; telemetry keeps its disabled path (sched/telemetry.py).
+Every wave's dispatch runs under the dispatch supervisor
+(sched/supervisor.py): on a watchdog worker thread, on the scheduler's
+device and dispatch stream, while the serving thread interns the next
+wave's backlog; a hung or failed dispatch is abandoned and its whole batch
+requeued, or — only when the operator configured `fallback_device`, and
+never once the card is lost — re-run on the CPU. The bucket prewarmer
+(sched/prewarm.py), when asked for (`prewarm=True`), warms the next
+capacity bucket in the background; it is off by default because on the
+card its throwaway warm dispatch slowed the serving loop and bought nothing
+at a new bucket (chip_smoke.py phase 9c). Telemetry (sched/telemetry.py,
+on unless KTPU_TELEMETRY=0) records each wave's phase spans, device split
+and watch→bind latency.
+
+With a bind-intent ledger (sched/ledger.py) each wave's placements go
+durable before the first Binding write and are retired after the last;
+`recover()` replays what a crashed incarnation left, and `warm_standby()`
+keeps a non-leading incarnation's snapshot and warm state hot.
+
+Not ported yet, each refused with NotImplementedError naming its ROADMAP
+item: extenders and framework plugins (A11), mesh serving (A13).
 """
 
 from __future__ import annotations
 
 import os
 import time
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, replace
 from typing import Callable, Dict, List, Optional, Protocol, Sequence, Tuple
 
-from ..api.types import DEFAULT_SCHEDULER_NAME, Node, Pod
-from ..state.arrays import resolve_device
+import torch
+
+from ..api.semantics import pod_fits_resources
+from ..api.types import DEFAULT_SCHEDULER_NAME, Node, Pod, Resources
+from ..state.arrays import resolve_device, to_device
 from ..state.cache import SchedulerCache
 from ..state.dims import Dims, bucket
 from ..state.encode import Encoder
+from ..utils import faultline
 from .cycle import (UNSCHEDULABLE_TAINT_KEY, _engine,
                     micro_snapshot_with_keys, schedule_batch,
                     snapshot_with_keys)
 from .explain import build_explainer
 from .overload import build_governor
+from .prewarm import BucketPrewarmer
 from .queue import PriorityQueue
-from .telemetry import NullTelemetry
+from .supervisor import DispatchAbandonedError, DispatchSupervisor
+from .telemetry import SchedulerTelemetry
 
 
 class Binder(Protocol):
@@ -85,12 +105,16 @@ class RecordingBinder:
 class CycleStats:
     """Per-wave outcome; feeds the scheduling metrics
     (metrics/metrics.go:32-99). The JAX package's fields, less those only
-    its unported paths fill (aborted dispatches, fleet ticks)."""
+    its unported fleet ticks fill."""
 
     attempted: int = 0
     scheduled: int = 0
     unschedulable: int = 0
     bind_errors: int = 0
+    # pods whose wave dispatch was abandoned (no fallback, or it failed
+    # too): requeued promptly with attempts preserved — not failures of the
+    # pods
+    aborted: int = 0
     # run-collapsed engine telemetry (ops/runs.py, KTPU_ASSIGN=runs): how
     # many class runs the queue-ordered wave factored into, and the
     # scan-step reduction P_valid/runs the collapse bought this wave
@@ -136,7 +160,10 @@ class Scheduler:
 
     Runs on the CUDA device unless `device="cpu"` is asked for; with no
     usable GPU and no explicit CPU device it raises, never moving to the CPU
-    on its own."""
+    on its own. `fallback_device` names where a timed-out or failed
+    dispatch re-runs; unset, or once a kernel launch failed or the CUDA
+    context died, a failed wave is abandoned and requeued. `prewarm=True`
+    turns the bucket prewarmer on."""
 
     def __init__(
         self,
@@ -155,6 +182,8 @@ class Scheduler:
         fence_source: Optional[Callable[[], int]] = None,
         microwave: Optional[bool] = None,
         device="cuda",
+        fallback_device=None,
+        prewarm: bool = False,
     ) -> None:
         if extenders:
             raise _unported("extenders (extender/)", "A11")
@@ -163,11 +192,16 @@ class Scheduler:
         if mesh is not None or _mesh_env_on():
             raise _unported("mesh serving (parallel/mesh.py, KTPU_MESH)",
                             "A13")
-        if ledger is not None or fence_source is not None:
-            raise _unported("the bind-intent ledger and fencing "
-                            "(sched/ledger.py)", "A14")
         self.device = resolve_device(device)
         self.binder = binder
+        # exactly-once binding across crash/restart (sched/ledger.py): with
+        # a BindIntentLedger every wave's placements are durably recorded
+        # BEFORE the first Binding write and retired after the last — a
+        # crash anywhere in between is recoverable via `recover()`
+        self.ledger = ledger
+        # fencing token source (the lease generation), stamped into every
+        # intent record; None = token 0
+        self.fence_source = fence_source
         self.preemptor = preemptor
         self.cache = cache or SchedulerCache()
         self.queue = queue or PriorityQueue()
@@ -176,7 +210,32 @@ class Scheduler:
         self.base_dims = base_dims
         self.clock = clock
         self.encoder = Encoder()
-        self.telemetry = NullTelemetry()
+        # warm-ahead on capacity growth (sched/prewarm.py): the next Dims
+        # bucket warms in the background before occupancy crosses it. Off
+        # unless asked for: each warm is a whole eager cycle in a second
+        # thread, which competes with the serving thread for the
+        # interpreter and the card
+        self.prewarmer = BucketPrewarmer(device=self.device)
+        self.prewarmer.enabled = prewarm
+        # the stream every supervised dispatch runs on: the device's default
+        # stream, which the snapshot's tensors were written on
+        self.dispatch_stream = (torch.cuda.default_stream(self.device)
+                                if self.device.type == "cuda" else None)
+        # every device call of the serving loop runs under the dispatch
+        # supervisor: deadline watchdog, opt-in fallback, prober
+        # re-admission (sched/supervisor.py)
+        self.supervisor = DispatchSupervisor(
+            self.device, prewarmer=self.prewarmer,
+            stream=self.dispatch_stream, fallback_device=fallback_device)
+        self.prewarmer.supervisor = self.supervisor
+        # observability (sched/telemetry.py): watch→bind latency (stamps in
+        # THIS scheduler's clock domain via the queue's tracker hook), wave
+        # phase spans + flight recorder, the supervisor's event narration.
+        # KTPU_TELEMETRY=0 disables all of it.
+        self.telemetry = SchedulerTelemetry(name=scheduler_name)
+        if self.telemetry.enabled:
+            self.queue.tracker = self.telemetry.tracker
+        self.supervisor.event_sink = self.telemetry.note_supervisor_event
         # decision provenance (sched/explain.py): with KTPU_EXPLAIN on (or
         # enable_explain()), every wave's dispatch also runs the
         # attribution reduction and this explainer renders it; None keeps
@@ -276,22 +335,27 @@ class Scheduler:
     # ------------------------------------------------------------------ #
 
     def _snapshot_keys(self, pending: List[Pod]):
+        # degraded mode routes the snapshot onto the fallback device: host
+        # staging is the ground truth, so nothing on this path touches the
+        # lost backend's tensors
         return snapshot_with_keys(self.cache, self.encoder, pending,
-                                  self.base_dims, device=self.device)
+                                  self.base_dims,
+                                  device=self.supervisor.snapshot_device())
 
     def _preempt_snapshot(self, pending: List[Pod]):
         """The preemption pass's fresh snapshot: it sees the pods this wave
         assumed, so no preemptor evicts for space the wave consumed."""
         return self.cache.snapshot(
             self.encoder, pending, self.base_dims,
-            extra_intern=(UNSCHEDULABLE_TAINT_KEY,), device=self.device)
+            extra_intern=(UNSCHEDULABLE_TAINT_KEY,),
+            device=self.supervisor.snapshot_device())
 
     def _micro_snapshot_keys(self, pending: List[Pod]):
         # sync the resident tables with an EMPTY pending patch, then graft
         # a small fixed-P pending block for just these deltas
         return micro_snapshot_with_keys(
             self.cache, self.encoder, pending, self.base_dims,
-            self._micro_p, device=self.device)
+            self._micro_p, device=self.supervisor.snapshot_device())
 
     def _micro_mode(self, now: float) -> str:
         """Micro/bulk arbitration, decided once per wave after the
@@ -326,10 +390,40 @@ class Scheduler:
         pods are in cache.scheduled_pods() for the next snapshot)."""
         now = self.clock() if now is None else now
         t0 = time.perf_counter()
+        # per-wave phase spans (sched/telemetry.py): each mark() closes the
+        # phase that just ran
         span = self.telemetry.wave_span()
-        return self._run_wave(span, now, t0, micro_only=micro_only)
+        ctx: Dict[str, object] = {}
+        try:
+            return self._run_wave(span, now, t0, ctx, micro_only=micro_only)
+        except Exception:
+            # a wave that dies mid-flight is the tick the flight recorder
+            # exists to explain: record what ran before the raise, dump,
+            # re-raise. InjectedCrash (a BaseException — the SIGKILL
+            # analog) punches through unrecorded, as a real kill would.
+            stats = ctx.get("stats") or CycleStats()
+            stats.cycle_seconds = time.perf_counter() - t0
+            span.mark("exception")
+            self.telemetry.finish_wave(
+                span, stats=stats, engine=ctx.get("engine", ""),
+                dims=ctx.get("dims"), rc=ctx.get("rc", 0),
+                extra={"exception": True})
+            if self.telemetry.enabled:
+                self.telemetry.dump("exception")
+            raise
+
+    def _drain_idle_events(self, span, stats, engine: str = "idle") -> None:
+        """Supervisor events (a prewarm failure, a prober recovery, a
+        breaker transition) can land while the queue is idle; an idle or
+        paused wave drains them into a record instead of leaving them to be
+        misattributed to the next busy wave. Event-free idle waves record
+        nothing."""
+        if self.telemetry.has_pending_events():
+            span.mark(engine)
+            self.telemetry.finish_wave(span, stats=stats, engine=engine)
 
     def _run_wave(self, span, now: float, t0: float,
+                  ctx: Dict[str, object],
                   micro_only: bool = False) -> CycleStats:
         self.queue.pump(now)
         self.cache.cleanup(now)
@@ -337,7 +431,7 @@ class Scheduler:
         # ---- overload governor gate (sched/overload.py): mode ladder,
         # breaker pause, wave-size clamp — decided BEFORE the pop so a
         # paused wave burns no device time and pops nothing it cannot
-        # commit ---- #
+        # commit (intents are only written downstream of this gate) ---- #
         gov = self.governor
         decision = None
         pop_limit = self.batch_size
@@ -350,7 +444,9 @@ class Scheduler:
                         "deferred_release", f"{released} pods re-admitted")
             if not decision.dispatch_allowed:
                 stats = CycleStats(commit_paused=1)
+                ctx["stats"] = stats
                 stats.cycle_seconds = time.perf_counter() - t0
+                self._drain_idle_events(span, stats, engine="paused")
                 return stats
             if decision.wave_limit:
                 pop_limit = min(pop_limit, decision.wave_limit)
@@ -358,17 +454,14 @@ class Scheduler:
         # breaker pause dominates and a deferred release lands in the
         # depths the decision reads ---- #
         mode = self._micro_mode(now)
-        if micro_only and mode != "micro":
-            # schedule_micro probe: the lane isn't micro-ready — leave the
-            # backlog to the bulk cadence
+        if mode == "hold" or (micro_only and mode != "micro"):
+            # coalesce window open, or a schedule_micro probe with no
+            # micro-ready lane: leave the backlog to the bulk cadence
             stats = CycleStats()
+            ctx["stats"] = stats
             stats.cycle_seconds = time.perf_counter() - t0
-            return stats
-        if mode == "hold":
-            # coalesce window open: near-simultaneous deltas share the next
-            # micro dispatch
-            stats = CycleStats()
-            stats.cycle_seconds = time.perf_counter() - t0
+            self._drain_idle_events(
+                span, stats, engine="hold" if mode == "hold" else "idle")
             return stats
         micro = mode == "micro"
         if micro:
@@ -395,7 +488,9 @@ class Scheduler:
                 gov.note_shed(shed_n)
         stats = CycleStats(attempted=len(batch), shed=shed_n,
                            micro=1 if micro else 0)
+        ctx["stats"] = stats
         if not batch:
+            self._drain_idle_events(span, stats)
             return stats
 
         pending = [p for p, _ in batch]
@@ -409,29 +504,139 @@ class Scheduler:
         eng = _engine()
         wave_engine = "scan" if (snap.dims.has_node_name
                                  and eng == "waves") else eng
+        gang = snap.gang is not None
+        rc = 0
         if wave_engine == "runs" and snap.runs is not None:
+            rc = snap.runs.rc
             stats.class_runs = snap.runs.n_runs
             stats.collapse_ratio = round(snap.runs.collapse_ratio, 2)
+        ctx.update(engine=wave_engine, dims=snap.dims, rc=rc)
+        self.prewarmer.observe(
+            snap.dims, n_nodes=self.cache.node_count,
+            n_existing=self.cache.pod_count, engine=wave_engine,
+            gang=gang, rc=rc)
+        self.supervisor.note_cycle_signature(snap.dims, wave_engine, (),
+                                             gang, rc=rc)
+        if self.microwave and not micro and snap.runs is None:
+            # keep the micro signature warm from the bulk cadence: the first
+            # delta after a quiet period must not run cold
+            self.prewarmer.ensure_warm(
+                replace(snap.dims, P=self._micro_p, has_node_name=False),
+                eng, (), False, rc=0)
+        if self.microwave:
+            self.prewarmer.ensure_patch_ladder(self.cache, snap)
+        span.mark("prewarm")
+
         explain_on = self.explainer is not None
-        out = schedule_batch(snap.tables, snap.pending, keys, snap.dims.D,
-                             snap.existing,
-                             has_node_name=snap.dims.has_node_name,
-                             gang=snap.gang, runs=snap.runs,
-                             explain=explain_on)
-        res, wave_exp = out if explain_on else (out, None)
-        # intern the NEXT wave's backlog before reading this one back (the
-        # JAX package does it while its dispatch runs): the vocabulary and
-        # class ids — tie-breaks in the wave engine — come out in its order.
-        # A micro wave skips it: interning a bulk backlog would put the bulk
-        # cost back on the latency path
-        backlog = [] if micro else self.queue.peek_active(self.batch_size)
-        if backlog:
-            self.encoder.intern_pods(backlog)
-        span.mark("dispatch")
-        node_idx = res.node.cpu().tolist()
-        if wave_exp is not None:
-            wave_exp = type(wave_exp)(*(t.cpu().numpy() for t in wave_exp))
-        span.mark("readback")
+        # the commit loop maps node indices through the node_order of the
+        # snapshot that was ACTUALLY dispatched: a fallback re-encode
+        # reflects newer cluster state
+        wave_ctx = {"node_order": snap.node_order}
+
+        def _cycle(tables, pend, exist, dims, gang_arrays, runs):
+            out = schedule_batch(tables, pend, keys, dims.D, exist,
+                                 has_node_name=dims.has_node_name,
+                                 gang=gang_arrays, runs=runs,
+                                 explain=explain_on)
+            return out if explain_on else (out, None)
+
+        def _readback(res, exp):
+            node_idx = res.node.cpu().tolist()
+            if exp is not None:
+                exp = type(exp)(*(t.cpu().numpy() for t in exp))
+            return node_idx, exp
+
+        def _primary():
+            args = (snap.tables, snap.pending, snap.existing, snap.dims,
+                    snap.gang, snap.runs)
+            tel = self.telemetry
+            if not tel.enabled:
+                return _readback(*_cycle(*args))
+            # tier-3 device split (on the watchdog worker): the host time
+            # to enqueue the cycle, CUDA events on the dispatch stream
+            # around it (read after the readback's own synchronize — no
+            # synchronize is added), the copy of the placements
+            cuda = self.device.type == "cuda"
+            if cuda:
+                ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                ev[0].record()
+            tp0 = time.perf_counter()
+            res, exp = _cycle(*args)
+            if cuda:
+                ev[1].record()
+            tp1 = time.perf_counter()
+            out = _readback(res, exp)
+            tp2 = time.perf_counter()
+            execute = ev[0].elapsed_time(ev[1]) / 1e3 if cuda else 0.0
+            tel.note_device_split(tp1 - tp0, execute, tp2 - tp1, token=span)
+            return out
+
+        def _fallback(dev, hung=False):
+            # the operator's fallback device. Preferred: copy the SAME
+            # encoded wave there. A wedged runtime's tensors are untouchable
+            # (hung=True: a copy could block forever) and a dead one's
+            # raise — then the wave RE-ENCODES onto the fallback from the
+            # cache's host staging (snapshot_device() is the fallback now).
+            args = None
+            if not hung:
+                try:
+                    args = (to_device(snap.tables, dev),
+                            to_device(snap.pending, dev),
+                            to_device(snap.existing, dev), snap.dims,
+                            None if snap.gang is None
+                            else to_device(snap.gang, dev), snap.runs)
+                except Exception:  # noqa: BLE001 - dead-source copy
+                    args = None
+            if args is None:
+                fsnap, _fkeys = self._snapshot_keys(pending)
+                args = (fsnap.tables, fsnap.pending, fsnap.existing,
+                        fsnap.dims, fsnap.gang, fsnap.runs)
+                wave_ctx["node_order"] = fsnap.node_order
+            return _readback(*_cycle(*args))
+
+        with self.telemetry.device_annotation("cycle"):
+            handle = self.supervisor.submit(
+                "cycle", (replace(snap.dims, has_node_name=False),
+                          wave_engine, (), gang, rc),
+                _primary, _fallback)
+            # ---- host/device overlap: the dispatch runs on the watchdog
+            # worker, so while the device evaluates THIS wave the serving
+            # thread interns the NEXT wave's backlog — the vocabulary and
+            # class ids (tie-breaks in the wave engine) come out in the JAX
+            # package's order. A micro wave skips it: interning a bulk
+            # backlog would put the bulk cost back on its latency path.
+            if self.preemptor is not None:
+                from .preemption import PREEMPT_BURST
+
+                # warm the preemption burst at the current dims before the
+                # first storm
+                self.prewarmer.observe_preempt(snap.dims, PREEMPT_BURST)
+            backlog = [] if micro else self.queue.peek_active(self.batch_size)
+            if backlog:
+                self.encoder.intern_pods(backlog)
+            span.mark("dispatch")
+            try:
+                node_idx, wave_exp = handle.result()
+                span.mark("readback")
+            except DispatchAbandonedError:
+                span.mark("readback")
+                # crash-consistent wave abort: nothing was assumed and
+                # nothing may be committed — requeue every popped pod
+                # (attempts preserved, prompt retry: the pods are fine, the
+                # backend wasn't)
+                for pod, attempts in batch:
+                    stats.aborted += 1
+                    self.queue.add_prompt_retry(pod, attempts=attempts,
+                                                now=now)
+                span.mark("requeue")
+                stats.cycle_seconds = time.perf_counter() - t0
+                # the supervisor's "abandoned" event auto-dumps the ring
+                self.telemetry.finish_wave(span, stats=stats,
+                                           engine=wave_engine,
+                                           dims=snap.dims, rc=rc,
+                                           micro=micro)
+                return stats
+        wave_order = wave_ctx["node_order"]
 
         # ---- decision provenance: render the wave's attribution (events,
         # metrics, the why-pending map); the returned record rides this
@@ -440,7 +645,7 @@ class Scheduler:
         if wave_exp is not None:
             try:
                 explain_rec = self.explainer.observe_wave(
-                    batch, node_idx, wave_exp, snap.node_order, now=now)
+                    batch, node_idx, wave_exp, wave_order, now=now)
             except Exception:  # noqa: BLE001 - provenance must never
                 explain_rec = None  # take down a wave
 
@@ -455,13 +660,30 @@ class Scheduler:
                 # skipPodSchedule: a stale queue entry for a pod that is
                 # already assumed/bound — do not double-assume
                 continue
-            commits.append((pod, snap.node_order[ni], attempts))
+            commits.append((pod, wave_order[ni], attempts))
+        # write-ahead intent: the whole wave's placements go durable in ONE
+        # CAS create before the first Binding write; retired after the last.
+        # A crash at pre_intent leaves nothing (pods re-deliver as pending),
+        # at post_intent an intent recover() completes-or-releases, at
+        # post_bind an intent recover() retires against informer truth.
+        try:
+            intent = self._write_intent(cycle, commits)
+        except Exception:  # noqa: BLE001 - ledger storage unavailable
+            # no durable intent → no Binding may commit: prompt-requeue the
+            # would-be commits, crash-consistently
+            for pod, _node, attempts in commits:
+                stats.aborted += 1
+                self.queue.add_prompt_retry(pod, attempts=attempts, now=now)
+            commits = []
+            intent = None
+        span.mark("intent-write")
         bound_keys: List[str] = []
         for ci, (pod, node_name, attempts) in enumerate(commits):
             if gov is not None and not gov.commit_allowed():
                 # the breaker OPENED mid-wave (this wave's own commits
                 # tripped it): the rest of the wave requeues promptly, no
-                # failure verdict
+                # failure verdict; the intent stays valid and is retired
+                # below as usual
                 for pod2, _n2, attempts2 in commits[ci:]:
                     stats.requeued += 1
                     self.queue.add_prompt_retry(pod2, attempts=attempts2,
@@ -469,9 +691,12 @@ class Scheduler:
                 break
             self._commit(pod, node_name, attempts, now, cycle, stats,
                          latency_keys=bound_keys)
+        # e2e watch→bind spans close in ONE batched call per wave
         if bound_keys:
             self.telemetry.record_bound_many(bound_keys, self.clock())
         span.mark("bind-commit")
+        self._retire_intent(intent)
+        span.mark("retire")
 
         # ---- preemption pass: AFTER commits, against ONE fresh snapshot so
         # the what-if sees pods assumed earlier in this very wave; the whole
@@ -506,10 +731,137 @@ class Scheduler:
 
             MICRO_WAVES.inc(scheduler=self.scheduler_name)
         self.telemetry.finish_wave(
-            span, stats=stats, engine=wave_engine, dims=snap.dims,
+            span, stats=stats, engine=wave_engine, dims=snap.dims, rc=rc,
             micro=micro,
             extra={"explain": explain_rec} if explain_rec else None)
         return stats
+
+    # ------------------------------------------------------------------ #
+    # exactly-once plumbing: intent ledger + fencing + crash recovery
+    # (sched/ledger.py)
+    # ------------------------------------------------------------------ #
+
+    def _fence_token(self) -> int:
+        """The current fencing token (lease generation); 0 without leader
+        election."""
+        return int(self.fence_source()) if self.fence_source is not None \
+            else 0
+
+    def _write_intent(self, cycle: int,
+                      commits: Sequence[Tuple[Pod, str, int]]):
+        """Durably record the wave's placements before any Binding write
+        (no-op without a ledger). Crashpoints bracket the write so the kill
+        matrix can die exactly before/after it."""
+        if self.ledger is None or not commits:
+            return None
+        faultline.crashpoint("pre_intent")
+        intent = self.ledger.write_intent(
+            cycle=cycle, token=self._fence_token(),
+            bindings={p.key: node for p, node, _ in commits})
+        faultline.crashpoint("post_intent")
+        return intent
+
+    def _retire_intent(self, intent) -> None:
+        if intent is None:
+            return
+        faultline.crashpoint("post_bind")
+        try:
+            self.ledger.retire(intent)
+        except Exception:  # noqa: BLE001 - a failed retire is SAFE: the
+            # next recover() replays the record against informer truth and
+            # finds every entry already settled — never double-bound
+            pass
+
+    def node_fits(self, pod: Pod, node_name: str) -> bool:
+        """Host-side feasibility for intent replay: does `node_name` still
+        hold the pod's requests given everything bound/assumed there NOW?
+        Deliberately resource-only (api/semantics.py pod_fits_resources):
+        replay completes a crashed leader's decision when it is still sane,
+        and releases to the queue — where the full device evaluation reruns
+        — when in doubt."""
+        node = self.cache.get_node(node_name)
+        if node is None:
+            return False
+        occupants = self.cache.pods_on_node(node_name)
+        used_sc: Dict[str, int] = {}
+        for p in occupants:
+            for k, v in p.requests.scalars:
+                used_sc[k] = used_sc.get(k, 0) + v
+        used = Resources(
+            milli_cpu=sum(p.requests.milli_cpu for p in occupants),
+            memory_kib=sum(p.requests.memory_kib for p in occupants),
+            ephemeral_kib=sum(p.requests.ephemeral_kib for p in occupants),
+            scalars=tuple(sorted(used_sc.items())))
+        ok, _fails = pod_fits_resources(pod, node, used, len(occupants))
+        return ok
+
+    def commit_recovered(self, pod: Pod, node_name: str,
+                         now: Optional[float] = None) -> bool:
+        """Complete one replayed intent entry: assume → bind →
+        finish_binding, with the plain rollback on refusal (most commonly
+        the apiserver's already-assigned guard when our informer lagged the
+        crashed leader's committed write)."""
+        now = self.clock() if now is None else now
+        if self.cache.get_pod(pod.key) is not None:
+            return False  # already assumed/bound in this incarnation
+        self.cache.assume_pod(pod, node_name)
+        try:
+            ok = bool(self.binder.bind(pod, node_name))
+        except Exception:  # noqa: BLE001 - a raising binder is a refusal
+            ok = False
+        if ok:
+            self.cache.finish_binding(pod.key, now)
+            # close the span BEFORE queue.delete discards the stamp
+            self.telemetry.record_bound(pod.key, now)
+            self.queue.delete(pod.key)
+            return True
+        self.cache.forget_pod(pod.key)
+        return False
+
+    def recover(self, lookup=None, now: Optional[float] = None):
+        """Startup/takeover reconciliation: replay every unretired bind
+        intent against informer truth (sched/ledger.py replay — the full
+        decision table lives there). `lookup(pod_key)` must return the live
+        Pod (node_name = the apiserver's view) or None; the default reads
+        this scheduler's own cache+queue. Returns a RecoveryReport (None
+        without a ledger)."""
+        if self.ledger is None:
+            return None
+        if lookup is None:
+            lookup = self._cache_lookup
+        return self.ledger.replay(self, lookup, now=now)
+
+    def _cache_lookup(self, pod_key: str) -> Optional[Pod]:
+        pod = self.cache.get_pod(pod_key)
+        if pod is not None:
+            return pod
+        # not bound: an unbound pending pod lives in SOME queue lane —
+        # including backoff/unschedulable
+        return self.queue.get_pod(pod_key)
+
+    def warm_standby(self) -> None:
+        """One warm-standby beat (the non-leading half of HA failover): keep
+        the encoder, the resident snapshot and the prewarmer's warm state
+        HOT from informer truth without popping, assuming or binding
+        anything. A takeover then skips the full re-ingest — the first led
+        wave patches an already-resident snapshot. Strictly read-only
+        against queue and binder."""
+        backlog = self.queue.peek_active(self.batch_size)
+        self.encoder.intern_pods(backlog)
+        snap, _keys = self._snapshot_keys(backlog)
+        eng = _engine()
+        wave_engine = "scan" if (snap.dims.has_node_name
+                                 and eng == "waves") else eng
+        gang = snap.gang is not None
+        rc = snap.runs.rc if (wave_engine == "runs"
+                              and snap.runs is not None) else 0
+        # warm the signature the first led wave WILL dispatch (idempotent),
+        # and keep the growth-boundary lookahead running
+        self.prewarmer.ensure_warm(snap.dims, wave_engine, (), gang, rc=rc)
+        self.prewarmer.observe(
+            snap.dims, n_nodes=self.cache.node_count,
+            n_existing=self.cache.pod_count, engine=wave_engine, gang=gang,
+            rc=rc)
 
     # ------------------------------------------------------------------ #
     # commit path: assume → Bind (scheduler.go:660-762, no framework)
@@ -556,6 +908,7 @@ class Scheduler:
             total.scheduled += s.scheduled
             total.unschedulable += s.unschedulable
             total.bind_errors += s.bind_errors
+            total.aborted += s.aborted
             total.shed += s.shed
             total.requeued += s.requeued
             total.commit_paused += s.commit_paused

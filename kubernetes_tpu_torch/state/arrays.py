@@ -208,11 +208,14 @@ def _to_torch(x, device: torch.device, copy: bool = False):
     classes, matched by name; any other NamedTuple, such as GangArrays, as
     its own class) as a NamedTuple of tensors on `device`. With `copy`,
     every tensor owns its memory even where `.to(device)` would alias the
-    numpy array (a CPU device)."""
+    numpy array (a CPU device). Tensors already built (a snapshot's, moved
+    to a fallback device) are moved as they are."""
     if isinstance(x, tuple) and hasattr(x, "_fields"):
         cls = _TUPLES.get(type(x).__name__, type(x))
         return cls(*(_to_torch(getattr(x, f), device, copy)
                      for f in cls._fields))
+    if isinstance(x, torch.Tensor):
+        return x.to(device, copy=copy)
     a = np.asarray(x)
     if a.dtype == np.uint32:
         a = a.view(np.int32)

@@ -29,9 +29,10 @@ every `Snapshot` stays immutable: callers keep old snapshots (micro_graft
 shares `base.tables`, tests compare two), exactly as the JAX package's
 non-donated jit patch leaves its inputs intact.
 
-Not ported: mesh-resident sharding, the donated in-place patch and its
-double buffer (ROADMAP A13) and the patch-scatter compile ladder (the port
-has no compile step). Under KTPU_ASSIGN=runs every snapshot carries the
+Not ported: mesh-resident sharding and the donated in-place patch and its
+double buffer (ROADMAP A13). `warm_patch_ladder` drives the patch shapes
+once each (the JAX package compiles them; the port has no compile step).
+Under KTPU_ASSIGN=runs every snapshot carries the
 run-collapsed engine's RunPlan (ops/runs.py), counted on the host from the
 same staging columns as the pending tensors.
 """
@@ -170,6 +171,8 @@ class SchedulerCache:
         # gang groups: bound/assumed member count per group key (the gang
         # engine nets snapshot `needed` against these)
         self._group_bound: Dict[str, int] = {}
+        # (plane shapes, index bucket) rungs warm_patch_ladder has driven
+        self._ladder_warmed: Set[Tuple] = set()
 
     # -- dirty-tracking helpers (callers hold self._mu) -- #
 
@@ -570,6 +573,61 @@ class SchedulerCache:
                                            gen, d, base_dims, device)
             return self._patch_snapshot(encoder, pending, pending_keys,
                                         gen, d, snap, released_nodes, device)
+
+    def warm_patch_ladder(self, snap: Snapshot) -> int:
+        """Drive one no-op `index_copy` per rung of the patch ladder of
+        `snap`'s resident planes (nodes / existing / pending) — each rung a
+        `_patch_bucket` index length {64, 128, ..., capacity}, the shapes
+        the incremental snapshot dispatches. The port of the JAX package's
+        warm_patch_ladder, whose rungs are jit compiles; here each rung runs
+        the scatter once at its shape (the allocator's blocks, the launch).
+        The copies are out of place and discarded, so the live tensors are
+        never written. Runs on the caller's current stream (the prewarmer's,
+        which waits for the default stream first); on CUDA each live input
+        is recorded on that stream so the allocator keeps it alive until the
+        warm's reads finish. Returns the number of rungs driven by THIS
+        call — the same count as the JAX package's for the same snapshot;
+        repeat calls are memoized on plane shapes."""
+        driven = 0
+        for tree in (snap.tables.nodes, snap.existing, snap.pending):
+            leaves = list(tree)
+            if not leaves:
+                continue
+            device = leaves[0].device
+            side = None
+            if device.type == "cuda":
+                side = torch.cuda.current_stream(device)
+                if side == torch.cuda.default_stream(device):
+                    side = None
+            # top rung: _patch_bucket(cap), not cap — capacities are
+            # eight-per-octave (dims.bucket), and the live ladder rounds
+            # up past them
+            top = _patch_bucket(int(leaves[0].shape[0]))
+            shapes = tuple((tuple(a.shape), str(a.dtype)) for a in leaves)
+            kb = 64
+            while True:
+                key = (shapes, kb)
+                if key not in self._ladder_warmed:
+                    self._ladder_warmed.add(key)
+                    idx = torch.zeros((kb,), dtype=torch.int64,
+                                      device=device)
+                    rows = type(tree)(*(
+                        torch.zeros((kb,) + tuple(a.shape[1:]),
+                                    dtype=a.dtype, device=device)
+                        for a in leaves))
+                    try:
+                        if side is not None:
+                            for a in leaves:
+                                a.record_stream(side)
+                        _patch_rows(tree, idx, rows)
+                        driven += 1
+                    except Exception:  # noqa: BLE001 - warm is an
+                        # optimization, never fatal
+                        self._ladder_warmed.discard(key)
+                if kb >= top:
+                    break
+                kb *= 2
+        return driven
 
     def micro_graft(self, encoder: Encoder, pending: Sequence[Pod],
                     base: Snapshot, micro_p: int,

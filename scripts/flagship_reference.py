@@ -16,6 +16,8 @@ many pods a package places, and a hash of where.
         --explain
     JAX_PLATFORMS=cpu python3 scripts/flagship_reference.py --package jax \\
         --workload classes --engine runs [--path serving]
+    JAX_PLATFORMS=cpu python3 scripts/flagship_reference.py --package jax \\
+        --path restart
 
 `--path batch` (the default) runs `BatchScheduler.schedule` of the JAX
 package (`kubernetes_tpu`) or of the PyTorch port (`kubernetes_tpu_torch`)
@@ -39,6 +41,14 @@ bound pods (`preempt_storm`: chip_smoke.py's STORM_VIPS priority-1000 pods
 through a Scheduler with a Preemptor; per wave the counts, victims evicted
 and preemptors nominated, then the evicted keys and the vips' binder order
 as counts and sha256).
+
+`--path restart` runs chip_smoke.py's phase-9a drill (`restart_drill`): the
+phase-5b backlog drained by a ledger-backed leader that dies at post_intent,
+a warm standby over the same store that recovers and drains the rest. It
+prints the per-wave counts and snapshot modes of both, the RecoveryReport,
+the binder's outcome and the ledger counters — the JAX_RESTART constants —
+and, as JAX_WAVE_PHASES, the phase names of the leader's first wave's
+flight record.
 
 `--workload gang` is BASELINE config 5 on the batch path: gang_workload_pods
 (jobs of 8 to 64 all-or-nothing members, 2% of them larger than any node);
@@ -95,6 +105,11 @@ def jax_serving_api():
         s.prewarmer.enabled = False  # compile-ahead only; placements as-is
         return s
 
+    from kubernetes_tpu.sched.ledger import BindIntentLedger
+    from kubernetes_tpu.storage.native import PyKV
+    from kubernetes_tpu.storage.store import Storage
+    from kubernetes_tpu.utils import faultline
+
     return pytypes.SimpleNamespace(
         types=types, workloads=workloads, Dims=Dims, Encoder=Encoder,
         SchedulerCache=SchedulerCache, RecordingBinder=RecordingBinder,
@@ -102,7 +117,33 @@ def jax_serving_api():
             cache, enc, pods, base),
         dispatch=dispatch,
         readback=lambda node: jax.device_get(node).tolist(),
-        scheduler=scheduler, preemptor=Preemptor)
+        scheduler=scheduler, preemptor=Preemptor,
+        ledger=BindIntentLedger, storage=lambda: Storage(kv=PyKV()),
+        faultline=faultline)
+
+
+def restart(args) -> dict:
+    os.environ["KTPU_OVERLOAD"] = "0"
+    import chip_smoke
+
+    if args.package == "jax":
+        api = jax_serving_api()
+    else:
+        import torch
+
+        api = chip_smoke.port_serving_api(torch.device(args.device))
+    keep = []
+    t0 = time.perf_counter()
+    drill = chip_smoke.restart_drill(api, args.nodes, args.pods, keep=keep)
+    timing = drill.pop("timing")
+    for s in keep:
+        s.prewarmer.wait(300)  # no background warm may outlive the script
+    leader = keep[0]
+    phases = [p for p, _ in leader.telemetry.recorder.records()[0]["phases"]]
+    return {"package": args.package, "path": "restart", "nodes": args.nodes,
+            "pods": args.pods, "restart": drill, "wave_phases": phases,
+            "recover_s": timing["recover_s"],
+            "seconds": time.perf_counter() - t0}
 
 
 def serving(args) -> dict:
@@ -226,7 +267,8 @@ def main() -> int:
     ap.add_argument("--package", choices=("jax", "port"), required=True)
     ap.add_argument("--device", default="cpu",
                     help="the port's device (ignored for --package jax)")
-    ap.add_argument("--path", choices=("batch", "serving", "preempt"),
+    ap.add_argument("--path",
+                    choices=("batch", "serving", "preempt", "restart"),
                     default="batch")
     ap.add_argument("--nodes", type=int, default=5000)
     ap.add_argument("--pods", type=int, default=None,
@@ -244,6 +286,13 @@ def main() -> int:
     os.environ["KTPU_ASSIGN"] = args.engine
     if args.path == "preempt":
         print(json.dumps(preempt(args)))
+        return 0
+    if args.path == "restart":
+        if args.pods is None:
+            import chip_smoke
+
+            args.pods = chip_smoke.SERVING_PODS
+        print(json.dumps(restart(args)))
         return 0
     if args.path == "serving":
         if args.pods is None:

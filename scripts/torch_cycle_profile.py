@@ -6,6 +6,7 @@
     python3 scripts/torch_cycle_profile.py --mode serving
     python3 scripts/torch_cycle_profile.py --mode preempt
     python3 scripts/torch_cycle_profile.py --mode runs
+    python3 scripts/torch_cycle_profile.py --mode resilience
 
 `--mode batch` (the default) runs the steps of kubernetes_tpu_torch's
 BatchScheduler.schedule on the flagship workload (models/workloads.py
@@ -34,6 +35,16 @@ closed-form run (its context, admission epochs and commit; the epochs
 counted), and three runs of the warm cycle (runs 100-102) each alone under
 torch.profiler, with their host aten-op counts and the host ops that took
 the most CPU time (the readbacks' waits among them).
+
+`--mode resilience` drains chip_smoke.py's phase-5b backlog through the
+serving Scheduler (KTPU_OVERLOAD=0, a still clock) under five variants of
+the resilience layer, in turns ABCDE EDCBA: `default` (the supervised
+dispatch on a worker thread and telemetry; the prewarmer off, as the
+Scheduler builds it), `prewarm` (the prewarmer on), `inline` (each
+supervised dispatch run on the calling thread), `no-telemetry`
+(KTPU_TELEMETRY=0) and `bare` (the dispatch inline and telemetry off). Per run: seconds in schedule_pending, pods/s, and the seconds the
+garbage collector ran (gc.callbacks); every run must bind 5b's binder order
+(at another size, the first run's).
 
 The profiled window gives device busy time (the union of kernel and copy
 intervals), the idle share of the window, the number of device operations,
@@ -282,13 +293,99 @@ def runs_profile(args, device, sync, profile, acts) -> dict:
                 s_per_epoch=run_s / max(epochs, 1), profiled_runs=profiled)
 
 
+def resilience_profile(args, device, sync, profile, acts) -> dict:
+    import gc
+
+    import chip_smoke
+
+    os.environ["KTPU_OVERLOAD"] = "0"
+    gc_s = [0.0]
+    t_gc = [0.0]
+
+    def on_gc(phase, info):
+        if phase == "start":
+            t_gc[0] = time.perf_counter()
+        else:
+            gc_s[0] += time.perf_counter() - t_gc[0]
+
+    gc.callbacks.append(on_gc)
+
+    def inline(sup):
+        def submit(kind, key, fn, fallback=None):
+            out = fn()
+            return type("Done", (), {"result": staticmethod(lambda: out)})()
+        sup.submit = submit
+
+    variants = {
+        "default": (False, True, False),
+        "prewarm": (True, True, False),
+        "inline": (False, True, True),
+        "no-telemetry": (False, False, False),
+        "bare": (False, False, True),
+    }
+    order = list(variants) + list(reversed(variants))
+    runs = {v: [] for v in variants}
+    ref = None
+    if (args.nodes, args.pods) == (chip_smoke.SERVING_NODES,
+                                   chip_smoke.SERVING_PODS):
+        ref = (chip_smoke.JAX_DRAIN["bound"],
+               chip_smoke.JAX_DRAIN["bound_sha256"])
+    for name in order:
+        prewarm, telemetry, on_caller = variants[name]
+        api = chip_smoke.port_serving_api(device)
+        make = api.scheduler
+        spent = [0.0]
+
+        def scheduler(**kw):
+            if not telemetry:
+                os.environ["KTPU_TELEMETRY"] = "0"
+            try:
+                s = make(**kw)
+            finally:
+                os.environ.pop("KTPU_TELEMETRY", None)
+            s.prewarmer.enabled = prewarm
+            if on_caller:
+                inline(s.supervisor)
+            inner = s.schedule_pending
+
+            def timed(*a, **k):
+                t0 = time.perf_counter()
+                try:
+                    return inner(*a, **k)
+                finally:
+                    spent[0] += time.perf_counter() - t0
+            s.schedule_pending = timed
+            return s
+
+        api.scheduler = scheduler
+        gc_s[0] = 0.0
+        t0 = time.perf_counter()
+        drain = chip_smoke.serving_drain(api, args.nodes, args.pods)
+        wall = time.perf_counter() - t0
+        chip_smoke.settle(api, name, prewarm_ok=prewarm)
+        got = (drain["bound"], drain["bound_sha256"])
+        if ref is None:
+            ref = got
+        if got != ref:
+            raise SystemExit(f"{name}: the drain differs from the first "
+                             f"run's (5b's at chip_smoke.py's size)")
+        runs[name].append(dict(sched_s=spent[0],
+                               pods_per_s=drain["bound"] / spent[0],
+                               wall_s=wall, gc_s=gc_s[0]))
+        print(f"  {name:13s} {spent[0]:.3f} s in schedule_pending "
+              f"({drain['bound'] / spent[0]:.1f} pods/s), {wall:.3f} s "
+              f"with the informer events, gc {gc_s[0]:.3f} s")
+    gc.callbacks.remove(on_gc)
+    return {"variants": runs, "top_device_ops": []}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--nodes", type=int, default=5000)
     ap.add_argument("--pods", type=int, default=50000)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--mode", choices=("batch", "serving", "preempt",
-                                       "runs"),
+                                       "runs", "resilience"),
                     default="batch")
     args = ap.parse_args()
 
@@ -304,7 +401,8 @@ def main() -> int:
     if device.type == "cuda":
         acts.append(ProfilerActivity.CUDA)
     run = {"batch": batch_profile, "serving": serving_profile,
-           "preempt": preempt_profile, "runs": runs_profile}[args.mode]
+           "preempt": preempt_profile, "runs": runs_profile,
+           "resilience": resilience_profile}[args.mode]
     body = run(args, device, sync, profile, acts)
     out = dict({"mode": args.mode,
                 "device": (torch.cuda.get_device_name(0)

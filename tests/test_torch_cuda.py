@@ -184,3 +184,76 @@ def test_cuda_preempt_storm_at_r16_matches_cpu(cuda, monkeypatch):
     assert gpu["evicted"]
     assert cs.k3_diff(K.reprieve_scan(*rec.args),
                       K.reprieve_scan_plain(*rec.args)) == 0
+
+
+def _serving_drain(device, inline: bool):
+    """A 200-node x 1,000-pod drain through Scheduler(device) in waves of
+    256; `inline` runs each supervised dispatch on the calling thread
+    instead of the supervisor's worker."""
+    from kubernetes_tpu_torch.api.types import Pod, Resources
+
+    s = ktt.Scheduler(binder=ktt.RecordingBinder(), device=device,
+                      batch_size=256)
+    if inline:
+        s.supervisor.submit = lambda kind, key, fn, fb=None: type(
+            "H", (), {"result": staticmethod(lambda r=fn(): r)})()
+    for n in make_nodes(200, zones=4, racks_per_zone=5):
+        s.on_node_add(n)
+    for p in flagship_pods(1000, groups=24):
+        s.on_pod_add(p)
+    s.run_until_idle()
+    return list(s.binder.bound)
+
+
+def test_worker_thread_dispatch_matches_main_thread_on_the_card(cuda,
+                                                                monkeypatch):
+    """The supervised dispatch on its worker thread (the scheduler's device
+    and dispatch stream) places exactly as the same waves dispatched on the
+    main thread, and as the CPU run."""
+    monkeypatch.setenv("KTPU_OVERLOAD", "0")
+    worker = _serving_drain(cuda, inline=False)
+    assert worker == _serving_drain(cuda, inline=True)
+    assert worker == _serving_drain(torch.device("cpu"), inline=False)
+
+
+def test_prewarm_on_a_side_stream_matches_the_main_thread(cuda):
+    """The prewarmer's warm dispatch, from its thread on its own stream,
+    gives the K1/K2 results of the same warm run on the main thread."""
+    from kubernetes_tpu_torch.ops import waves as W
+    from kubernetes_tpu_torch.sched.prewarm import BucketPrewarmer, warm_cycle
+    from kubernetes_tpu_torch.state.dims import Dims
+
+    calls = {"main": [], "warm": []}
+    fn = {n: getattr(W, n) for n in ("contention_scan", "domain_rank")}
+
+    def spy(name):
+        def run(*a):
+            out = fn[name](*a)
+            side = "main" if torch.cuda.current_stream(cuda) == \
+                torch.cuda.default_stream(cuda) else "warm"
+            flat, todo = [], [out]
+            while todo:
+                t = todo.pop(0)
+                if isinstance(t, torch.Tensor):
+                    flat.append(t.cpu())
+                elif isinstance(t, tuple):
+                    todo.extend(t)
+            calls[side].append((name, flat))
+            return out
+        return run
+
+    d = Dims().grown_for(N=600, P=64, E=1200)
+    try:
+        for n in fn:
+            setattr(W, n, spy(n))
+        warm_cycle(d, cuda)
+        p = BucketPrewarmer(device=cuda, min_axis=1)
+        assert p.rewarm(d)
+        p.wait(120)
+    finally:
+        for n, f in fn.items():
+            setattr(W, n, f)
+    assert p.lookup(d, "waves", (), False)
+    assert calls["warm"] and len(calls["warm"]) == len(calls["main"])
+    for (na, ta), (nb, tb) in zip(calls["main"], calls["warm"]):
+        assert na == nb and all(torch.equal(x, y) for x, y in zip(ta, tb))

@@ -40,7 +40,7 @@ from kubernetes_tpu_torch.sched import cycle as TC
 from kubernetes_tpu_torch.sched import explain as TE
 from kubernetes_tpu_torch.sched.scheduler import RecordingBinder as TBinder
 from kubernetes_tpu_torch.sched.scheduler import Scheduler as TScheduler
-from kubernetes_tpu_torch.sched.telemetry import NullTelemetry
+from kubernetes_tpu_torch.sched.telemetry import SchedulerTelemetry
 from test_golden import rand_node, rand_pod
 from torch_parity import as_np, assert_same, encode
 
@@ -365,10 +365,11 @@ def test_correlator_forget_and_bound():
 # --------------------------------------------------------------------- #
 
 
-class _RecordingTelemetry(NullTelemetry):
+class _RecordingTelemetry(SchedulerTelemetry):
     """The disabled telemetry path, keeping each wave's `extra` record."""
 
     def __init__(self):
+        super().__init__(enabled=False)
         self.records = []
 
     def finish_wave(self, span, **kw):

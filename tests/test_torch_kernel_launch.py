@@ -316,3 +316,87 @@ def test_k3_ablation_edits_match_the_kernel_source():
         for old, new in edits:
             assert src.count(old) == 1, name
             assert new != old
+
+
+# --------------------------------------------------------------------------- #
+# the loader: first use from several threads at once
+# --------------------------------------------------------------------------- #
+
+def test_concurrent_first_use_builds_and_loads_once(tmp_path, monkeypatch):
+    """The dispatch worker and the prewarm thread may both make a kernel's
+    first call: with a stub compiler (a script that counts its runs and
+    writes its output slowly) and a stub loader, eight threads asking for
+    one library at once run the compiler once, load it once, and all get
+    the same library, never a half-written one."""
+    import ctypes
+    import stat
+    import threading
+
+    log = tmp_path / "nvcc.log"
+    nvcc = tmp_path / "nvcc"
+    nvcc.write_text(
+        "#!/bin/sh\n"
+        "out=''\n"
+        "while [ $# -gt 0 ]; do [ \"$1\" = -o ] && out=$2; shift; done\n"
+        f"echo \"$out\" >> {log}\n"
+        "sleep 0.3\n"
+        "echo built > \"$out\"\n")
+    nvcc.chmod(nvcc.stat().st_mode | stat.S_IEXEC)
+    monkeypatch.setattr(K, "_nvcc", lambda: str(nvcc))
+    monkeypatch.setattr(K, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(K, "_LIBS", {})
+    loads = []
+
+    class FakeLib:
+        def __init__(self, path):
+            assert open(path).read() == "built\n"  # never half-written
+            loads.append(path)
+            self.contention_scan_launch = lambda *a: 0
+            self.kernel_error_string = lambda e: b""
+
+    monkeypatch.setattr(ctypes, "CDLL", FakeLib)
+    barrier = threading.Barrier(8)
+    got = []
+
+    def first_use():
+        barrier.wait()
+        got.append(K._library("contention_scan"))
+
+    threads = [threading.Thread(target=first_use) for _ in range(8)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert len(got) == 8 and all(g is got[0] for g in got)
+    assert len(loads) == 1
+    runs = log.read_text().split()
+    assert len(runs) == 1 and runs[0].endswith(".tmp")
+    assert not list((tmp_path / "build").glob("*.tmp"))
+    assert K.library_path("contention_scan").exists()
+
+
+def test_build_names_its_temporary_by_process_and_thread(tmp_path,
+                                                         monkeypatch):
+    import os
+    import stat
+    import threading
+
+    log = tmp_path / "nvcc.log"
+    nvcc = tmp_path / "nvcc"
+    nvcc.write_text(
+        "#!/bin/sh\n"
+        "out=''\n"
+        "while [ $# -gt 0 ]; do [ \"$1\" = -o ] && out=$2; shift; done\n"
+        f"echo \"$out\" >> {log}\n"
+        "echo built > \"$out\"\n")
+    nvcc.chmod(nvcc.stat().st_mode | stat.S_IEXEC)
+    monkeypatch.setattr(K, "_nvcc", lambda: str(nvcc))
+    monkeypatch.setattr(K, "BUILD_DIR", tmp_path / "build")
+    done = []
+    t = threading.Thread(target=lambda: done.append(
+        (threading.get_ident(), K.build(("domain_rank",)))))
+    t.start()
+    t.join()
+    ident = done[0][0]
+    assert log.read_text().strip().endswith(f".{os.getpid()}.{ident}.tmp")
+    assert K.library_path("domain_rank").read_text() == "built\n"

@@ -518,12 +518,39 @@ def test_governor_gates_the_port_scheduler_like_the_jax_one():
     (dict(extenders=[object()]), "A11"),
     (dict(framework=object()), "A11"),
     (dict(mesh=2), "A13"),
-    (dict(ledger=object()), "A14"),
-    (dict(fence_source=lambda: 0), "A14"),
 ])
 def test_unported_arguments_raise(kw, item):
     with pytest.raises(NotImplementedError, match=item):
         TScheduler(binder=TBinder(), device="cpu", **kw)
+
+
+def test_ledger_and_fence_source_are_accepted():
+    """The bind-intent ledger and fencing (A14) are ported: the arguments
+    that used to raise are kept (tests/test_torch_ledger.py drives them)."""
+    from kubernetes_tpu_torch.sched.ledger import BindIntentLedger
+    from kubernetes_tpu_torch.storage.store import Storage
+
+    s = TScheduler(binder=TBinder(), device="cpu",
+                   ledger=BindIntentLedger(Storage()), fence_source=lambda: 7)
+    assert s._fence_token() == 7 and s.recover() is not None
+
+
+@pytest.mark.parametrize("prewarm", [False, True])
+def test_the_prewarmer_is_opt_in(prewarm):
+    """The Scheduler's bucket prewarmer warms only when asked for: off, a
+    wave past the growth threshold starts no warm."""
+    kw = {} if not prewarm else {"prewarm": True}
+    s = TScheduler(binder=TBinder(), device="cpu",
+                   base_dims=TDims(N=16, P=16, E=64), **kw)
+    s.prewarmer.min_axis = 1
+    assert s.prewarmer.enabled is prewarm
+    for i in range(16):
+        s.on_node_add(TT.Node(name=f"n{i}", allocatable=TT.Resources.make(
+            cpu="4", memory="8Gi", pods=110)))
+    s.on_pod_add(TT.Pod(name="p0", requests=TT.Resources.make(cpu="100m")))
+    assert s.schedule_pending().scheduled == 1
+    s.prewarmer.wait(timeout=120)
+    assert bool(s.prewarmer.warm_log) is prewarm
 
 
 @pytest.mark.parametrize("env,val,item", [

@@ -83,7 +83,22 @@ Phases, each fatal on failure (exit code != 0, no result line):
      under KTPU_PROFILE whose `cycle` range holds K1/K2. Every phase but
      9b checks that no dispatch fell back, and every phase but 9c that no
      warm ran (the Scheduler's prewarmer is off unless asked for), so the
-     launch counts of phases 5-8 are the main path's own.
+     launch counts of phases 5-8 are the main path's own;
+ 10. the scheduling framework and the extender boundary at 5,000 nodes
+     (KTPU_OVERLOAD=0): 10a 5b's drain through Scheduler(framework=
+     cfg.build_framework()) configured by FRAMEWORK_CONFIG (a dict
+     KubeSchedulerConfiguration: MostAllocated, RequestedToCapacityRatio,
+     NodeLabel, NodePreferAvoidPods, hardPodAffinitySymmetricWeight 2) on
+     labelled nodes, per wave and binder order against JAX_FRAMEWORK, K1/K2
+     in it; 10b an ExtenderServer over ExtenderBackend(device="cuda")
+     mirroring those nodes and 5b's bound pods, answering the port's
+     HTTPExtender — Filter and Prioritize naming every node,
+     ProcessPreemption, Bind — against JAX_EXTENDER, p50/p99 ms per verb;
+     10c Scheduler(extenders=[HTTPExtender]) placing fresh pods through
+     that server; 10d gang_workload_pods on the Permit path (Coscheduling)
+     against JAX_COSCHED. Every subphase checks that no dispatch fell back
+     and no warm ran. The script pins PYTHONHASHSEED=0 (pin_hash_seed):
+     10d's release order follows the string-hash seed.
 
 Prints a `kernels` JSON line, the nvidia-smi name/power line, and last
 `{"ok": true, "device": {...}}`. Imports nothing of JAX.
@@ -338,11 +353,133 @@ HANG_WAVE, ERROR_WAVE, FALLBACK_WAVE = 8, 9, 11
 # GROWTH_STEP, one wave of GROWTH_BATCH fresh pods at each step
 GROWTH_FROM, GROWTH_TO, GROWTH_STEP, GROWTH_BATCH = 4000, 5000, 100, 256
 
+# Phase 10: the scheduling framework and the extender boundary at the
+# flagship's width. 10a's nodes are make_nodes(FRAMEWORK_NODES), every 7th
+# labelled disktype=ssd and every 11th annotated preferAvoidPods; its
+# configured profile (a dict: the card's machine has no PyYAML):
+FRAMEWORK_NODES = 5000
+FRAMEWORK_SSD_EVERY, FRAMEWORK_AVOID_EVERY = 7, 11
+FRAMEWORK_CONFIG = {
+    "kind": "KubeSchedulerConfiguration",
+    "hardPodAffinitySymmetricWeight": 2,
+    "plugins": {"score": {
+        "disabled": ["NodeResourcesLeastAllocated",
+                     "NodeResourcesBalancedAllocation"],
+        "enabled": [{"name": "NodeResourcesMostAllocated", "weight": 2},
+                    {"name": "RequestedToCapacityRatio", "weight": 1},
+                    {"name": "NodeLabel", "weight": 3},
+                    {"name": "NodePreferAvoidPods", "weight": 5}]}},
+    "pluginConfig": [
+        {"name": "RequestedToCapacityRatio", "args": {"shape": [
+            {"utilization": 0, "score": 0},
+            {"utilization": 50, "score": 80},
+            {"utilization": 100, "score": 100}]}},
+        {"name": "NodeLabel", "args": {"present": ["disktype"]}}],
+}
+# 10b: Filter and Prioritize calls (one pod each, every node named), the
+# ProcessPreemption candidates, Bind calls; 10c: pods through the
+# Scheduler's per-pod extender path; 10d: gang pods on the Permit path
+EXTENDER_CALLS, EXTENDER_CANDIDATES, EXTENDER_BINDS = 128, 2, 8
+EXTENDER_SCHED_PODS = 64
+COSCHED_NODES, COSCHED_PODS = 5000, 20000
+
+# Phase 10's references from the JAX package (JAX 0.9.0 on the CPU,
+# KTPU_OVERLOAD=0, PYTHONHASHSEED=0). Reproduce with `JAX_PLATFORMS=cpu
+# python3 scripts/flagship_reference.py --package jax --path framework`
+# (JAX_FRAMEWORK: the drain's per-wave counts and snapshot modes, the
+# binder's order), `--path extender` (JAX_EXTENDER: 10b's answers and 10c's
+# placements after the phase-5b drain) and `--path cosched` (JAX_COSCHED).
+JAX_FRAMEWORK = {
+    "waves": [
+        (4096, 0, 4096, 0, "full", 5000),
+        (4096, 0, 4096, 0, "full", 5000),
+        (4096, 0, 4096, 0, "full", 5000),
+        (4096, 384, 3712, 0, "patch", 1),
+        (4096, 4096, 0, 0, "patch", 417),
+        (4096, 4096, 0, 0, "full", 5000),
+        (4096, 4096, 0, 0, "full", 5000),
+        (4096, 4096, 0, 0, "patch", 5546),
+        (4096, 4096, 0, 0, "patch", 4479),
+        (4096, 4096, 0, 0, "patch", 4616),
+        (4096, 4096, 0, 0, "patch", 4338),
+        (4096, 4096, 0, 0, "patch", 4338),
+        (848, 848, 0, 0, "full", 5000),
+        (3, 3, 0, 1, "patch", 899),
+    ],
+    "bound": 34003,
+    "bound_sha256":
+        "4bbd42c2b07ea22886c50666fa2ab65c1d223f1e56c2f1eec373592397a5eec6",
+}
+# 10b's answers and 10c's placements, on phase 5b's 34003 bound pods
+JAX_EXTENDER = {
+    "filter": {
+        "calls": 128,
+        "passing": 597000,
+        "failed": 43000,
+        "sha256": "86f6a3aac2417370d0dc863176f171dd076c04e619f3992baf9bac38f635a9f5"
+    },
+    "prioritize": {
+        "calls": 128,
+        "nonzero": 577191,
+        "sha256": "0b605354c741c1cdadc1dd45f95486e5dd0fdc0e31ddadfccd0b42be1ca9958a"
+    },
+    "preempt": {
+        "candidates": 2,
+        "victims": 2,
+        "surviving": {
+            "node-0": 1,
+            "node-1": 1
+        },
+        "sha256": "fb1d3f51b57913b5fc6f1a1f87965e085c704f4e9ee5a1d96591fff2f2c1d5d1"
+    },
+    "bind": {
+        "calls": 8,
+        "sha256": "44595b9a3e018dc50bdc4ada275cba36fa1723672a58685fcd6d54dfc2372b60"
+    },
+    "sched": {
+        "pods": 64,
+        "attempted": 64,
+        "scheduled": 64,
+        "unschedulable": 0,
+        "bound": 64,
+        "sha256": "7af0728a65f7ee0fff6ed679182df9ab9138e58836a01d6fa510ce0bdbb50598",
+        "local_binder": 0
+    }
+}
+JAX_COSCHED = {
+    "waves": [
+        [4096, 134, 80],
+        [4096, 134, 96],
+        [4096, 134, 144],
+        [4096, 134, 96],
+        [3616, 119, 80],
+    ],
+    "bound": 19504,
+    "bound_sha256":
+        "103d14064465862b6d2e12fdd92915df0dcb74132ef72480ad8a309d4531a00f",
+    "bound_set_sha256":
+        "7eecfd102beb4e905566ad9b728b22cad72d39d48191ee3d4345611c5532713d",
+    "released": 18849,
+    "waiting": 0,
+}
+
 # the kernels every wave-engine path launches (K3 runs only in preemption)
 WAVE_KERNELS = ("contention_scan", "domain_rank")
 K1_SOURCE = "kubernetes_tpu_torch/csrc/contention_scan.cu"
 K2_SOURCE = "kubernetes_tpu_torch/csrc/domain_rank.cu"
 K3_SOURCE = "kubernetes_tpu_torch/csrc/reprieve_scan.cu"
+
+
+def pin_hash_seed() -> None:
+    """Re-run this script under PYTHONHASHSEED=0 unless it already runs so:
+    the Coscheduling plugin's release order (phase 10d) follows the string
+    hash seed, and the JAX package's order was recorded under 0."""
+    import os
+
+    if os.environ.get("PYTHONHASHSEED") != "0":
+        sys.stdout.flush()
+        os.execve(sys.executable, [sys.executable] + sys.argv,
+                  dict(os.environ, PYTHONHASHSEED="0"))
 
 
 def fail(msg: str) -> None:
@@ -843,6 +980,8 @@ def port_serving_api(device):
     from kubernetes_tpu_torch.state.dims import Dims
     from kubernetes_tpu_torch.state.encode import Encoder
 
+    from kubernetes_tpu_torch import extender, framework
+    from kubernetes_tpu_torch.sched.config import load_config
     from kubernetes_tpu_torch.sched.ledger import BindIntentLedger
     from kubernetes_tpu_torch.storage.store import Storage
     from kubernetes_tpu_torch.utils import faultline
@@ -870,7 +1009,9 @@ def port_serving_api(device):
         dispatch=dispatch,
         readback=lambda node: node.cpu().tolist(),
         scheduler=scheduler, made=made, preemptor=ktt.Preemptor,
-        ledger=BindIntentLedger, storage=Storage, faultline=faultline)
+        ledger=BindIntentLedger, storage=Storage, faultline=faultline,
+        load_config=load_config, framework=framework, extender=extender,
+        backend=lambda **kw: extender.ExtenderBackend(device=device, **kw))
 
 
 def settle(api, phase: str, fallback_ok: bool = False,
@@ -957,7 +1098,8 @@ def serving_drain(api, n_nodes: int, n_pods: int,
                   batch_size: int = SERVING_BATCH,
                   on_wave=None, keep_bound=None,
                   workload: str = "flagship", clock=None,
-                  before_wave=None, after_wave=None, keep=None) -> dict:
+                  before_wave=None, after_wave=None, keep=None,
+                  sched_kw=None, setup=None, node_fn=None) -> dict:
     """Phase 5b: the wave loop. A Scheduler(RecordingBinder, batch_size,
     microwave=True) on a still clock over make_nodes(n_nodes), with
     base_dims sized to the drain (N, P = batch_size, E = n_pods) and a
@@ -978,11 +1120,15 @@ def serving_drain(api, n_nodes: int, n_pods: int,
     `after_wave(w, s)` run around wave w (phase 9b injects faults there);
     a wave whose dispatch was abandoned is retried once the device is
     re-admitted and listed under "aborted" (wave, pods), not in "waves".
-    The Scheduler is appended to `keep` when one is given."""
+    The Scheduler is appended to `keep` when one is given. `sched_kw` adds
+    constructor arguments, `setup(s)` runs on the new Scheduler before any
+    event, and `node_fn(W, n_nodes)` builds the nodes instead of make_nodes
+    (phase 10a: a configured framework on labelled nodes)."""
     import dataclasses
 
     T = api.types
-    nodes = api.workloads.make_nodes(n_nodes)
+    nodes = (node_fn or (lambda W, n: W.make_nodes(n)))(api.workloads,
+                                                        n_nodes)
     pods = (api.workloads.flagship_pods(n_pods) if workload == "flagship"
             else api.workloads.deployment_backlog_pods(
                 n_pods, deployments=CLASSES_DEPLOYMENTS))
@@ -990,7 +1136,10 @@ def serving_drain(api, n_nodes: int, n_pods: int,
     binder = api.RecordingBinder()
     s = api.scheduler(binder=binder, batch_size=batch_size, microwave=True,
                       clock=clock or FakeClock(),
-                      base_dims=api.Dims(N=n_nodes, P=batch_size, E=n_pods))
+                      base_dims=api.Dims(N=n_nodes, P=batch_size, E=n_pods),
+                      **(sched_kw or {}))
+    if setup is not None:
+        setup(s)
     if keep is not None:
         keep.append(s)
     if s.governor is not None:
@@ -1311,6 +1460,229 @@ def preempt_storm(api, n_nodes: int, bound, n_pods: int = SERVING_PODS,
             "vips_bound_sha256": bound_sha256(binder.bound),
             "pdb_violations": pre.last_pdb_violations,
             "attempts": pre.attempts}
+
+
+# --------------------------------------------------------------------------- #
+# phase 10: the framework and the extender (shared with
+# scripts/flagship_reference.py, which runs them on the JAX package)
+# --------------------------------------------------------------------------- #
+
+def framework_nodes(W, n_nodes: int) -> list:
+    """make_nodes(n_nodes), every FRAMEWORK_SSD_EVERY-th node labelled
+    disktype=ssd and every FRAMEWORK_AVOID_EVERY-th annotated
+    preferAvoidPods."""
+    import dataclasses
+
+    out = []
+    for i, node in enumerate(W.make_nodes(n_nodes)):
+        labels = dict(node.labels)
+        if i % FRAMEWORK_SSD_EVERY == 0:
+            labels["disktype"] = "ssd"
+        out.append(dataclasses.replace(
+            node, labels=labels,
+            prefer_avoid_pods=i % FRAMEWORK_AVOID_EVERY == 0))
+    return out
+
+
+def wire_framework(s, cfg) -> None:
+    """What the JAX package's SchedulerServer does with a loaded
+    configuration, done here by the caller: the engine's composition, the
+    hard affinity weight, NodeLabel's keys interned in the Scheduler's
+    encoder."""
+    s.engine_config = cfg.engine_config()
+    s.hard_pod_affinity_weight = float(cfg.hard_pod_affinity_symmetric_weight)
+    keys = s.encoder.vocabs.label_keys
+    for pl in s.framework.score_plugins:
+        if type(pl).__name__ == "NodeLabel":
+            pl._present_ids = tuple(keys.intern(k) for k in pl.present)
+            pl._absent_ids = tuple(keys.intern(k) for k in pl.absent)
+
+
+def framework_drain(api, n_nodes: int = None, n_pods: int = None,
+                    keep=None, on_wave=None) -> dict:
+    """Phase 10a: 5b's drain (serving_drain: waves of SERVING_BATCH, the
+    informer confirmations, the 3-pod micro wave) with FRAMEWORK_CONFIG's
+    profile — Scheduler(framework=cfg.build_framework()) wired as
+    wire_framework does — on framework_nodes."""
+    cfg = api.load_config(FRAMEWORK_CONFIG)
+    return serving_drain(api, n_nodes or FRAMEWORK_NODES,
+                         n_pods or SERVING_PODS, keep=keep, on_wave=on_wave,
+                         sched_kw={"framework": cfg.build_framework()},
+                         setup=lambda s: wire_framework(s, cfg),
+                         node_fn=framework_nodes)
+
+
+def next_flagship(W, n_pods: int, skip: int, count: int) -> list:
+    """`count` pods of the flagship generator after its first n_pods + skip
+    (the same groups, spread and affinity as the backlog's; fresh names)."""
+    return W.flagship_pods(n_pods + skip + count)[n_pods + skip:]
+
+
+def digest(obj) -> str:
+    """sha256 of a JSON value with sorted keys."""
+    return hashlib.sha256(json.dumps(obj, sort_keys=True).encode()) \
+        .hexdigest()
+
+
+def extender_phase(api, bound, n_nodes: int = None, n_pods: int = None,
+                   mark=None) -> tuple:
+    """Phases 10b and 10c. An ExtenderServer over the package's
+    ExtenderBackend, which mirrors framework_nodes(n_nodes) and `bound`
+    (phase 5b's binder list: the flagship and fresh pods with node_name
+    set). 10b: the package's own HTTPExtender (nodeCacheCapable) sends
+    EXTENDER_CALLS Filter calls and as many Prioritize calls, each naming
+    every node, for the next EXTENDER_CALLS flagship pods; one
+    ProcessPreemption of a priority-1000 pod of 31 cpu with the first
+    EXTENDER_CANDIDATES nodes as candidates, all their pods as victims; and
+    EXTENDER_BINDS Bind calls (the first Filter pods, each to its first
+    passing node). 10c: Scheduler(extenders=[HTTPExtender(filter,
+    prioritize, bind)]) holding the same nodes and pods schedules the next
+    EXTENDER_SCHED_PODS flagship pods in one wave, each through the per-pod
+    extender path, bound by the extender's Bind. `mark(name)` is called
+    before each subphase. Returns (the answers as counts and sha256, the
+    seconds of each call by verb and 10c's wave)."""
+    import dataclasses
+
+    T, W, E = api.types, api.workloads, api.extender
+    n_nodes, n_pods = n_nodes or FRAMEWORK_NODES, n_pods or SERVING_PODS
+    nodes = framework_nodes(W, n_nodes)
+    by_key = {p.key: p for p in W.flagship_pods(n_pods)
+              + fresh_pods(T, n_pods)}
+    placed = [dataclasses.replace(by_key[k], node_name=n) for k, n in bound]
+    be = api.backend()
+    be.sync_nodes(nodes)
+    be.sync_scheduled_pods(placed)
+    pods = next_flagship(W, n_pods, 0, EXTENDER_CALLS)
+    secs = {"filter": [], "prioritize": [], "preempt": [], "bind": []}
+
+    def timed(verb, fn, *a):
+        t0 = time.perf_counter()
+        out = fn(*a)
+        secs[verb].append(time.perf_counter() - t0)
+        return out
+
+    verbs = dict(filter_verb="filter", prioritize_verb="prioritize",
+                 bind_verb="bind", node_cache_capable=True,
+                 http_timeout=600.0)
+    with E.ExtenderServer(be) as srv:
+        if mark is not None:
+            mark("10b")
+        ext = E.HTTPExtender(E.ExtenderConfig(
+            url_prefix=srv.url, preempt_verb="preemption", **verbs))
+        filt = [list(timed("filter", ext.filter, p, nodes)) for p in pods]
+        prio = [timed("prioritize", ext.prioritize, p, nodes)[0]
+                for p in pods]
+        vip = T.Pod(name="ext-vip", priority=1000,
+                    requests=T.Resources.make(cpu="31", memory="8Gi"),
+                    creation_index=n_pods + EXTENDER_CALLS)
+        cand = {n.name: sorted((p for p in placed if p.node_name == n.name),
+                               key=lambda p: p.key)
+                for n in nodes[:EXTENDER_CANDIDATES]}
+        surv = timed("preempt", ext.process_preemption, vip, cand)
+        for pod, (passing, _failed) in zip(pods[:EXTENDER_BINDS], filt):
+            timed("bind", ext.bind, pod, passing[0] if passing
+                  else nodes[0].name)
+        binds = list(be.bound)
+
+        if mark is not None:
+            mark("10c")
+        s = api.scheduler(binder=api.RecordingBinder(), clock=FakeClock(),
+                          extenders=[E.HTTPExtender(E.ExtenderConfig(
+                              url_prefix=srv.url, **verbs))],
+                          batch_size=EXTENDER_SCHED_PODS,
+                          base_dims=api.Dims(N=n_nodes,
+                                             P=EXTENDER_SCHED_PODS, E=n_pods))
+        for n in nodes:
+            s.on_node_add(n)
+        for p in placed:
+            s.on_pod_add(p)
+        for p in next_flagship(W, n_pods, EXTENDER_CALLS,
+                               EXTENDER_SCHED_PODS):
+            s.on_pod_add(p)
+        t0 = time.perf_counter()
+        st = s.schedule_pending()
+        secs["sched_wave"] = [time.perf_counter() - t0]
+        sched_bound = be.bound[len(binds):]
+    out = {
+        "filter": {"calls": len(filt),
+                   "passing": sum(len(p) for p, _ in filt),
+                   "failed": sum(len(f) for _, f in filt),
+                   "sha256": digest([[p, sorted(f.items())]
+                                     for p, f in filt])},
+        "prioritize": {"calls": len(prio),
+                       "nonzero": sum(1 for d in prio
+                                      for v in d.values() if v),
+                       "sha256": digest([sorted(d.items()) for d in prio])},
+        "preempt": {"candidates": len(cand),
+                    "victims": sum(len(v) for v in cand.values()),
+                    "surviving": {n: len(v) for n, v in sorted(surv.items())},
+                    "sha256": digest(sorted(surv.items()))},
+        "bind": {"calls": len(binds), "sha256": digest(binds)},
+        "sched": {"pods": EXTENDER_SCHED_PODS, "attempted": st.attempted,
+                  "scheduled": st.scheduled,
+                  "unschedulable": st.unschedulable,
+                  "bound": len(sched_bound),
+                  "sha256": digest(sched_bound),
+                  "local_binder": len(s.binder.bound)},
+    }
+    return out, secs
+
+
+def cosched_drain(api, n_nodes: int = None, n_pods: int = None,
+                  batch_size: int = None) -> dict:
+    """Phase 10d: gang_workload_pods(n_pods) on make_nodes(n_nodes) through
+    a Scheduler whose framework has Coscheduling at reserve, permit and
+    unreserve — so the device gang engine is off and the Permit waiting map
+    holds each group's members until its quorum is assumed. Waves of
+    `batch_size` on a still clock until the active queue is empty. Per
+    wave: attempted, scheduled (bound by the wave's own commits),
+    unschedulable; then the binder's order as a count and sha256 (and the
+    bindings sorted, as a sha256), the pods released from the waiting map,
+    and those still waiting. Coscheduling releases a group's waiters in
+    the iteration order of a set of pod keys, which follows the
+    interpreter's string-hash seed: the order is reproducible only under
+    one PYTHONHASHSEED (pin_hash_seed)."""
+    import dataclasses
+
+    F, W = api.framework, api.workloads
+    n_nodes, n_pods = n_nodes or COSCHED_NODES, n_pods or COSCHED_PODS
+    batch_size = batch_size or SERVING_BATCH
+    plugins = dataclasses.replace(
+        F.default_plugins(),
+        reserve=F.PluginSet(enabled=["Coscheduling"]),
+        permit=F.PluginSet(enabled=["Coscheduling"]),
+        unreserve=F.PluginSet(enabled=["Coscheduling"]))
+    fw = F.default_framework(plugins=plugins)
+    binder = api.RecordingBinder()
+    s = api.scheduler(binder=binder, framework=fw, batch_size=batch_size,
+                      clock=FakeClock(),
+                      base_dims=api.Dims(N=n_nodes, P=batch_size, E=n_pods))
+    if s._device_gangs:
+        fail("phase 10d: Coscheduling did not take the groups from the "
+             "device gang engine")
+    cos = next(p for p in fw.permit_plugins if p.name == "Coscheduling")
+    released = [0]
+
+    def release(key, now=None):
+        ok = s.complete_waiting(key, now)
+        released[0] += int(ok)
+        return ok
+
+    cos.on_release = release
+    for n in W.make_nodes(n_nodes):
+        s.on_node_add(n)
+    for p in W.gang_workload_pods(n_pods):
+        s.on_pod_add(p)
+    waves = []
+    for _ in range(4 * (n_pods // batch_size + 2)):
+        st = s.run_until_idle(max_waves=1)
+        waves.append([st.attempted, st.scheduled, st.unschedulable])
+        if s.queue.lengths()[0] == 0:
+            break
+    return {"waves": waves, "bound": len(binder.bound),
+            "bound_sha256": bound_sha256(binder.bound),
+            "bound_set_sha256": bound_sha256(sorted(binder.bound)),
+            "released": released[0], "waiting": len(fw.waiting_pods())}
 
 
 def gang_summary(pods, assignments) -> dict:
@@ -2664,6 +3036,139 @@ def telemetry_phase(device, serving_sched) -> dict:
                 profile_cycle_ms=c["dur"] / 1e3, profile_kernel_ms=busy / 1e3)
 
 
+def pct_ms(xs, q: float) -> float:
+    """The q-quantile of seconds `xs` in ms (nearest rank)."""
+    import math
+
+    xs = sorted(xs)
+    return xs[max(0, math.ceil(q * len(xs)) - 1)] * 1e3
+
+
+def framework_phase(device, card: str) -> dict:
+    """Phase 10a on the card: framework_drain through the port's Scheduler
+    (device="cuda"), per wave timed as 5b, against JAX_FRAMEWORK; K1/K2
+    launch counts set to 0 just before and read just after; both kernels
+    held against their plain versions on the drain's first wave's inputs."""
+    from kubernetes_tpu_torch.ops import kernels as K
+    from kubernetes_tpu_torch.ops import waves as W
+
+    api = port_serving_api(device)
+    timer = ServingTimer(device)
+    make = api.scheduler
+    api.scheduler = lambda **kw: timer.wrap(make(**kw))
+    recs = [Recorder(W, "contention_scan"), Recorder(W, "domain_rank")]
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        drain = framework_drain(api)
+    finally:
+        timer.restore()
+        for r in recs:
+            r.restore()
+    wall_s = time.perf_counter() - t0
+    settle(api, "10a")
+    launches = K.launch_counts()
+    for i, (w, t) in enumerate(zip(drain["waves"], timer.waves)):
+        print(f"  wave {i:2d}: {'micro' if w['micro'] else 'bulk '} "
+              f"{w['mode']:6s} {w['patch_rows']:6d} rows; attempted "
+              f"{w['attempted']:5d} scheduled {w['scheduled']:5d} "
+              f"unschedulable {w['unschedulable']:5d}; snapshot "
+              f"{t['snapshot_s']:.4f} s, dispatch+readback "
+              f"{t['dispatch_s']:.4f} s, commit {t['commit_s']:.4f} s")
+    sched_s = sum(t["wave_s"] for t in timer.waves)
+    print(f"    {drain['bound']} pods bound in {len(drain['waves'])} waves: "
+          f"{sched_s:.3f} s in schedule_pending "
+          f"({drain['bound'] / sched_s:.1f} pods/s), {wall_s:.3f} s with "
+          f"the informer events ({card}); launches {launches}")
+    for name in WAVE_KERNELS:
+        if launches.get(name, 0) <= 0 and device.type == "cuda":
+            fail(f"kernel {name} was not launched by phase 10a")
+    check_drain(drain, "the JAX package's (JAX_FRAMEWORK)", JAX_FRAMEWORK)
+    a1 = recs[0].args
+    d1 = k1_diff(K.contention_scan(*a1), K.contention_scan_plain(*a1))
+    dom, nd = recs[1].args
+    d2 = k2_diff(K.domain_rank(dom, nd), K.domain_rank_plain(dom, nd))
+    sync(device)
+    if d1 or d2:
+        fail("a kernel disagrees with its plain version on phase 10a's "
+             "first wave's inputs")
+    print(f"    per-wave counts, snapshot modes and binder order equal "
+          f"JAX_FRAMEWORK; K1/K2 on the first wave's inputs exact")
+    return dict(drain=drain, timer=timer.waves, sched_s=sched_s,
+                wall_s=wall_s, launches=launches,
+                errs={"contention_scan": d1, "domain_rank": d2})
+
+
+def extender_chip_phase(device, bound, card: str) -> dict:
+    """Phases 10b and 10c on the card: extender_phase through the port's
+    ExtenderServer over ExtenderBackend(device="cuda") and the port's
+    Scheduler, against JAX_EXTENDER; p50/p99 ms per verb; launch counts
+    per subphase."""
+    from kubernetes_tpu_torch.ops import kernels as K
+
+    api = port_serving_api(device)
+    counts, cur = {}, []
+
+    def mark(name):
+        # each subphase's launches: counts set to 0 just before it, read
+        # just after (at the next mark, or after the phase)
+        if cur:
+            counts[cur[-1]] = K.launch_counts()
+        cur.append(name)
+        K.reset_launch_counts()
+
+    t0 = time.perf_counter()
+    out, secs = extender_phase(api, bound, mark=mark)
+    counts[cur[-1]] = K.launch_counts()
+    wall_s = time.perf_counter() - t0
+    settle(api, "10b/10c")
+    lat = {v: dict(calls=len(x), p50_ms=pct_ms(x, 0.5),
+                   p99_ms=pct_ms(x, 0.99), max_ms=max(x) * 1e3)
+           for v, x in secs.items() if v != "sched_wave"}
+    for v, d in lat.items():
+        print(f"  {v:10s} {d['calls']:4d} calls at {FRAMEWORK_NODES} nodes: "
+              f"p50 {d['p50_ms']:.2f} ms, p99 {d['p99_ms']:.2f} ms, "
+              f"max {d['max_ms']:.2f} ms ({card})")
+    print(f"  10c: {out['sched']['bound']} of {EXTENDER_SCHED_PODS} pods "
+          f"bound through the extender in one wave of "
+          f"{secs['sched_wave'][0]:.3f} s; phase {wall_s:.1f} s; launches "
+          f"10b {counts['10b']}, 10c {counts['10c']}")
+    for key, ref in JAX_EXTENDER.items():
+        if out[key] != ref:
+            fail(f"phase 10b/10c: {key} differs from JAX_EXTENDER: "
+                 f"{out[key]}")
+    print("    Filter, Prioritize, ProcessPreemption, Bind answers and the "
+          "10c placements equal JAX_EXTENDER")
+    return dict(answers=out, latency=lat, sched_wave_s=secs["sched_wave"][0],
+                wall_s=wall_s, launches=counts)
+
+
+def cosched_phase(device, card: str) -> dict:
+    """Phase 10d on the card: cosched_drain through the port's Scheduler,
+    against JAX_COSCHED; K1/K2 launch counts around it (K1 must launch)."""
+    from kubernetes_tpu_torch.ops import kernels as K
+
+    api = port_serving_api(device)
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = cosched_drain(api)
+    wall_s = time.perf_counter() - t0
+    settle(api, "10d")
+    launches = K.launch_counts()
+    print(f"    {out['bound']} bound ({out['released']} released from the "
+          f"waiting map, {out['waiting']} still waiting) in "
+          f"{len(out['waves'])} waves, {wall_s:.3f} s ({card}); launches "
+          f"{launches}")
+    # gang_workload_pods carry no spread or anti-affinity: the wave
+    # engine's domain-quota pass (K2) has nothing to rank, as in phase 7
+    if launches.get("contention_scan", 0) <= 0 and device.type == "cuda":
+        fail("kernel contention_scan was not launched by phase 10d")
+    if out != JAX_COSCHED:
+        fail(f"phase 10d differs from JAX_COSCHED: {out}")
+    print("    per-wave counts, binder order, releases equal JAX_COSCHED")
+    return dict(result=out, wall_s=wall_s, launches=launches)
+
+
 def check_drain(drain, who: str, ref: dict) -> None:
     waves = [(w["attempted"], w["scheduled"], w["unschedulable"], w["micro"],
               w["mode"], w["patch_rows"]) for w in drain["waves"]]
@@ -2814,6 +3319,32 @@ def main() -> int:
             prewarm_max_abs_err=growth["errs"][name])
         r["max_abs_err"] = max(r["max_abs_err"], growth["errs"][name])
 
+    t10 = time.perf_counter()
+    print(f"[10a] a configured profile: Scheduler(device='cuda', framework="
+          f"cfg.build_framework(), batch_size={SERVING_BATCH}), "
+          f"{FRAMEWORK_NODES} nodes (disktype=ssd every "
+          f"{FRAMEWORK_SSD_EVERY}th, preferAvoidPods every "
+          f"{FRAMEWORK_AVOID_EVERY}th) x {SERVING_PODS} pods")
+    fwk = framework_phase(device, card)
+    print(f"[10b] extender verbs over HTTP: ExtenderServer(ExtenderBackend("
+          f"device='cuda')) mirroring {FRAMEWORK_NODES} nodes and phase 5b's "
+          f"{len(serving['bound'])} pods; [10c] Scheduler(extenders=["
+          f"HTTPExtender]) on {EXTENDER_SCHED_PODS} pods")
+    ext = extender_chip_phase(device, serving["bound"], card)
+    print(f"[10d] Coscheduling on the Permit path: {COSCHED_NODES} nodes x "
+          f"{COSCHED_PODS} gang pods")
+    cos = cosched_phase(device, card)
+    print(f"    phase 10 {time.perf_counter() - t10:.1f} s")
+    for r in rows[:2]:
+        name = r["name"]
+        r["framework"] = dict(
+            launches_10a=fwk["launches"][name],
+            launches_10b=ext["launches"]["10b"][name],
+            launches_10c=ext["launches"]["10c"][name],
+            launches_10d=cos["launches"][name],
+            max_abs_err=fwk["errs"][name])
+        r["max_abs_err"] = max(r["max_abs_err"], fwk["errs"][name])
+
     steady = serving["steady"]["cycles"]
     print(json.dumps({"kernels": rows, "cycle_ms": cycle_s * 1e3,
                       "build_s": build_s,
@@ -2849,7 +3380,18 @@ def main() -> int:
                               "timing", "intent_write_ms", "first_led_mode",
                               "wall_s")},
                           "supervisor": sup, "growth": growth,
-                          "telemetry": tel}}))
+                          "telemetry": tel},
+                      "framework": {
+                          "drain_waves": [dict(w, **t) for w, t in zip(
+                              fwk["drain"]["waves"], fwk["timer"])],
+                          "drain_bound": fwk["drain"]["bound"],
+                          "drain_sched_s": fwk["sched_s"],
+                          "drain_wall_s": fwk["wall_s"],
+                          "extender_latency": ext["latency"],
+                          "extender_sched_wave_s": ext["sched_wave_s"],
+                          "extender_wall_s": ext["wall_s"],
+                          "cosched": cos["result"],
+                          "cosched_wall_s": cos["wall_s"]}}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -2858,4 +3400,5 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    pin_hash_seed()
     sys.exit(main())

@@ -14,8 +14,11 @@ Layers (module names follow the JAX package's, so each has a counterpart):
              preemption), the CUDA kernel wrappers
   sched/   — the batch cycle (BatchScheduler), the serving Scheduler on the
              resident cache (state/cache.py), its queue and governor, the
-             preemption driver (Preemptor)
-  component/ — the metrics registry (copied)
+             preemption driver (Preemptor), the configuration loader
+             (sched/config.py)
+  framework/ — the scheduling-framework runtime and in-tree plugins
+  extender/ — the scheduler-extender HTTP boundary (backend, server, client)
+  component/ — the metrics registry and feature gates (copied)
   models/  — the benchmark workloads (copied)
 """
 

@@ -11,6 +11,7 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from ..state.arrays import Array, ClusterTables, PodArrays
@@ -49,6 +50,43 @@ class EngineConfig(NamedTuple):
     # only on nodes scoring within `w_window` of its per-class feasible max
     # (MaxNodeScore=100, interface.go:87 — one plugin's full swing)
     w_window: float = 100.0
+
+
+def f32_scalar(x) -> float:
+    """A Python number as the double that holds its nearest f32 exactly:
+    multiplying an f32 tensor by it gives the product of two f32 values
+    whichever precision the op computes a Python scalar in, as a JAX f32
+    op on a weak-typed scalar does."""
+    return float(np.float32(x))
+
+
+def fma_f32(a: Array, b, c: Array) -> Array:
+    """a + b·c rounded once to f32, as XLA's CPU backend computes an f32
+    `a + b * c` that it contracts into a fused multiply-add — which it does
+    where both sit in one fusion, so inside jnp.interp and the JAX
+    package's folds of weighted score rows: the
+    product is exact in f64, the sum is rounded to odd in f64 (TwoSum's
+    error decides the last bit), and rounding that to f32 is then correct
+    (round-to-odd at ≥ 2 extra bits). The same ops on the CPU and the card,
+    so both give the same bits. `b` may be a Python number (an f32 value)."""
+    a64 = a.double()
+    p = c.double() * (b.double() if isinstance(b, torch.Tensor) else float(b))
+    s = a64 + p
+    bb = s - a64
+    err = (a64 - (s - bb)) + (p - bb)
+    even = (s.view(torch.int64) & 1) == 0
+    toward = torch.where(err > 0, torch.inf, -torch.inf).to(s.dtype)
+    s = torch.where((err != 0) & even, torch.nextafter(s, toward), s)
+    return s.float()
+
+
+def strong_engine_config(cfg: EngineConfig) -> EngineConfig:
+    """Each leaf as the double that holds its nearest f32 exactly — the JAX
+    package casts every leaf to a strong f32 scalar at each dispatch
+    boundary, so a weight such as 0.1 meets the f32 planes as that f32
+    value; here it does so whichever precision an op computes a Python
+    scalar in."""
+    return EngineConfig(*(f32_scalar(x) for x in cfg))
 
 
 def default_engine_config() -> EngineConfig:

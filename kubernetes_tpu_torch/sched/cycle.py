@@ -3,16 +3,20 @@ JAX package's sched/cycle.py).
 
 encode (state/encode.py) → tensors on the device (state/arrays.py
 tables_to_torch) → build_cycle → initial_state → the engine KTPU_ASSIGN
-names: assign_waves (the default), the run-collapsed assign_runs
+names — with a configured plugin composition (EngineConfig flags and
+weights, hardPodAffinitySymmetricWeight, the out-of-set score plugins
+folded into the static score as one per-class bias) — assign_waves (the
+default), the run-collapsed assign_runs
 (KTPU_ASSIGN=runs) or the sequential scan (KTPU_ASSIGN=scan, and every
 waves batch with a `spec.nodeName` pod); any of them inside the gang
 engine's rounds (ops/gang.py) for a batch with gang-grouped pods → node
 names, and with `explain` the decision attribution of the wave
 (ops/assign.py explain_assignments). The serving path
 (sched/scheduler.py) takes its tensors from the resident cache instead
-(state/cache.py, through `snapshot_with_keys`).
+(state/cache.py, through `snapshot_with_keys`); the extender verbs
+evaluate one pod through `_feasible`, `_scores` and `_diagnose`.
 
-The port has no extra score plugins, prewarmer or mesh yet.
+The port has no mesh yet.
 """
 
 from __future__ import annotations
@@ -25,9 +29,11 @@ import torch
 
 from ..api.types import Node, Pod
 from ..ops.assign import (AssignResult, assign_batch, explain_assignments,
-                          initial_state, mask_components)
+                          feasible_matrix, initial_state, mask_components,
+                          score_matrix)
 from ..ops.gang import GangArrays, assign_gang
-from ..ops.lattice import build_cycle
+from ..ops.lattice import (EngineConfig, build_cycle, default_engine_config,
+                           f32_scalar, fma_f32, strong_engine_config)
 from ..ops.runs import assign_runs, plan_runs
 from ..ops.waves import assign_waves
 from ..state.arrays import ClusterTables, PodArrays, tables_to_torch, to_device
@@ -102,14 +108,66 @@ def _resolve_rc(pending: PodArrays, runs) -> int:
         pending.node_name_req))).rc
 
 
+def _apply_extra_plugins(tables: ClusterTables, cyc, extra_plugins: tuple,
+                         extra_weights: tuple):
+    """Fold configured out-of-set score plugins (NodeLabel, RTCR, …) into the
+    static score lattice as a per-class bias — the engines' analog of
+    RunScorePlugins for plugins EngineConfig has no fixed slot for. They
+    are evaluated against a per-CLASS identity pending view (their scores
+    are class-pure); the bias is summed from zeros in plugin order and
+    added to the static score once, as in the JAX package."""
+    if not extra_plugins:
+        return cyc
+    from ..framework.interface import CycleState, TensorContext
+
+    classes = tables.classes
+    SC = classes.valid.shape[0]
+    dev = classes.valid.device
+    none = torch.full((SC,), -1, dtype=torch.int32, device=dev)
+    zero = torch.zeros((SC,), dtype=torch.int32, device=dev)
+    ident = PodArrays(
+        valid=classes.valid, name_id=none, ns=classes.ns,
+        cls=torch.arange(SC, dtype=torch.int32, device=dev),
+        priority=zero, creation=zero, node_id=none, node_name_req=none)
+    ctx = TensorContext(tables=tables, cyc=cyc, pending=ident)
+    bias = torch.zeros_like(cyc.static.score)
+    for pl, w in zip(extra_plugins, extra_weights):
+        # bias + w·row as the JAX package's compiled fold computes it: one
+        # fused multiply-add per plugin
+        bias = fma_f32(bias, f32_scalar(w),
+                       pl.score_matrix(CycleState(), ctx).float())
+    return cyc._replace(static=cyc.static._replace(
+        score=cyc.static.score + bias))
+
+
+def _cycle(tables: ClusterTables, existing: PodArrays, keys: tuple, D: int,
+           hard_weight: float = 1.0, ecfg: Optional[EngineConfig] = None,
+           extra_plugins: tuple = (), extra_weights: tuple = ()):
+    """build_cycle with the configured composition: the EngineConfig and
+    hardPodAffinitySymmetricWeight as f32 values (the JAX package's strong
+    f32 scalars), then the extra score plugins' bias."""
+    uk, ev = keys
+    ecfg = strong_engine_config(ecfg if ecfg is not None
+                                else default_engine_config())
+    cyc = build_cycle(tables, existing, uk, ev, D, f32_scalar(hard_weight),
+                      ecfg)
+    return _apply_extra_plugins(tables, cyc, extra_plugins, extra_weights)
+
+
 def schedule_batch(tables: ClusterTables, pending: PodArrays, keys: tuple,
                    D: int, existing: PodArrays,
                    has_node_name: bool = False,
+                   hard_weight: float = 1.0,
+                   ecfg: Optional[EngineConfig] = None,
+                   extra_plugins: tuple = (),
+                   extra_weights: tuple = (),
                    gang: Optional[GangArrays] = None,
                    return_waves: bool = False,
                    runs=None,
                    explain: bool = False):
-    """One cycle on tensors: build_cycle → initial_state → the engine. A
+    """One cycle on tensors: build_cycle (with the configured composition:
+    `ecfg`, `hard_weight`, the `extra_plugins` at `extra_weights`) →
+    initial_state → the engine. A
     waves batch holding a `spec.nodeName` pod runs through the sequential
     scan: the class-granular wave path cannot express a per-pod host
     constraint (the runs engine keeps such a batch: it splits runs on
@@ -131,8 +189,8 @@ def schedule_batch(tables: ClusterTables, pending: PodArrays, keys: tuple,
     def runs_fn(t, cy, pe, ini):
         return assign_runs(t, cy, pe, ini, rc)
 
-    uk, ev = keys
-    cyc = build_cycle(tables, existing, uk, ev, D)
+    cyc = _cycle(tables, existing, keys, D, hard_weight, ecfg,
+                 extra_plugins, extra_weights)
     init = initial_state(tables, cyc)
     waves = None
     if gang is not None:
@@ -162,13 +220,37 @@ def schedule_batch(tables: ClusterTables, pending: PodArrays, keys: tuple,
     return (res, waves) if return_waves else res
 
 
+def _feasible(tables: ClusterTables, pending: PodArrays, keys: tuple, D: int,
+              existing: PodArrays, hard_weight: float = 1.0,
+              ecfg: Optional[EngineConfig] = None):
+    """[P, N] Filter mask — findNodesThatFit for every pending pod at once
+    (the extender's Filter and ProcessPreemption verbs)."""
+    return feasible_matrix(
+        tables, _cycle(tables, existing, keys, D, hard_weight, ecfg),
+        pending)
+
+
+def _scores(tables: ClusterTables, pending: PodArrays, keys: tuple, D: int,
+            existing: PodArrays, hard_weight: float = 1.0,
+            ecfg: Optional[EngineConfig] = None, extra_plugins: tuple = (),
+            extra_weights: tuple = ()):
+    """[P, N] Score matrix, -inf where infeasible — prioritizeNodes for
+    every pending pod at once (the extender's Prioritize verb, the
+    Scheduler's per-pod extender path), with the batch path's composition
+    including the out-of-set plugins."""
+    return score_matrix(
+        tables, _cycle(tables, existing, keys, D, hard_weight, ecfg,
+                       extra_plugins, extra_weights), pending)
+
+
 def _diagnose(tables: ClusterTables, pending: PodArrays, keys: tuple, D: int,
-              existing: PodArrays):
+              existing: PodArrays, hard_weight: float = 1.0,
+              ecfg: Optional[EngineConfig] = None):
     """Per-predicate [P, N] component masks (PredicateFailureReason
     analog) against the cycle's initial state."""
-    uk, ev = keys
-    return mask_components(tables, build_cycle(tables, existing, uk, ev, D),
-                           pending)
+    return mask_components(
+        tables, _cycle(tables, existing, keys, D, hard_weight, ecfg),
+        pending)
 
 
 @dataclass

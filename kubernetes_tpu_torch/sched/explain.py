@@ -17,7 +17,7 @@ ones) into operator-facing surfaces:
     `finish_wave(extra=...)` into the flight recorder;
   * the why-pending surface: `why(key)` returns the pod's latest
     attribution (the JAX package serves it over HTTP; the port's server
-    comes with ROADMAP A11).
+    comes with ROADMAP A11b).
 
 Kill switch: ``KTPU_EXPLAIN`` (default off — `build_explainer` returns None
 and the wave dispatch runs without the attribution). The

@@ -16,8 +16,10 @@ Each burst runs under the scheduler's dispatch supervisor
 (sched/supervisor.py), on its worker thread and the snapshot's device; a
 failed burst re-runs on the configured fallback device, or — with none
 configured, or a hung primary — evicts nothing, and the un-handled pods take
-the ordinary unschedulable path. The API-backed evictor waits for the
-apiserver client (ROADMAP A11).
+the ordinary unschedulable path. The what-if honours the scheduler's
+configured composition (`engine_config`, `hard_pod_affinity_weight`), as
+in the JAX package. The API-backed evictor waits for the apiserver client
+(ROADMAP A11b).
 """
 
 from __future__ import annotations
@@ -30,7 +32,8 @@ import numpy as np
 import torch
 
 from ..api.types import Pod
-from ..ops.lattice import build_cycle
+from ..ops.lattice import (build_cycle, default_engine_config, f32_scalar,
+                           strong_engine_config)
 from ..ops.preempt import PreemptResult, preempt_batch
 from ..state.arrays import to_device
 from ..state.cache import Snapshot
@@ -41,11 +44,15 @@ PREEMPT_BURST = int(os.environ.get("KTPU_PREEMPT_BURST", "8"))
 
 
 def _preempt(tables, existing, cls, nnr, prio, D, keys,
-             pdb_blocked) -> PreemptResult:
-    """One burst of [B] preemptors: build the cycle lattice once, evaluate
+             pdb_blocked, hard_weight: float = 1.0,
+             ecfg=None) -> PreemptResult:
+    """One burst of [B] preemptors: build the cycle lattice once (with the
+    configured EngineConfig and hardPodAffinitySymmetricWeight), evaluate
     every lane's five-criteria what-if (ops/preempt.py preempt_batch)."""
     uk, ev = keys
-    cyc = build_cycle(tables, existing, uk, ev, D)
+    cyc = build_cycle(tables, existing, uk, ev, D, f32_scalar(hard_weight),
+                      strong_engine_config(ecfg if ecfg is not None
+                                           else default_engine_config()))
     return preempt_batch(tables, cyc, existing, cls, nnr, prio, D,
                          pdb_blocked)
 
@@ -169,6 +176,8 @@ class Preemptor:
         pdb_arr[: blocked.shape[0]] = blocked
         pdb_dev = torch.from_numpy(pdb_arr).to(device)
 
+        hw = getattr(scheduler, "hard_pod_affinity_weight", 1.0)
+        ecfg = getattr(scheduler, "engine_config", None)
         pend_cls = snap.pending.cls.cpu().numpy()
         pend_nnr = snap.pending.node_name_req.cpu().numpy()
 
@@ -189,7 +198,7 @@ class Preemptor:
             def _primary():
                 return _readback(_preempt(
                     snap.tables, snap.existing, lane(cls_b), lane(nnr_b),
-                    lane(prio_b), snap.dims.D, keys, pdb_dev))
+                    lane(prio_b), snap.dims.D, keys, pdb_dev, hw, ecfg))
 
             def _fallback(dev, hung=False):
                 # the same burst on the fallback device. A wedged primary's
@@ -201,7 +210,7 @@ class Preemptor:
                 return _readback(_preempt(
                     to_device(snap.tables, dev), to_device(snap.existing, dev),
                     lane(cls_b, dev), lane(nnr_b, dev), lane(prio_b, dev),
-                    snap.dims.D, keys, pdb_dev.to(dev)))
+                    snap.dims.D, keys, pdb_dev.to(dev), hw, ecfg))
 
             supervisor = getattr(scheduler, "supervisor", None)
             if supervisor is None:

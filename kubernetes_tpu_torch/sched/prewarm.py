@@ -81,12 +81,14 @@ def _probe_encoder() -> Encoder:
     return enc
 
 
-def warm_cycle(d: Dims, device: torch.device, gang: bool = False) -> Dims:
+def warm_cycle(d: Dims, device: torch.device, gang: bool = False,
+               extras: tuple = ()) -> Dims:
     """One throwaway cycle at dims `d` on the current stream: a fresh
     Encoder's tables at `d` holding the probe node and two probe pods,
-    through sched/cycle.py schedule_batch (the engine KTPU_ASSIGN names),
-    read back. Returns the dims it ran at (`d` unless the probe needs a
-    larger capacity somewhere)."""
+    through sched/cycle.py schedule_batch (the engine KTPU_ASSIGN names)
+    with the signature's out-of-set score plugins `extras` folded in, read
+    back. Returns the dims it ran at (`d` unless the probe needs a larger
+    capacity somewhere)."""
     from .cycle import UNSCHEDULABLE_TAINT_KEY, schedule_batch
 
     enc = _probe_encoder()
@@ -97,8 +99,11 @@ def warm_cycle(d: Dims, device: torch.device, gang: bool = False) -> Dims:
     tt, (ext, pet) = tables_to_torch(tables, (ex, pe), device)
     keys = (enc.vocabs.label_keys.get(UNSCHEDULABLE_TAINT_KEY),
             enc.vocabs.label_vals.get(""))
-    res = schedule_batch(tt, pet, keys, dd.D, ext, gang=(
-        to_device(gang_arrays, device) if gang_arrays is not None else None))
+    res = schedule_batch(
+        tt, pet, keys, dd.D, ext, extra_plugins=extras,
+        extra_weights=tuple(float(getattr(p, "weight", 1)) for p in extras),
+        gang=(to_device(gang_arrays, device) if gang_arrays is not None
+              else None))
     res.node.cpu()
     return dd
 
@@ -232,7 +237,7 @@ class BucketPrewarmer:
                 raise InjectedDeviceError("injected device error at prewarm")
             t0 = time.perf_counter()
             with self._on_stream():
-                warm_cycle(d, self.device, gang=gang)
+                warm_cycle(d, self.device, gang=gang, extras=extras)
             seconds = time.perf_counter() - t0
             with self._mu:
                 if epoch != self._epoch:

@@ -48,8 +48,18 @@ durable before the first Binding write and are retired after the last;
 `recover()` replays what a crashed incarnation left, and `warm_standby()`
 keeps a non-leading incarnation's snapshot and warm state hot.
 
-Not ported yet, each refused with NotImplementedError naming its ROADMAP
-item: extenders and framework plugins (A11), mesh serving (A13).
+A scheduling framework (framework/) configures the device cycle — the
+caller sets `engine_config` and `hard_pod_affinity_weight` from its
+KubeSchedulerConfiguration (sched/config.py), and score plugins outside
+the engine's fixed set fold in as a per-class bias — and guards the commit
+path: assume → Reserve → Permit (the waiting map, Coscheduling) → PreBind
+→ Bind → PostBind, with Unreserve on rollback. Pods an extender
+(extender/client.py HTTPExtender) is interested in take a per-pod path
+after the wave: one score dispatch, then each extender's Filter and
+Prioritize over HTTP, then the commit (or the extender's Bind).
+
+Mesh serving is not ported yet and is refused with NotImplementedError
+naming its ROADMAP item (A13).
 """
 
 from __future__ import annotations
@@ -185,10 +195,6 @@ class Scheduler:
         fallback_device=None,
         prewarm: bool = False,
     ) -> None:
-        if extenders:
-            raise _unported("extenders (extender/)", "A11")
-        if framework is not None:
-            raise _unported("framework plugins (framework/)", "A11")
         if mesh is not None or _mesh_env_on():
             raise _unported("mesh serving (parallel/mesh.py, KTPU_MESH)",
                             "A13")
@@ -210,6 +216,45 @@ class Scheduler:
         self.base_dims = base_dims
         self.clock = clock
         self.encoder = Encoder()
+        # HTTPExtender list (generic_scheduler.go:547-574,834-869). When any
+        # extender is configured, pods it is interested in take the per-pod
+        # path (`_schedule_one_with_extenders`) — the extender protocol is
+        # per-pod HTTP anyway, so the reference's own round-trip cost applies
+        self.extenders = list(extenders)
+        # framework host lifecycle points (Reserve/Permit/PreBind/Bind/
+        # PostBind/Unreserve) guard the commit path (scheduler.go:660-762);
+        # None keeps the plain path
+        self.framework = framework
+        # hardPodAffinitySymmetricWeight (apis/config/types.go:70) and the
+        # engines' plugin composition (ops/lattice.py EngineConfig; None =
+        # the default provider's), both set from a KubeSchedulerConfiguration
+        # by the caller
+        self.hard_pod_affinity_weight = 1.0
+        self.engine_config = None
+        # configured score plugins outside the engine's fixed set reach the
+        # dispatch as a static per-class bias (framework/plugins.py
+        # extra_score_plugins)
+        from ..framework.plugins import extra_score_plugins
+
+        self._extra_score = extra_score_plugins(framework)
+        # gang mechanism selection: the device gang engine (ops/gang.py)
+        # owns pod groups UNLESS the Coscheduling Permit plugin is enabled —
+        # then the host waiting-map path does (one mechanism per config;
+        # both holding the same group would double-gate it). The plugin is
+        # wired here: releases complete through complete_waiting, and quorum
+        # counts come from the cache's group accounting.
+        self._device_gangs = True
+        if framework is not None:
+            for p in getattr(framework, "permit_plugins", ()):
+                if getattr(p, "name", "") == "Coscheduling":
+                    self._device_gangs = False
+                    if getattr(p, "on_release", None) is None:
+                        p.on_release = self.complete_waiting
+                    if getattr(p, "bound_count", None) is None:
+                        p.bound_count = self.cache.group_bound_count
+        # key → (attempts, CycleState, node_name, original pod, binder_ext)
+        self._waiting_meta: Dict[str, Tuple] = {}
+        self.waiting_bind_errors = 0  # bind failures on the waiting-release path
         # warm-ahead on capacity growth (sched/prewarm.py): the next Dims
         # bucket warms in the background before occupancy crosses it. Off
         # unless asked for: each warm is a whole eager cycle in a second
@@ -318,6 +363,18 @@ class Scheduler:
             self.queue.move_all_to_active(self.clock())
         else:
             self.queue.delete(pod.key)
+            # a pod parked in the Permit waiting map is assumed in the cache;
+            # deletion must unwind that state, not leave it to expire into a
+            # requeue of a pod that no longer exists
+            meta = self._waiting_meta.pop(pod.key, None)
+            if meta is not None:
+                _, state, node_name, orig, _ = meta
+                if self.framework is not None:
+                    self.framework.pop_waiting(pod.key)
+                    self.framework.run_unreserve_plugins(state, orig,
+                                                         node_name)
+                if self.cache.is_assumed(pod.key):
+                    self.cache.forget_pod(pod.key)
 
     def on_node_add(self, node: Node) -> None:
         self.cache.add_node(node)
@@ -364,7 +421,7 @@ class Scheduler:
         wave — anything mixed or deep is bulk work. "hold" keeps a
         not-yet-full lane waiting out the coalesce window (never when the
         window is off or the lane is full)."""
-        if not self.microwave:
+        if not self.microwave or self.extenders:
             return "bulk"
         micro_depth, active_depth, oldest = self.queue.micro_stats()
         if micro_depth == 0 or micro_depth != active_depth \
@@ -427,6 +484,7 @@ class Scheduler:
                   micro_only: bool = False) -> CycleStats:
         self.queue.pump(now)
         self.cache.cleanup(now)
+        self.expire_waiting(now)
         span.mark("pump")
         # ---- overload governor gate (sched/overload.py): mode ladder,
         # breaker pause, wave-size clamp — decided BEFORE the pop so a
@@ -489,8 +547,30 @@ class Scheduler:
         stats = CycleStats(attempted=len(batch), shed=shed_n,
                            micro=1 if micro else 0)
         ctx["stats"] = stats
-        if not batch:
+
+        # pods an extender is interested in take the per-pod extender path
+        # after the batched wave (they must see the wave's assumes)
+        ext_batch: List[Tuple[Pod, int]] = []
+        if self.extenders:
+            ext_keys = {p.key for p, _ in batch
+                        if any(e.is_interested(p) for e in self.extenders)}
+            ext_batch = [(p, a) for p, a in batch if p.key in ext_keys]
+            batch = [(p, a) for p, a in batch if p.key not in ext_keys]
+
+        if not batch and not ext_batch:
             self._drain_idle_events(span, stats)
+            return stats
+        if not batch:
+            for pod, attempts in ext_batch:
+                self._schedule_one_with_extenders(pod, attempts, now, cycle,
+                                                  stats)
+            stats.cycle_seconds = time.perf_counter() - t0
+            if gov is not None:
+                gov.end_wave(now, stats.attempted, stats.cycle_seconds)
+            # an extender-only wave did real work (per-pod dispatches that
+            # can degrade or be abandoned): it gets its own record
+            span.mark("extenders")
+            self.telemetry.finish_wave(span, stats=stats, engine="extenders")
             return stats
 
         pending = [p for p, _ in batch]
@@ -501,10 +581,15 @@ class Scheduler:
         # the wave engine to the literal scan (the runs engine keeps it);
         # gang-grouped pods run the gang engine's rounds
         # (sched/cycle.py schedule_batch)
+        extras = tuple(p for p, _ in self._extra_score)
+        extra_w = tuple(w for _, w in self._extra_score)
         eng = _engine()
         wave_engine = "scan" if (snap.dims.has_node_name
                                  and eng == "waves") else eng
-        gang = snap.gang is not None
+        # the Coscheduling Permit plugin owns pod groups when configured:
+        # the wave then runs without the device gang engine
+        gang_arrays = snap.gang if self._device_gangs else None
+        gang = gang_arrays is not None
         rc = 0
         if wave_engine == "runs" and snap.runs is not None:
             rc = snap.runs.rc
@@ -514,15 +599,15 @@ class Scheduler:
         self.prewarmer.observe(
             snap.dims, n_nodes=self.cache.node_count,
             n_existing=self.cache.pod_count, engine=wave_engine,
-            gang=gang, rc=rc)
-        self.supervisor.note_cycle_signature(snap.dims, wave_engine, (),
+            extras=extras, gang=gang, rc=rc)
+        self.supervisor.note_cycle_signature(snap.dims, wave_engine, extras,
                                              gang, rc=rc)
         if self.microwave and not micro and snap.runs is None:
             # keep the micro signature warm from the bulk cadence: the first
             # delta after a quiet period must not run cold
             self.prewarmer.ensure_warm(
                 replace(snap.dims, P=self._micro_p, has_node_name=False),
-                eng, (), False, rc=0)
+                eng, extras, False, rc=0)
         if self.microwave:
             self.prewarmer.ensure_patch_ladder(self.cache, snap)
         span.mark("prewarm")
@@ -533,10 +618,13 @@ class Scheduler:
         # reflects newer cluster state
         wave_ctx = {"node_order": snap.node_order}
 
-        def _cycle(tables, pend, exist, dims, gang_arrays, runs):
+        def _cycle(tables, pend, exist, dims, gang_t, runs):
             out = schedule_batch(tables, pend, keys, dims.D, exist,
                                  has_node_name=dims.has_node_name,
-                                 gang=gang_arrays, runs=runs,
+                                 hard_weight=self.hard_pod_affinity_weight,
+                                 ecfg=self.engine_config,
+                                 extra_plugins=extras, extra_weights=extra_w,
+                                 gang=gang_t, runs=runs,
                                  explain=explain_on)
             return out if explain_on else (out, None)
 
@@ -548,7 +636,7 @@ class Scheduler:
 
         def _primary():
             args = (snap.tables, snap.pending, snap.existing, snap.dims,
-                    snap.gang, snap.runs)
+                    gang_arrays, snap.runs)
             tel = self.telemetry
             if not tel.enabled:
                 return _readback(*_cycle(*args))
@@ -583,21 +671,23 @@ class Scheduler:
                     args = (to_device(snap.tables, dev),
                             to_device(snap.pending, dev),
                             to_device(snap.existing, dev), snap.dims,
-                            None if snap.gang is None
-                            else to_device(snap.gang, dev), snap.runs)
+                            None if gang_arrays is None
+                            else to_device(gang_arrays, dev), snap.runs)
                 except Exception:  # noqa: BLE001 - dead-source copy
                     args = None
             if args is None:
                 fsnap, _fkeys = self._snapshot_keys(pending)
                 args = (fsnap.tables, fsnap.pending, fsnap.existing,
-                        fsnap.dims, fsnap.gang, fsnap.runs)
+                        fsnap.dims,
+                        fsnap.gang if self._device_gangs else None,
+                        fsnap.runs)
                 wave_ctx["node_order"] = fsnap.node_order
             return _readback(*_cycle(*args))
 
         with self.telemetry.device_annotation("cycle"):
             handle = self.supervisor.submit(
                 "cycle", (replace(snap.dims, has_node_name=False),
-                          wave_engine, (), gang, rc),
+                          wave_engine, extras, gang, rc),
                 _primary, _fallback)
             # ---- host/device overlap: the dispatch runs on the watchdog
             # worker, so while the device evaluates THIS wave the serving
@@ -624,7 +714,7 @@ class Scheduler:
                 # nothing may be committed — requeue every popped pod
                 # (attempts preserved, prompt retry: the pods are fine, the
                 # backend wasn't)
-                for pod, attempts in batch:
+                for pod, attempts in batch + ext_batch:
                     stats.aborted += 1
                     self.queue.add_prompt_retry(pod, attempts=attempts,
                                                 now=now)
@@ -718,6 +808,9 @@ class Scheduler:
             stats.unschedulable += 1
             stats.failed_keys.append(pod.key)
             self.queue.add_unschedulable(pod, attempts, now, cycle=cycle)
+
+        for pod, attempts in ext_batch:
+            self._schedule_one_with_extenders(pod, attempts, now, cycle, stats)
         span.mark("requeue")
         stats.cycle_seconds = time.perf_counter() - t0
         if gov is not None:
@@ -735,6 +828,125 @@ class Scheduler:
             micro=micro,
             extra={"explain": explain_rec} if explain_rec else None)
         return stats
+
+    def _schedule_one_with_extenders(
+        self, pod: Pod, attempts: int, now: float, cycle: int,
+        stats: CycleStats
+    ) -> None:
+        """Per-pod path with extender round-trips: lattice mask+score →
+        extender Filter per extender (generic_scheduler.go:547-574) →
+        extender Prioritize rescaled ×weight×(MaxNodeScore/
+        MaxExtenderPriority) (:834-869) → selectHost → assume → bind
+        (extender Bind if one offers it, :397). The score dispatch runs
+        under the dispatch supervisor like every device call of the serving
+        loop."""
+        from ..extender.client import ExtenderError
+        from .cycle import _scores
+
+        if self.cache.get_pod(pod.key) is not None:
+            return  # stale queue entry (skipPodSchedule)
+
+        snap, keys = self._snapshot_keys([pod])
+        extras = tuple(p for p, _ in self._extra_score)
+        extra_w = tuple(w for _, w in self._extra_score)
+        # the feasible/score iteration below walks the node_order of the
+        # snapshot that actually dispatched — a fallback re-encode reflects
+        # newer cluster state (see the wave path)
+        score_ctx = {"node_order": snap.node_order}
+
+        def _score_on(tables, pend, exist, D):
+            # one dispatch: infeasible nodes are -inf in the score row; the
+            # row comes back as Python floats (each f32 exactly)
+            return _scores(tables, pend, keys, D, exist,
+                           self.hard_pod_affinity_weight, self.engine_config,
+                           extras, extra_w)[0].cpu().tolist()
+
+        def _score_fallback(dev, hung=False):
+            args = None
+            if not hung:
+                try:
+                    args = (to_device(snap.tables, dev),
+                            to_device(snap.pending, dev),
+                            to_device(snap.existing, dev), snap.dims.D)
+                except Exception:  # noqa: BLE001 - dead-source copy
+                    args = None
+            if args is None:
+                # host re-encode onto the fallback (the wave path's ladder)
+                fsnap, _fkeys = self._snapshot_keys([pod])
+                args = (fsnap.tables, fsnap.pending, fsnap.existing,
+                        fsnap.dims.D)
+                score_ctx["node_order"] = fsnap.node_order
+            return _score_on(*args)
+
+        try:
+            raw = self.supervisor.run(
+                "scores", (replace(snap.dims, has_node_name=False), extras),
+                lambda: _score_on(snap.tables, snap.pending, snap.existing,
+                                  snap.dims.D),
+                _score_fallback)
+        except DispatchAbandonedError:
+            # the wave path's crash-consistency contract: nothing was
+            # assumed — requeue promptly instead of losing the pod
+            stats.aborted += 1
+            self.queue.add_prompt_retry(pod, attempts=attempts, now=now)
+            return
+
+        nodes_by_name = {n.name: n for n in self.cache.nodes()}
+        feasible: List[str] = []
+        combined: Dict[str, float] = {}
+        for i, name in enumerate(score_ctx["node_order"]):
+            if raw[i] != float("-inf"):
+                feasible.append(name)
+                combined[name] = raw[i]
+
+        failed = False
+        for ext in self.extenders:
+            if not ext.is_interested(pod):
+                continue
+            try:
+                names, _ = ext.filter(pod, [nodes_by_name[n] for n in feasible])
+                allowed = set(names)
+                feasible = [n for n in feasible if n in allowed]
+                escore, weight = ext.prioritize(
+                    pod, [nodes_by_name[n] for n in feasible])
+                for n in feasible:
+                    # extender scores 0-10 rescale to the 0-100 plugin range
+                    combined[n] = combined.get(n, 0.0) \
+                        + escore.get(n, 0) * weight * 10.0
+            except ExtenderError:
+                if getattr(ext.config, "ignorable", False):
+                    continue  # extender.go:153-157 Ignorable
+                failed = True
+                break
+            if not feasible:
+                break
+
+        if failed or not feasible:
+            # FitError → preemption, as on the batched path (scheduler.go:629)
+            handled = False
+            if not failed and self.preemptor is not None:
+                fresh = self._preempt_snapshot([pod])
+                handled = self.preemptor.try_preempt(self, pod, attempts,
+                                                     fresh, now)
+            if not handled:
+                stats.unschedulable += 1
+                stats.failed_keys.append(pod.key)
+                self.queue.add_unschedulable(pod, attempts, now, cycle=cycle)
+            return
+
+        best = max(feasible, key=lambda n: combined.get(n, float("-inf")))
+        binder_ext = next(
+            (e for e in self.extenders if e.is_binder and e.is_interested(pod)),
+            None)
+        try:
+            intent = self._write_intent(cycle, [(pod, best, attempts)])
+        except Exception:  # noqa: BLE001 - same contract as the wave path
+            stats.aborted += 1
+            self.queue.add_prompt_retry(pod, attempts=attempts, now=now)
+            return
+        self._commit(pod, best, attempts, now, cycle, stats,
+                     binder_ext=binder_ext)
+        self._retire_intent(intent)
 
     # ------------------------------------------------------------------ #
     # exactly-once plumbing: intent ledger + fencing + crash recovery
@@ -800,8 +1012,16 @@ class Scheduler:
         """Complete one replayed intent entry: assume → bind →
         finish_binding, with the plain rollback on refusal (most commonly
         the apiserver's already-assigned guard when our informer lagged the
-        crashed leader's committed write)."""
+        crashed leader's committed write).
+
+        Only valid on the PLAIN pipeline: with a framework (Reserve/Permit/
+        PreBind gates) or extenders configured, the crashed wave's intent
+        was written BEFORE those points ran, so completing the bind here
+        would commit a placement a plugin might have refused — refuse
+        instead, and let the release path re-run the full gauntlet."""
         now = self.clock() if now is None else now
+        if self.framework is not None or self.extenders:
+            return False  # gates must re-run: release → full pipeline
         if self.cache.get_pod(pod.key) is not None:
             return False  # already assumed/bound in this incarnation
         self.cache.assume_pod(pod, node_name)
@@ -852,51 +1072,178 @@ class Scheduler:
         eng = _engine()
         wave_engine = "scan" if (snap.dims.has_node_name
                                  and eng == "waves") else eng
-        gang = snap.gang is not None
+        extras = tuple(p for p, _ in self._extra_score)
+        gang = self._device_gangs and snap.gang is not None
         rc = snap.runs.rc if (wave_engine == "runs"
                               and snap.runs is not None) else 0
         # warm the signature the first led wave WILL dispatch (idempotent),
         # and keep the growth-boundary lookahead running
-        self.prewarmer.ensure_warm(snap.dims, wave_engine, (), gang, rc=rc)
+        self.prewarmer.ensure_warm(snap.dims, wave_engine, extras, gang,
+                                   rc=rc)
         self.prewarmer.observe(
             snap.dims, n_nodes=self.cache.node_count,
-            n_existing=self.cache.pod_count, engine=wave_engine, gang=gang,
-            rc=rc)
+            n_existing=self.cache.pod_count, engine=wave_engine,
+            extras=extras, gang=gang, rc=rc)
 
     # ------------------------------------------------------------------ #
-    # commit path: assume → Bind (scheduler.go:660-762, no framework)
+    # commit path: assume → Reserve → Permit → PreBind → Bind → PostBind
+    # (scheduler.go:660-762)
     # ------------------------------------------------------------------ #
 
     def _commit(self, pod: Pod, node_name: str, attempts: int, now: float,
                 cycle: int, stats: CycleStats,
-                latency_keys: List[str]) -> None:
+                binder_ext: Optional[object] = None,
+                latency_keys: Optional[List[str]] = None) -> None:
+        fw = self.framework
+        state = None
         self.cache.assume_pod(pod, node_name)
         self.queue.delete_nominated(pod.key)
+
+        def rollback(as_bind_error: bool) -> None:
+            # scheduler.go:717,732 — Unreserve + ForgetPod + requeue
+            if fw is not None and state is not None:
+                fw.run_unreserve_plugins(state, pod, node_name)
+            self.cache.forget_pod(pod.key)
+            if as_bind_error:
+                stats.bind_errors += 1
+            else:
+                stats.unschedulable += 1
+            stats.failed_keys.append(pod.key)
+            self.queue.add_unschedulable(pod, attempts, now, cycle=cycle)
+
+        if fw is not None:
+            from ..framework.interface import Code, CycleState
+
+            state = CycleState()
+            st = fw.run_reserve_plugins(state, pod, node_name)  # scheduler.go:669
+            if st is not None and not st.is_success:
+                rollback(as_bind_error=False)
+                return
+            # register the waiting metadata BEFORE the permit plugins run:
+            # run_permit_plugins publishes a WAITing pod in the framework's
+            # cross-thread waiting map, and a permit controller may allow +
+            # complete_waiting() in that window — the meta must already be
+            # there to consume. Keep the ORIGINAL (unstamped) pod for
+            # requeue-on-failure — the cached copy carries node_name and
+            # would pin retries to this node. dict.pop is the atomic
+            # exactly-one-consumer handoff.
+            self._waiting_meta[pod.key] = (attempts, state, node_name,
+                                           pod, binder_ext)
+            st = fw.run_permit_plugins(state, pod, node_name)   # scheduler.go:707
+            if st.code == Code.WAIT:
+                return  # parked (or already completed by a racing allow)
+            self._waiting_meta.pop(pod.key, None)
+            if not st.is_success:
+                rollback(as_bind_error=False)
+                return
         tb0 = time.perf_counter()
-        ok = self._run_bind(pod, node_name)
+        ok = self._run_bind(state, pod, node_name, binder_ext)
         if self.governor is not None:
             # commit-path breaker feed: outcome + wall latency of the
             # Binding write
             self.governor.note_commit(ok, time.perf_counter() - tb0)
         if ok:
             self.cache.finish_binding(pod.key, now)
-            latency_keys.append(pod.key)
+            # watch→bind: wave callers close their spans in one batched
+            # call; the per-pod extender path closes this one now
+            if latency_keys is not None:
+                latency_keys.append(pod.key)
+            else:
+                self.telemetry.record_bound(pod.key, self.clock())
             stats.scheduled += 1
             stats.assignments[pod.key] = node_name
-            return
-        # scheduler.go:717,732 — ForgetPod + requeue
-        self.cache.forget_pod(pod.key)
-        stats.bind_errors += 1
-        stats.failed_keys.append(pod.key)
-        self.queue.add_unschedulable(pod, attempts, now, cycle=cycle)
+            if fw is not None and state is not None:
+                fw.run_post_bind_plugins(state, pod, node_name)
+        else:
+            rollback(as_bind_error=True)
 
-    def _run_bind(self, pod: Pod, node_name: str) -> bool:
-        """The Bind tail of the commit sequence (scheduler.go:727-741); a
-        raising binder is a failed bind."""
+    def _run_bind(self, state, pod: Pod, node_name: str,
+                  binder_ext: Optional[object] = None) -> bool:
+        """The shared PreBind → Bind tail of the commit sequence
+        (scheduler.go:727-741). Everything — raising plugins, a raising
+        binder — is contained here so every caller rolls back identically
+        on failure."""
+        fw = self.framework
         try:
+            if fw is not None and state is not None:
+                from ..framework.interface import Code
+
+                st = fw.run_pre_bind_plugins(state, pod, node_name)
+                if st is not None and not st.is_success:
+                    return False
+                bst = fw.run_bind_plugins(state, pod, node_name)
+                if bst.code != Code.SKIP:
+                    return bst.is_success
+            if binder_ext is not None:
+                binder_ext.bind(pod, node_name)
+                return True
             return self.binder.bind(pod, node_name)
         except Exception:
             return False
+
+    def complete_waiting(self, key: str, now: Optional[float] = None) -> bool:
+        """Finish the bind for a pod released from the Permit waiting map
+        (frameworkHandle.IterateOverWaitingPods → Allow flow). Call after
+        framework.allow_waiting_pod returns True."""
+        now = self.clock() if now is None else now
+        meta = self._waiting_meta.pop(key, None)
+        if meta is None:
+            return False
+        attempts, state, node_name, pod, binder_ext = meta
+        if self.cache.get_pod(key) is None:
+            return False
+        fw = self.framework
+        ok = self._run_bind(state, pod, node_name, binder_ext)
+        if ok:
+            self.cache.finish_binding(key, now)
+            self.telemetry.record_bound(key, now)
+            fw.run_post_bind_plugins(state, pod, node_name)
+            return True
+        self.waiting_bind_errors += 1
+        fw.run_unreserve_plugins(state, pod, node_name)
+        self.cache.forget_pod(key)
+        self.queue.add_unschedulable(pod, attempts, now,
+                                     cycle=self.queue.current_cycle())
+        return False
+
+    def reject_waiting(self, key: str, now: Optional[float] = None) -> bool:
+        """Reject a Permit-waiting pod (WaitingPod.Reject flow): unreserve,
+        forget the assume, requeue for retry."""
+        if self.framework is None:
+            return False
+        now = self.clock() if now is None else now
+        w = self.framework.pop_waiting(key)
+        meta = self._waiting_meta.pop(key, None)
+        if w is None and meta is None:
+            return False
+        attempts = meta[0] if meta else 0
+        pod = meta[3] if meta else w.pod
+        state = meta[1] if meta else w.state
+        node_name = meta[2] if meta else w.node_name
+        self.framework.run_unreserve_plugins(state, pod, node_name)
+        if self.cache.is_assumed(key):
+            self.cache.forget_pod(key)
+        self.queue.add_unschedulable(pod, attempts, now,
+                                     cycle=self.queue.current_cycle())
+        return True
+
+    def expire_waiting(self, now: Optional[float] = None) -> int:
+        """Reject Permit-waiting pods past their deadline: unreserve, forget,
+        requeue (waiting_pods_map timeout semantics)."""
+        if self.framework is None:
+            return 0
+        now = self.clock() if now is None else now
+        expired = self.framework.expire_waiting(now)
+        for w in expired:
+            meta = self._waiting_meta.pop(w.pod.key, None)
+            attempts = meta[0] if meta else 0
+            pod = meta[3] if meta else w.pod  # original unstamped pod
+            self.framework.run_unreserve_plugins(w.state, pod, w.node_name)
+            if self.cache.is_assumed(w.pod.key):
+                self.cache.forget_pod(w.pod.key)
+            self.queue.add_unschedulable(pod, attempts, now,
+                                         cycle=self.queue.current_cycle())
+        return len(expired)
 
     def run_until_idle(self, max_waves: int = 100) -> CycleStats:
         """Drive waves until the active queue drains (integration-test helper;

@@ -8,7 +8,7 @@ are JSON-encoded under their key; as in the reference, resourceVersion is
 NOT stored in the value — it is filled from the record's mod_revision on
 every read (store.go Versioner). The watch hub, the watch cache, the WAL and
 the native C++ backend belong to the apiserver, which the port does not
-reach yet (ROADMAP A11); the ledger takes any storage with these four calls,
+reach yet (ROADMAP A11b); the ledger takes any storage with these four calls,
 so it also runs over the JAX package's `Storage` and its WAL-backed store.
 """
 

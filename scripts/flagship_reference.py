@@ -18,6 +18,8 @@ many pods a package places, and a hash of where.
         --workload classes --engine runs [--path serving]
     JAX_PLATFORMS=cpu python3 scripts/flagship_reference.py --package jax \\
         --path restart
+    JAX_PLATFORMS=cpu python3 scripts/flagship_reference.py --package jax \\
+        --path framework|extender|cosched
 
 `--path batch` (the default) runs `BatchScheduler.schedule` of the JAX
 package (`kubernetes_tpu`) or of the PyTorch port (`kubernetes_tpu_torch`)
@@ -49,6 +51,17 @@ prints the per-wave counts and snapshot modes of both, the RecoveryReport,
 the binder's outcome and the ledger counters — the JAX_RESTART constants —
 and, as JAX_WAVE_PHASES, the phase names of the leader's first wave's
 flight record.
+
+`--path framework` runs chip_smoke.py's phase-10a drain
+(`framework_drain`: phase 5b's backlog through a Scheduler configured by
+chip_smoke.FRAMEWORK_CONFIG on labelled nodes); `--path extender` runs the
+phase-5b drain, then phase 10b's extender verbs over HTTP and 10c's
+Scheduler with an HTTPExtender against that drain's bound pods
+(`extender_phase`; the answers as counts and sha256, without the
+timings); `--path cosched` runs phase 10d (`cosched_drain`,
+gang_workload_pods on the Permit path, `--pods` default
+chip_smoke.COSCHED_PODS). Each prints the JAX_FRAMEWORK, JAX_EXTENDER and
+JAX_COSCHED constants.
 
 `--workload gang` is BASELINE config 5 on the batch path: gang_workload_pods
 (jobs of 8 to 64 all-or-nothing members, 2% of them larger than any node);
@@ -105,6 +118,8 @@ def jax_serving_api():
         s.prewarmer.enabled = False  # compile-ahead only; placements as-is
         return s
 
+    from kubernetes_tpu import extender, framework
+    from kubernetes_tpu.sched.config import load_config
     from kubernetes_tpu.sched.ledger import BindIntentLedger
     from kubernetes_tpu.storage.native import PyKV
     from kubernetes_tpu.storage.store import Storage
@@ -119,7 +134,8 @@ def jax_serving_api():
         readback=lambda node: jax.device_get(node).tolist(),
         scheduler=scheduler, preemptor=Preemptor,
         ledger=BindIntentLedger, storage=lambda: Storage(kv=PyKV()),
-        faultline=faultline)
+        faultline=faultline, load_config=load_config, framework=framework,
+        extender=extender, backend=extender.ExtenderBackend)
 
 
 def restart(args) -> dict:
@@ -172,6 +188,60 @@ def serving(args) -> dict:
                        for c in steady["cycles"]],
             "drain_pods": args.pods, "drain": drain,
             "steady_seconds": t1 - t0, "drain_seconds": t2 - t1}
+
+
+def _api(args):
+    import chip_smoke
+
+    if args.package == "jax":
+        return jax_serving_api()
+    import torch
+
+    return chip_smoke.port_serving_api(torch.device(args.device))
+
+
+def framework_path(args) -> dict:
+    """Phase 10a on the chosen package."""
+    os.environ["KTPU_OVERLOAD"] = "0"
+    import chip_smoke
+
+    api = _api(args)
+    t0 = time.perf_counter()
+    drain = chip_smoke.framework_drain(api, args.nodes, args.pods)
+    return {"package": args.package, "path": "framework",
+            "nodes": args.nodes, "pods": args.pods, "drain": drain,
+            "seconds": time.perf_counter() - t0}
+
+
+def extender_path(args) -> dict:
+    """Phase 5b's drain, then phases 10b and 10c on its bound pods."""
+    os.environ["KTPU_OVERLOAD"] = "0"
+    import chip_smoke
+
+    api = _api(args)
+    bound = []
+    t0 = time.perf_counter()
+    chip_smoke.serving_drain(api, args.nodes, args.pods, keep_bound=bound)
+    t1 = time.perf_counter()
+    ext, _secs = chip_smoke.extender_phase(api, bound, args.nodes, args.pods)
+    return {"package": args.package, "path": "extender",
+            "nodes": args.nodes, "pods": args.pods, "existing": len(bound),
+            "existing_sha256": chip_smoke.bound_sha256(bound),
+            "extender": ext, "drain_seconds": t1 - t0,
+            "extender_seconds": time.perf_counter() - t1}
+
+
+def cosched_path(args) -> dict:
+    """Phase 10d on the chosen package."""
+    os.environ["KTPU_OVERLOAD"] = "0"
+    import chip_smoke
+
+    api = _api(args)
+    t0 = time.perf_counter()
+    out = chip_smoke.cosched_drain(api, args.nodes, args.pods)
+    return {"package": args.package, "path": "cosched", "nodes": args.nodes,
+            "pods": args.pods, "cosched": out,
+            "seconds": time.perf_counter() - t0}
 
 
 def jax_classes_plan(nodes, pods) -> dict:
@@ -263,12 +333,16 @@ def count_gang_rounds(package: str) -> list:
 
 
 def main() -> int:
+    import chip_smoke
+
+    chip_smoke.pin_hash_seed()  # phase 10d's release order (cosched_drain)
     ap = argparse.ArgumentParser()
     ap.add_argument("--package", choices=("jax", "port"), required=True)
     ap.add_argument("--device", default="cpu",
                     help="the port's device (ignored for --package jax)")
     ap.add_argument("--path",
-                    choices=("batch", "serving", "preempt", "restart"),
+                    choices=("batch", "serving", "preempt", "restart",
+                             "framework", "extender", "cosched"),
                     default="batch")
     ap.add_argument("--nodes", type=int, default=5000)
     ap.add_argument("--pods", type=int, default=None,
@@ -293,6 +367,16 @@ def main() -> int:
 
             args.pods = chip_smoke.SERVING_PODS
         print(json.dumps(restart(args)))
+        return 0
+    paths = {"framework": framework_path, "extender": extender_path,
+             "cosched": cosched_path}
+    if args.path in paths:
+        if args.pods is None:
+            import chip_smoke
+
+            args.pods = (chip_smoke.COSCHED_PODS if args.path == "cosched"
+                         else chip_smoke.SERVING_PODS)
+        print(json.dumps(paths[args.path](args)))
         return 0
     if args.path == "serving":
         if args.pods is None:

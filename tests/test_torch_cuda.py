@@ -257,3 +257,36 @@ def test_prewarm_on_a_side_stream_matches_the_main_thread(cuda):
     assert calls["warm"] and len(calls["warm"]) == len(calls["main"])
     for (na, ta), (nb, tb) in zip(calls["main"], calls["warm"]):
         assert na == nb and all(torch.equal(x, y) for x, y in zip(ta, tb))
+
+
+def test_extender_verbs_on_the_card_match_cpu(cuda, monkeypatch):
+    """chip_smoke.py's phases 10b and 10c at 200 nodes after a 3,000-pod
+    drain: ExtenderBackend(device="cuda") behind the ExtenderServer answers
+    the port's HTTPExtender — Filter and Prioritize naming every node,
+    ProcessPreemption, Bind — and the Scheduler's per-pod extender path
+    places its pods exactly as the same script on the CPU."""
+    monkeypatch.setenv("KTPU_OVERLOAD", "0")
+    cs = _chip_smoke()
+    runs = []
+    for d in ("cuda", "cpu"):
+        api = cs.port_serving_api(torch.device(d))
+        bound = []
+        cs.serving_drain(api, 200, 3000, batch_size=512, keep_bound=bound)
+        runs.append(cs.extender_phase(api, bound, 200, 3000)[0])
+    assert runs[0] == runs[1]
+    assert runs[0]["filter"]["passing"] > 0 and runs[0]["sched"]["bound"] > 0
+
+
+def test_framework_and_cosched_drains_on_the_card_match_cpu(cuda,
+                                                             monkeypatch):
+    """chip_smoke.py's phases 10a and 10d at a small size: the configured
+    profile's drain (framework_drain) and the Coscheduling Permit path
+    (cosched_drain) on the card equal the same scripts on the CPU."""
+    monkeypatch.setenv("KTPU_OVERLOAD", "0")
+    cs = _chip_smoke()
+    runs = [(cs.framework_drain(api, 200, 3000),
+             cs.cosched_drain(api, 300, 3000, batch_size=1024))
+            for api in (cs.port_serving_api(torch.device(d))
+                        for d in ("cuda", "cpu"))]
+    assert runs[0] == runs[1]
+    assert runs[0][1]["released"] > 0

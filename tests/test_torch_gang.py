@@ -9,8 +9,8 @@ both on the same encoded inputs: node, feasible, the dead-group mask and the
 wave index per pod, exactly. Also here, on both packages:
 tests/test_gang.py's all-or-nothing and contention cases through
 BatchScheduler, its randomized soundness seeds, a nodeName gang batch on the
-scan route, and its stateful-Scheduler cases. (Its Coscheduling Permit
-cases need the framework plugins, ROADMAP A11.)
+scan route, its stateful-Scheduler cases, and its Coscheduling Permit cases
+(the host waiting-map path of the framework's Coscheduling plugin).
 """
 
 import dataclasses
@@ -421,3 +421,83 @@ def test_snapshot_gang_lives_on_the_device_as_a_copy():
     assert g.group[:3].tolist() == [0, 0, 0] and int(g.needed[0]) == 3
     plain = cache.snapshot(enc, [TT.Pod(name="solo")], device="cpu")
     assert plain.gang is None
+
+
+# --------------------------------------------------------------------- #
+# tests/test_gang.py TestCoschedulingPermitPlugin, both packages: the host
+# per-pod path — Permit WAIT until quorum, then release
+# (framework/plugins.py Coscheduling; waiting_pods_map semantics)
+# --------------------------------------------------------------------- #
+
+
+class TestCoschedulingPermitPlugin:
+    def _mk(self, side, timeout=30.0):
+        import kubernetes_tpu.framework as JF
+        import kubernetes_tpu_torch.framework as TF
+
+        T, sched_cls, binder_cls = SCHEDS[side]
+        F = JF if side == "jax" else TF
+        plugins = dataclasses.replace(
+            F.default_plugins(),
+            reserve=F.PluginSet(enabled=["Coscheduling"]),
+            permit=F.PluginSet(enabled=["Coscheduling"]),
+            unreserve=F.PluginSet(enabled=["Coscheduling"]))
+        fw = F.default_framework(plugins=plugins)
+        binder = binder_cls()
+        kw = {"device": "cpu"} if side == "port" else {}
+        s = sched_cls(binder=binder, framework=fw, batch_size=1, **kw)
+        if side == "jax":
+            s.prewarmer.enabled = False
+        cos = next(p for p in fw.permit_plugins if p.name == "Coscheduling")
+        cos.on_release = s.complete_waiting
+        cos.timeout = timeout
+        # the Coscheduling plugin owns the groups: no device gang engine
+        assert s._device_gangs is False
+        return T, s, binder, cos
+
+    @pytest.mark.parametrize("side", ["jax", "port"])
+    def test_members_wait_then_release_on_quorum(self, side):
+        self._quorum(side)
+
+    def _quorum(self, side):
+        T, s, binder, cos = self._mk(side)
+        cos.register_group("default/jobP", 3)
+        for n in mknodes(T, 4):
+            s.on_node_add(n)
+        members = gang_pods(T, "p", 3, "jobP", 3)
+        s.on_pod_add(members[0])
+        s.schedule_pending()
+        assert len(binder.bound) == 0
+        assert len(s.framework.waiting_pods()) == 1
+        s.on_pod_add(members[1])
+        s.schedule_pending()
+        assert len(binder.bound) == 0
+        assert len(s.framework.waiting_pods()) == 2
+        s.on_pod_add(members[2])
+        s.schedule_pending()
+        assert len(binder.bound) == 3
+        assert len(s.framework.waiting_pods()) == 0
+        return list(binder.bound)
+
+    @pytest.mark.parametrize("side", ["jax", "port"])
+    def test_timeout_rejects_and_requeues_waiters(self, side):
+        import time as _time
+
+        T, s, binder, cos = self._mk(side, timeout=5.0)
+        cos.register_group("default/jobQ", 3)
+        for n in mknodes(T, 4):
+            s.on_node_add(n)
+        s.on_pod_add(gang_pods(T, "q", 1, "jobQ", 3)[0])
+        s.schedule_pending()
+        assert len(s.framework.waiting_pods()) == 1
+        base = _time.monotonic()
+        s.clock = lambda: base + 10_000.0
+        s.expire_waiting()
+        assert len(s.framework.waiting_pods()) == 0
+        assert len(binder.bound) == 0
+        assert not cos._reserved.get("default/jobQ")
+
+    def test_release_order_matches_jax(self):
+        """The binder's order through quorum equals the JAX package's."""
+        out = {side: self._quorum(side) for side in ("jax", "port")}
+        assert out["port"] == out["jax"]

@@ -11,7 +11,8 @@ The nine scenarios are tests/test_scheduler.py's, the arbitration cases
 tests/test_microwave.py's TestArbitration; a multi-wave churn case drives
 the patch path with node add/update/remove and pod confirm/delete between
 waves. Also held here: the copied PriorityQueue and overload governor fed
-identical inputs, and every unported argument or switch raising.
+identical inputs, and every unported argument or switch raising (the
+framework and extender arguments taken since they were ported).
 """
 
 import dataclasses
@@ -514,12 +515,34 @@ def test_governor_gates_the_port_scheduler_like_the_jax_one():
 # --------------------------------------------------------------------- #
 
 
+def _extenders():
+    from kubernetes_tpu_torch.extender import ExtenderConfig, HTTPExtender
+
+    return [HTTPExtender(ExtenderConfig(url_prefix="http://127.0.0.1:1/x"))]
+
+
+def _framework():
+    from kubernetes_tpu_torch.framework import default_framework
+
+    return default_framework()
+
+
 @pytest.mark.parametrize("kw,item", [
-    (dict(extenders=[object()]), "A11"),
-    (dict(framework=object()), "A11"),
-    (dict(mesh=2), "A13"),
+    (dict(extenders=_extenders), "A11"),
+    (dict(framework=_framework), "A11"),
+    (dict(mesh=lambda: 2), "A13"),
 ])
 def test_unported_arguments_raise(kw, item):
+    """Mesh serving (A13) is refused. The framework and the extenders (the
+    first half of A11), refused until they were ported, are taken now
+    (tests/test_torch_framework.py and test_torch_extender.py drive
+    them)."""
+    kw = {k: make() for k, make in kw.items()}
+    if item == "A11":
+        s = TScheduler(binder=TBinder(), device="cpu", **kw)
+        assert s.extenders == list(kw.get("extenders", ()))
+        assert s.framework is kw.get("framework")
+        return
     with pytest.raises(NotImplementedError, match=item):
         TScheduler(binder=TBinder(), device="cpu", **kw)
 

@@ -98,7 +98,22 @@ Phases, each fatal on failure (exit code != 0, no result line):
      that server; 10d gang_workload_pods on the Permit path (Coscheduling)
      against JAX_COSCHED. Every subphase checks that no dispatch fell back
      and no warm ran. The script pins PYTHONHASHSEED=0 (pin_hash_seed):
-     10d's release order follows the string-hash seed.
+     10d's release order follows the string-hash seed;
+ 11. the scheduler process over the API at 5,000 nodes (KTPU_OVERLOAD=0):
+     every object through the port's client into the port's APIServer.
+     11a flagship_pods(10000) created before a leader-elected
+     SchedulerServer(device="cuda", ledger=BindIntentLedger) starts and
+     drains them over LocalTransport: the waves before the first retried
+     pod and the bound count equal JAX_SERVER, every pod bound once (a
+     watch pump), no unretired intent, no wave raised (a counting wrapper
+     around schedule_pending: the server's loop swallows errors); 11b on
+     that server 64 vips (priorityClassName vip, a PDB) preempting through
+     API DELETEs, held to invariants (bound or nominated with an event,
+     victims gone, no node over its allocatable), K3 launched; 11c two
+     servers, the leader killed at post_bind of its second intent wave,
+     the standby's takeover binding every pod exactly once, a stale-token
+     Binding refused by the fence; 11d 2,000 pods over HTTPTransport
+     through an HTTPGateway against JAX_SERVER_HTTP.
 
 Prints a `kernels` JSON line, the nvidia-smi name/power line, and last
 `{"ok": true, "device": {...}}`. Imports nothing of JAX.
@@ -3169,6 +3184,701 @@ def cosched_phase(device, card: str) -> dict:
     return dict(result=out, wall_s=wall_s, launches=launches)
 
 
+# --------------------------------------------------------------------------- #
+# phase 11: the scheduler process over the API (shared with
+# scripts/flagship_reference.py, which runs it on the JAX package)
+# --------------------------------------------------------------------------- #
+
+SERVER_NODES, SERVER_PODS, SERVER_HTTP_PODS = 5000, 10000, 2000
+SERVER_VIPS, SERVER_BATCH = 64, 4096
+SERVER_BATCH_WINDOW = 0.15  # the server's debounce before a wave
+SERVER_BARRIER_S = 120.0     # the longest a wave may wait at the barrier
+# the drain ends when the active queue is empty and the bound count has not
+# moved for this long
+SERVER_QUIET_S = 2.0
+SERVER_TIMEOUT_S = 600.0
+SERVER_LEASE = dict(lease_duration=1.5, renew_deadline=1.0, retry_period=0.1)
+SERVER_CRASH = "proc.crash@post_bind:2"  # 11c: the leader's 2nd intent wave
+
+# The JAX package's SchedulerServer over its own apiserver on the same
+# script (server_drain with its wave barrier: 5,000 nodes, flagship_pods(
+# 10000) created before start(), LocalTransport; JAX 0.9.0 on the CPU).
+# Reproduce with `JAX_PLATFORMS=cpu python3 scripts/flagship_reference.py
+# --package jax --path server`; `--transport http --pods 2000` gives
+# JAX_SERVER_HTTP. The barrier makes each wave start from one state (every
+# earlier Binding confirmed, every backoff served), so the whole (pod,
+# node) map is gated. The first wave precedes any retry and any
+# confirmation, so it is gated in the run without the barrier too.
+JAX_SERVER = {
+    "bound": 10000, "waves": [896, 1896, 2696, 4096, 416],
+    "first_wave_sha256":
+        "256bee7273ef40920f609ee10746b0cbf195b5178867b6cb64db22ab0e2a9663",
+    "bound_sha256":
+        "6fd36fc9e47e75c3c9c3d06bd34d50347b69a0e23d642e1469b58ec785cab226"}
+JAX_SERVER_HTTP = {
+    "bound": 2000, "waves": [1360, 640],
+    "first_wave_sha256":
+        "87df4fbcb116f161a829d101f02a0dca4654b039536d23d399e163c809f70790",
+    "bound_sha256":
+        "3936289b713092fd8c15688037cc70075037616b8ef8354a595c83c285c56689"}
+
+
+def port_server_api(device):
+    """What phase 11 drives, from the port: the apiserver, the client and the
+    scheduler process on `device`. scripts/flagship_reference.py builds the
+    same namespace from the JAX package."""
+    import types as pytypes
+
+    from kubernetes_tpu_torch.api import types, v1
+    from kubernetes_tpu_torch.apiserver import APIServer, HTTPGateway
+    from kubernetes_tpu_torch.client import Client
+    from kubernetes_tpu_torch.models import workloads
+    from kubernetes_tpu_torch.sched.ledger import BindIntentLedger
+    from kubernetes_tpu_torch.sched.server import SchedulerServer
+    from kubernetes_tpu_torch.state.dims import Dims, bucket
+    from kubernetes_tpu_torch.utils import faultline
+
+    made = []
+
+    def server(client, **kw):
+        srv = SchedulerServer(client, device=device, **kw)
+        made.append(srv.scheduler)
+        return srv
+
+    return pytypes.SimpleNamespace(
+        types=types, workloads=workloads, Dims=Dims, bucket=bucket,
+        node_to_v1=v1.node_to_v1, pod_to_v1=v1.pod_to_v1,
+        node_from_v1=v1.node_from_v1, pod_from_v1=v1.pod_from_v1,
+        APIServer=APIServer, HTTPGateway=HTTPGateway, Client=Client,
+        server=server, made=made, ledger=BindIntentLedger,
+        faultline=faultline)
+
+
+class BindWatch:
+    """A watch pump over every pod, apart from the scheduler's own client:
+    each pod's first Binding (nodeName set where none was), the time it
+    was seen, and any second one — a pod bound twice, or moved to another
+    node, is a double bind."""
+
+    def __init__(self, client):
+        import threading
+
+        self.bound = {}      # pod key -> node
+        self.at = {}         # pod key -> time.monotonic() of the binding
+        self.doubles = []
+        self.deleted = set()
+        self._w = client.pods.watch(namespace="")
+        self._t = threading.Thread(target=self._pump, daemon=True,
+                                   name="bind-watch")
+        self._t.start()
+
+    def _pump(self) -> None:
+        while True:
+            ev = self._w.next(timeout=0.5)
+            if ev is None:
+                if self._w.stopped:
+                    return
+                continue
+            if ev.type == "ERROR":
+                self.doubles.append(("watch-error", str(ev.object)))
+                return
+            md = ev.object.get("metadata", {})
+            key = f"{md.get('namespace', 'default')}/{md.get('name', '')}"
+            if ev.type == "DELETED":
+                self.deleted.add(key)
+                continue
+            node = (ev.object.get("spec") or {}).get("nodeName")
+            if not node:
+                continue
+            prev = self.bound.get(key)
+            if prev is None:
+                self.bound[key] = node
+                self.at[key] = time.monotonic()
+            elif prev != node:
+                self.doubles.append((key, prev, node))
+
+    def count(self) -> int:
+        return len(self.bound)
+
+    def stop(self) -> None:
+        self._w.stop()
+        self._t.join(timeout=5)
+
+
+class WaveLog:
+    """Wraps a Scheduler's schedule_pending (in this script only): every
+    wave's counts, keys and times, and every wave that raised — the
+    server's run_one_wave swallows exceptions so that its loop never
+    dies, and the phase must not."""
+
+    def __init__(self, sched):
+        self.waves, self.errors = [], []
+        inner = sched.schedule_pending
+
+        def wrapped(*a, **kw):
+            t0 = time.monotonic()
+            try:
+                st = inner(*a, **kw)
+            except Exception as e:  # noqa: BLE001 - counted, re-raised
+                self.errors.append(repr(e))
+                raise
+            if st.attempted:
+                self.waves.append(dict(
+                    t0=t0, t1=time.monotonic(), attempted=st.attempted,
+                    scheduled=st.scheduled, unschedulable=st.unschedulable,
+                    bound=sorted(st.assignments.items())))
+            return st
+
+        sched.schedule_pending = wrapped
+
+
+def wave_barrier(srv, log) -> None:
+    """Holds each wave of `srv`'s loop (its run_one_wave, which the loop
+    calls outside the server's lock) until the informer has delivered the
+    Binding confirmation of every pod the earlier waves bound (`log`'s
+    waves) and every pod in backoff has served its backoff. Each wave then
+    starts from one state whatever the host's speed: the failed pods all
+    back in the active queue, the pods bound before it all confirmed.
+    Without it, which retried pods a wave holds depends on when the
+    confirmations land, since each moves the failed pods back (ROADMAP
+    §C). A wait longer than SERVER_BARRIER_S is counted in log.errors.
+    Works on both packages' servers."""
+    s, inner = srv.scheduler, srv.run_one_wave
+    pending, seen = set(), [0]
+
+    def ready() -> bool:
+        for w in log.waves[seen[0]:]:
+            pending.update(k for k, _ in w["bound"])
+        seen[0] = len(log.waves)
+        q = s.queue
+        with srv._mu:
+            pending.difference_update(
+                [k for k in pending if not s.cache.is_assumed(k)])
+            with q._mu:
+                due = max((t for t, _, e in q._backoff
+                           if q._backoff_keys.get(e.pod.key) is e),
+                          default=None)
+            return not pending and (due is None or due <= s.clock())
+
+    def run_one_wave():
+        t0 = time.monotonic()
+        while not ready():
+            if time.monotonic() - t0 > SERVER_BARRIER_S:
+                log.errors.append(f"wave barrier held over "
+                                  f"{SERVER_BARRIER_S:.0f} s ({len(pending)}"
+                                  f" bindings unconfirmed)")
+                break
+            time.sleep(0.01)
+        return inner()
+
+    srv.run_one_wave = run_one_wave
+
+
+def placement_sha256(pairs) -> str:
+    """sha256 over sorted (pod key, node) pairs."""
+    return hashlib.sha256("\n".join(
+        f"{k} {n}" for k, n in sorted(pairs)).encode()).hexdigest()
+
+
+def _until(cond, timeout: float, what: str, step: float = 0.05) -> None:
+    deadline = time.monotonic() + timeout
+    while not cond():
+        if time.monotonic() > deadline:
+            fail(f"phase 11: timed out after {timeout:.0f} s waiting for "
+                 f"{what}")
+        time.sleep(step)
+
+
+def _quiet(srv, watch, quiet_s: float, timeout: float) -> None:
+    """Until the server's active queue is empty and the bound count has not
+    moved for quiet_s seconds."""
+    deadline = time.monotonic() + timeout
+    last, since = -1, time.monotonic()
+    while True:
+        if not srv.wait_until_idle(max(1.0, deadline - time.monotonic())):
+            fail("phase 11: the server's queue never drained")
+        n = watch.count()
+        if n != last:
+            last, since = n, time.monotonic()
+        elif time.monotonic() - since >= quiet_s:
+            return
+        if time.monotonic() > deadline:
+            fail(f"phase 11: the bound count kept moving for {timeout:.0f} s")
+        time.sleep(0.05)
+
+
+def pod_obj(api, pod) -> dict:
+    """A v1 Pod the apiserver admits: pod_to_v1 with a container image (the
+    apiserver's validation requires one)."""
+    obj = api.pod_to_v1(pod)
+    for c in obj["spec"]["containers"]:
+        c.setdefault("image", "pause")
+    return obj
+
+
+def _create(client, api, nodes, pods) -> float:
+    t0 = time.perf_counter()
+    for n in nodes:
+        client.nodes.create(api.node_to_v1(n))
+    for p in pods:
+        client.pods.create(pod_obj(api, p))
+    return time.perf_counter() - t0
+
+
+def _server_kw(api, storage, identity: str, n_nodes: int, n_pods: int):
+    return dict(leader_elect=True,
+                ledger=api.ledger(storage, identity=identity),
+                base_dims=api.Dims(N=api.bucket(n_nodes), P=SERVER_BATCH,
+                                   E=api.bucket(n_pods + 256)),
+                batch_window=SERVER_BATCH_WINDOW, cycle_interval=0.02)
+
+
+def _api_pods(client):
+    return client.pods.list("")["items"]
+
+
+def _outcome(client, watch, waves, errors, led) -> dict:
+    """The drain's result as the apiserver holds it (one LIST), held to
+    exactly-once: every bound pod seen bound once by the watch pump, no
+    double bind, no wave that raised, no unretired intent."""
+    items = _api_pods(client)
+    pairs = [(f"{p['metadata'].get('namespace', 'default')}/"
+              f"{p['metadata']['name']}", p["spec"]["nodeName"])
+             for p in items if (p.get("spec") or {}).get("nodeName")]
+    if watch.doubles:
+        fail(f"phase 11: double binds {watch.doubles[:5]}")
+    if dict(pairs) != {k: v for k, v in watch.bound.items()
+                       if k not in watch.deleted}:
+        fail("phase 11: the LIST and the watch pump disagree on bindings")
+    if errors:
+        fail(f"phase 11: {len(errors)} waves raised: {errors[:3]}")
+    left = led.unretired()
+    if left:
+        fail(f"phase 11: {len(left)} unretired intents")
+    t0 = waves[0]["t0"] if waves else 0.0
+    t1 = max(watch.at.values()) if watch.at else t0
+    return {"pods": len(items), "bound": len(pairs),
+            "bound_sha256": placement_sha256(pairs),
+            "first_wave_sha256": placement_sha256(
+                waves[0]["bound"] if waves else ()),
+            "drain_s": t1 - t0}
+
+
+def server_drain(api, n_nodes: int = None, n_pods: int = None,
+                 transport: str = "local", barrier: bool = True, mark=None,
+                 after=None) -> dict:
+    """11a (and 11d with transport="http"): a fresh APIServer holding
+    make_nodes(n_nodes) and flagship_pods(n_pods), created through the
+    client before the SchedulerServer starts, so that the informers' first
+    LIST puts the whole backlog in the queue before the first wave. One
+    leader-elected SchedulerServer with a BindIntentLedger on the
+    apiserver's storage drains it (run until the queue is empty and the
+    bound count is still for SERVER_QUIET_S), each wave behind
+    wave_barrier unless `barrier` is false (the timed run). `mark()` is
+    called just before start(); `after(api_server, client, srv, watch,
+    out)` runs before the server stops (11b)."""
+    n_nodes = SERVER_NODES if n_nodes is None else n_nodes
+    n_pods = SERVER_PODS if n_pods is None else n_pods
+    srv_api = api.APIServer()
+    gw = srv = watch = None
+    try:
+        admin = api.Client.local(srv_api)
+        if transport == "http":
+            gw = api.HTTPGateway(srv_api).start()
+            client = api.Client.http(gw.url)
+        else:
+            client = admin
+        W = api.workloads
+        create_s = _create(client, api, W.make_nodes(n_nodes),
+                           W.flagship_pods(n_pods))
+        watch = BindWatch(admin)
+        srv = api.server(client, **_server_kw(api, srv_api.storage, "11a",
+                                              n_nodes, n_pods))
+        log = WaveLog(srv.scheduler)
+        if barrier:
+            wave_barrier(srv, log)
+        if mark is not None:
+            mark()
+        t_start = time.monotonic()
+        srv.start()
+        if not srv.elector.wait_for_leadership(30):
+            fail("phase 11: the server never acquired its lease")
+        _quiet(srv, watch, SERVER_QUIET_S, SERVER_TIMEOUT_S)
+        out = _outcome(admin, watch, log.waves, log.errors,
+                       srv.scheduler.ledger)
+        q = srv.scheduler.telemetry.latency_quantiles()
+        out.update(create_s=create_s, creates_per_s=(n_nodes + n_pods)
+                   / create_s, start_to_first_wave_s=(
+                       log.waves[0]["t0"] - t_start if log.waves else None),
+                   barrier=barrier,
+                   waves=[{k: w[k] for k in ("attempted", "scheduled",
+                                             "unschedulable")}
+                          for w in log.waves],
+                   wave_s=[w["t1"] - w["t0"] for w in log.waves],
+                   watch_bind_p50_s=q[0.5], watch_bind_p99_s=q[0.99])
+        out["pods_per_s"] = out["bound"] / max(out["drain_s"], 1e-9)
+        if after is not None:
+            after(srv_api, admin, srv, watch, out)
+        return out
+    finally:
+        if srv is not None:
+            srv.stop()
+        if watch is not None:
+            watch.stop()
+        if gw is not None:
+            gw.stop()
+        srv_api.close()
+
+
+def vip_objects(api, n_pods: int, count: int, targets) -> tuple:
+    """11b's objects: a PriorityClass `vip` (1000), a PodDisruptionBudget
+    over app-0 and `count` storm_vips asking for a whole node (32 cpu),
+    carrying priorityClassName: vip instead of a priority, vip i pinned by
+    a hostname nodeSelector to targets[i]. 11a leaves about half the nodes
+    empty (the flagship's zone affinity packs its groups), so unpinned
+    vips would take empty nodes; pinned to occupied ones, each must
+    preempt."""
+    pc = {"apiVersion": "scheduling.k8s.io/v1", "kind": "PriorityClass",
+          "metadata": {"name": "vip"}, "value": 1000}
+    pdb = {"apiVersion": "policy/v1beta1", "kind": "PodDisruptionBudget",
+           "metadata": {"name": "app-0", "namespace": "default"},
+           "spec": {"minAvailable": 1,
+                    "selector": {"matchLabels": {"app": "app-0"}}}}
+    vips = []
+    for v in storm_vips(api.types, api.workloads, n_pods, count):
+        obj = pod_obj(api, v)
+        obj["spec"]["containers"][0]["resources"]["requests"]["cpu"] = "32"
+        obj["spec"].pop("priority", None)
+        obj["spec"]["priorityClassName"] = "vip"
+        obj["spec"]["nodeSelector"] = {
+            api.workloads.HOSTNAME: targets[len(vips)]}
+        vips.append(obj)
+    return pc, pdb, vips
+
+
+def server_preempt(api, client, srv, watch, count: int = None,
+                   timeout: float = 120.0) -> dict:
+    """11b on 11a's running server: the vips through the API, each pinned to
+    a node 11a occupied; victims leave through the server's APIEvictor. Gates, invariants of any timing: every
+    vip bound, or pending with a nominated node and a FailedScheduling
+    Event; every victim the cache dropped gone from the apiserver; no node's
+    summed requests above its allocatable, per a LIST."""
+    count = SERVER_VIPS if count is None else count
+    s = srv.scheduler
+    evictor = s.preemptor.evictor
+    ev0 = len(evictor.evicted)
+    # the first `count` occupied nodes by name, per a LIST
+    occupied = sorted({(p.get("spec") or {}).get("nodeName")
+                       for p in _api_pods(client)} - {None, ""})
+    if len(occupied) < count:
+        fail(f"11b: only {len(occupied)} occupied nodes for {count} vips")
+    pc, pdb, vips = vip_objects(api, SERVER_PODS, count, occupied[:count])
+    client.priorityclasses.create(pc)
+    client.poddisruptionbudgets.create(pdb)
+    keys = [f"default/{v['metadata']['name']}" for v in vips]
+    t0 = time.monotonic()
+    for v in vips:
+        client.pods.create(v)
+
+    def settled():
+        return all(k in watch.bound for k in keys)
+
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline and not settled():
+        time.sleep(0.1)
+    srv.wait_until_idle(10)
+    t1 = max([watch.at[k] for k in keys if k in watch.at], default=t0)
+    bound = [k for k in keys if k in watch.bound]
+    events = client.events.list("default")["items"]
+    failed_ev = {e["involvedObject"]["name"] for e in events
+                 if e.get("reason") == "FailedScheduling"}
+    for k in keys:
+        if k in watch.bound:
+            continue
+        name = k.split("/", 1)[1]
+        if not s.queue._nominated.get(k) or name not in failed_ev:
+            fail(f"11b: vip {k} neither bound nor nominated with a "
+                 f"FailedScheduling event")
+    evicted = evictor.evicted[ev0:]
+    live = {f"default/{p['metadata']['name']}" for p in _api_pods(client)}
+    still = [k for k in evicted if k in live]
+    if still:
+        fail(f"11b: {len(still)} evicted victims still in the apiserver: "
+             f"{still[:3]}")
+    nodes = {n.name: n for n in
+             (api.node_from_v1(o) for o in client.nodes.list()["items"])}
+    used = {}
+    for o in _api_pods(client):
+        p = api.pod_from_v1(o)
+        if p.node_name:
+            u = used.setdefault(p.node_name, [0, 0, 0])
+            u[0] += p.requests.milli_cpu
+            u[1] += p.requests.memory_kib
+            u[2] += 1
+    over = [n for n, u in used.items()
+            if u[0] > nodes[n].allocatable.milli_cpu
+            or u[1] > nodes[n].allocatable.memory_kib
+            or u[2] > nodes[n].allocatable.pods]
+    if over:
+        fail(f"11b: {len(over)} nodes over their allocatable: {over[:3]}")
+    return dict(vips=count, vips_bound=len(bound),
+                nominated_pending=count - len(bound),
+                evicted=len(evicted), s=t1 - t0,
+                vips_per_s=len(bound) / max(t1 - t0, 1e-9))
+
+
+def server_takeover(api, n_nodes: int = None, n_pods: int = None) -> dict:
+    """11c: two SchedulerServers, each with its own client and ledger, over
+    one apiserver holding the 11a backlog. The leader is killed by the
+    fault switchboard at post_bind of its second intent-writing wave
+    (Bindings committed, intent not retired); the standby must take over,
+    reconcile and finish: every pod bound exactly once, no unretired
+    intent, and a Binding stamped with the dead leader's token refused by
+    the apiserver's fence."""
+    n_nodes = SERVER_NODES if n_nodes is None else n_nodes
+    n_pods = SERVER_PODS if n_pods is None else n_pods
+    T = api.types
+    srv_api = api.APIServer()
+    a = b = watch = None
+    try:
+        admin = api.Client.local(srv_api)
+        W = api.workloads
+        _create(admin, api, W.make_nodes(n_nodes), W.flagship_pods(n_pods))
+        watch = BindWatch(admin)
+        api.faultline.install(SERVER_CRASH)
+        kw = lambda ident: dict(_server_kw(api, srv_api.storage, ident,
+                                           n_nodes, n_pods),
+                                lease_config=dict(identity=ident,
+                                                  **SERVER_LEASE),
+                                standby_warm_interval=0.2)
+        a = api.server(api.Client.local(srv_api), **kw("a"))
+        log_a = WaveLog(a.scheduler)
+        a.start()
+        if not a.elector.wait_for_leadership(30):
+            fail("11c: the leader never acquired its lease")
+        b = api.server(api.Client.local(srv_api), **kw("b"))
+        log_b = WaveLog(b.scheduler)
+        b.start()
+        _until(lambda: api.faultline.active().fired("proc.crash") > 0,
+               SERVER_TIMEOUT_S, "the leader's crash")
+        api.faultline.uninstall()
+        t_kill = time.monotonic()
+        token_a = a.elector.fencing_token
+        a.crash()
+        orphaned = len(a.scheduler.ledger.unretired())
+        if orphaned < 1:
+            fail("11c: the kill left no unretired intent to replay")
+        bound_at_kill = watch.count()
+        if not b.elector.wait_for_leadership(60):
+            fail("11c: the standby never took over")
+        _until(lambda: b.takeovers > 0, 60, "the standby's recovery")
+        recovered_s = time.monotonic() - t_kill
+        _quiet(b, watch, SERVER_QUIET_S, SERVER_TIMEOUT_S)
+        by_b = [watch.at[k] for w in log_b.waves for k, _ in w["bound"]
+                if k in watch.at]
+        rep = b.last_recovery
+        if rep is None or rep.errors:
+            fail(f"11c: recovery failed: {b.last_recovery_error!r} "
+                 f"{getattr(rep, 'errors', None)}")
+        out = _outcome(admin, watch, log_a.waves + log_b.waves,
+                       log_a.errors + log_b.errors, b.scheduler.ledger)
+        # the fence: a Binding stamped with the dead leader's token
+        probe = pod_obj(api, T.Pod(name="stale-probe"))
+        admin.pods.create(probe)
+        ann = {T.FENCING_TOKEN_ANNOTATION: str(token_a),
+               T.FENCING_LEASE_ANNOTATION: T.DEFAULT_FENCING_LEASE}
+        try:
+            admin.pods.bind("stale-probe", "node-0", "default",
+                            annotations=ann)
+            fail("11c: the apiserver accepted a stale-token Binding")
+        except Exception as e:  # noqa: BLE001 - the refusal is the result
+            if getattr(e, "code", None) != 409 or \
+                    T.FENCED_BIND_MARKER not in str(e):
+                raise
+        out.update(recovered_s=recovered_s,
+                   takeover_s=(min(by_b) - t_kill) if by_b else None,
+                   bound_at_kill=bound_at_kill,
+                   orphaned_intents=orphaned,
+                   replayed_intents=rep.replayed_intents,
+                   already_bound=rep.already_bound, completed=rep.completed,
+                   released=rep.released,
+                   stale_rejects=a.scheduler.binder.stale_rejects
+                   + b.scheduler.binder.stale_rejects,
+                   leader_waves=len(log_a.waves),
+                   successor_waves=len(log_b.waves))
+        return out
+    finally:
+        api.faultline.uninstall()
+        if a is not None:
+            a.crash() if a._crashed else a.stop()
+        if b is not None:
+            b.stop()
+        if watch is not None:
+            watch.stop()
+        srv_api.close()
+
+
+def check_server(out, ref, who: str) -> None:
+    """11a/11d against the JAX package's run of the same script. Behind the
+    wave barrier: the per-wave bound counts and the whole (pod, node) map
+    the apiserver holds. Without it (the timed run): the first wave's
+    placements, which no confirmation or retry can reach, and the final
+    count; whether the rest of the map came out equal is only reported."""
+    keys = ("bound", "first_wave_sha256")
+    if out["barrier"]:
+        keys += ("bound_sha256", "waves")
+    got = {k: ([w["scheduled"] for w in out[k]] if k == "waves" else out[k])
+           for k in keys}
+    want = {k: ref[k] for k in keys}
+    if got != want:
+        fail(f"{who} differs from the JAX package's: {got} != {want}")
+    out["whole_map_equal"] = out["bound_sha256"] == ref["bound_sha256"]
+
+
+def server_kernel_check(recs, counts, device) -> dict:
+    """Each subphase's first K1, K2 and K3 launch (the Recorders' copies of
+    the inputs the server's loop gave them) against the plain versions on
+    the same tensors on the card, after every launch count was read. A
+    kernel launched in a subphase must have been recorded there and agree
+    exactly. Returns {subphase: {kernel: max abs error}}."""
+    from kubernetes_tpu_torch.ops import kernels as K
+
+    diffs = {"contention_scan": k1_diff, "domain_rank": k2_diff,
+             "reprieve_scan": k3_diff}
+    errs = {}
+    for sub, rs in recs.items():
+        errs[sub] = {}
+        shapes = []
+        for r in rs:
+            if r.args is None:
+                if device.type == "cuda" and counts[sub].get(r.name, 0):
+                    fail(f"{sub}: {r.name} launched but not recorded")
+                continue
+            plain = getattr(K, r.name + "_plain")
+            errs[sub][r.name] = diffs[r.name](getattr(K, r.name)(*r.args),
+                                              plain(*r.args))
+            shapes.append(f"{r.name} {tuple(r.args[0].shape)}"
+                          if r.name != "reprieve_scan" else
+                          f"reprieve_scan B={r.args[7].shape[0]} "
+                          f"N={r.args[10].shape[0]} E={r.args[7].shape[1]}")
+        sync(device)
+        print(f"    {sub}: the first launch of each kernel against its plain "
+              f"version on the same inputs: {'; '.join(shapes)}; max_abs_err "
+              f"{errs[sub]}")
+        if any(errs[sub].values()):
+            fail(f"{sub}: a kernel disagrees with its plain version on the "
+                 f"server's inputs: {errs[sub]}")
+    return errs
+
+
+def server_phase(device, card: str) -> dict:
+    """Phase 11 on the card: 11a the control loop over LocalTransport behind
+    the wave barrier (the whole map gated), 11a-t the same drain without it
+    at the server's own pace (the timings; the first wave and the count
+    gated), 11b preemption through the API on 11a-t's running server, 11c
+    kill and takeover, 11d the wire (HTTPTransport through an HTTPGateway,
+    behind the barrier). Launch counts per subphase: set to 0 just before
+    it, read just after. Each subphase records its first K1, K2 and K3
+    launch, held against the plain versions once all counts are read."""
+    from kubernetes_tpu_torch.ops import kernels as K
+    from kubernetes_tpu_torch.ops import preempt as OP
+    from kubernetes_tpu_torch.ops import waves as W
+
+    api = port_server_api(device)
+    counts, cur, recs = {}, [], {}
+
+    def mark(name):
+        if cur:
+            counts[cur[-1]] = K.launch_counts()
+            for r in recs[cur[-1]]:
+                r.restore()
+        if name is None:
+            return
+        cur.append(name)
+        recs[name] = [Recorder(W, "contention_scan"),
+                      Recorder(W, "domain_rank"),
+                      Recorder(OP, "reprieve_scan")]
+        K.reset_launch_counts()
+
+    res = {}
+
+    def preempt_11b(srv_api, client, srv, watch, out):
+        mark("11b")
+        res["11b"] = server_preempt(api, client, srv, watch)
+
+    t0 = time.perf_counter()
+    try:
+        a = server_drain(api, mark=lambda: mark("11a"))
+        check_server(a, JAX_SERVER, "11a")
+        at = server_drain(api, barrier=False, mark=lambda: mark("11a-t"),
+                          after=preempt_11b)
+        mark("11c")
+        c = server_takeover(api)
+        d = server_drain(api, n_pods=SERVER_HTTP_PODS, transport="http",
+                         mark=lambda: mark("11d"))
+    finally:
+        mark(None)
+    check_server(at, JAX_SERVER, "11a-t")
+    check_server(d, JAX_SERVER_HTTP, "11d")
+    b = res["11b"]
+    print(f"  11a: {SERVER_NODES} nodes + {SERVER_PODS} pods created in "
+          f"{a['create_s']:.3f} s ({a['creates_per_s']:.1f} creates/s); "
+          f"{a['bound']} bound in waves of {[w['scheduled'] for w in a['waves']]}"
+          f", each behind the wave barrier, {a['drain_s']:.3f} s from the "
+          f"first wave to the last bind; launches {counts['11a']} ({card})")
+    print(f"    the whole (pod, node) map and the per-wave counts equal "
+          f"JAX_SERVER; exactly once, 0 unretired intents, no wave raised")
+    print(f"  11a-t: the same drain at the server's own pace (batch_window "
+          f"{SERVER_BATCH_WINDOW} s, no barrier): created in "
+          f"{at['create_s']:.3f} s ({at['creates_per_s']:.1f} creates/s); "
+          f"{at['bound']} bound in waves of "
+          f"{[w['scheduled'] for w in at['waves']]}, {at['drain_s']:.3f} s "
+          f"from the first wave to the last bind ({at['pods_per_s']:.1f} "
+          f"pods/s); start to first wave {at['start_to_first_wave_s']:.3f} "
+          f"s; watch→bind p50 {at['watch_bind_p50_s']:.4f} s, p99 "
+          f"{at['watch_bind_p99_s']:.4f} s; launches {counts['11a-t']}")
+    print(f"    the first wave and the count equal JAX_SERVER (the whole map "
+          f"{'equal too' if at['whole_map_equal'] else 'differs'}: without "
+          f"the barrier it depends on when the confirmations land); exactly "
+          f"once, 0 unretired intents, no wave raised")
+    print(f"  11b: {b['vips']} vips (priorityClassName vip): "
+          f"{b['vips_bound']} bound, {b['nominated_pending']} nominated and "
+          f"pending; {b['evicted']} victims deleted through the API; "
+          f"{b['s']:.3f} s ({b['vips_per_s']:.2f} vips/s); launches "
+          f"{counts['11b']}")
+    if c["bound"] != a["bound"]:
+        fail(f"11c: {c['bound']} bound across the takeover, 11a bound "
+             f"{a['bound']}")
+    first = ("none left to bind" if c["takeover_s"] is None
+             else f"{c['takeover_s']:.3f} s")
+    print(f"  11c: leader killed at post_bind of its 2nd intent wave "
+          f"({c['bound_at_kill']} bound, {c['orphaned_intents']} intent "
+          f"left; its loop's InjectedCrash traceback on stderr is the "
+          f"kill); standby recovered {c['recovered_s']:.3f} s after the "
+          f"kill, first successor bind {first}; replayed "
+          f"{c['replayed_intents']} intents (already bound "
+          f"{c['already_bound']}, completed {c['completed']}, released "
+          f"{c['released']}); {c['bound']} bound exactly once; a stale-"
+          f"token Binding refused by the fence; launches {counts['11c']}")
+    print(f"  11d: HTTPTransport through an HTTPGateway: {SERVER_NODES} "
+          f"nodes + {SERVER_HTTP_PODS} pods created in {d['create_s']:.3f} s "
+          f"({d['creates_per_s']:.1f}/s); {d['bound']} bound in waves of "
+          f"{[w['scheduled'] for w in d['waves']]} behind the barrier, "
+          f"{d['drain_s']:.3f} s; the whole map and the per-wave counts "
+          f"equal JAX_SERVER_HTTP; launches {counts['11d']}")
+    if device.type == "cuda":
+        for sub in ("11a", "11a-t", "11c", "11d"):
+            if not all(counts[sub].get(n, 0) for n in WAVE_KERNELS):
+                fail(f"{sub}: K1/K2 not launched: {counts[sub]}")
+        if not counts["11b"].get("reprieve_scan", 0):
+            fail(f"11b: K3 not launched: {counts['11b']}")
+    errs = server_kernel_check(recs, counts, device)
+    settle(api, "11")
+    wall = time.perf_counter() - t0
+    return dict(a=a, at=at, b=b, c=c, d=d, launches=counts, errs=errs,
+                wall_s=wall)
+
+
 def check_drain(drain, who: str, ref: dict) -> None:
     waves = [(w["attempted"], w["scheduled"], w["unschedulable"], w["micro"],
               w["mode"], w["patch_rows"]) for w in drain["waves"]]
@@ -3335,6 +4045,22 @@ def main() -> int:
           f"{COSCHED_PODS} gang pods")
     cos = cosched_phase(device, card)
     print(f"    phase 10 {time.perf_counter() - t10:.1f} s")
+
+    t11 = time.perf_counter()
+    print(f"[11] the scheduler process over the API: SchedulerServer("
+          f"device='cuda') through the port's client into its APIServer, "
+          f"{SERVER_NODES} nodes x {SERVER_PODS} pods, 11a behind the wave "
+          f"barrier, 11a-t at the server's own pace; 11b {SERVER_VIPS} "
+          f"vips; 11c kill and takeover; 11d HTTP, {SERVER_HTTP_PODS} pods")
+    srvp = server_phase(device, card)
+    print(f"    phase 11 {time.perf_counter() - t11:.1f} s")
+    for r in rows:
+        name = r["name"]
+        r["server"] = {sub: dict(launches=c.get(name, 0),
+                                 max_abs_err=srvp["errs"][sub].get(name))
+                       for sub, c in srvp["launches"].items()}
+        r["max_abs_err"] = max([r["max_abs_err"]] + [
+            e[name] for e in srvp["errs"].values() if name in e])
     for r in rows[:2]:
         name = r["name"]
         r["framework"] = dict(
@@ -3391,7 +4117,13 @@ def main() -> int:
                           "extender_sched_wave_s": ext["sched_wave_s"],
                           "extender_wall_s": ext["wall_s"],
                           "cosched": cos["result"],
-                          "cosched_wall_s": cos["wall_s"]}}))
+                          "cosched_wall_s": cos["wall_s"]},
+                      "server": {
+                          sub: {k: v for k, v in srvp[sub].items()
+                                if k not in ("bound_sha256",
+                                             "first_wave_sha256")}
+                          for sub in ("a", "at", "b", "c", "d")},
+                      "server_wall_s": srvp["wall_s"]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -18,6 +18,10 @@ Layers (module names follow the JAX package's, so each has a counterpart):
              (sched/config.py)
   framework/ — the scheduling-framework runtime and in-tree plugins
   extender/ — the scheduler-extender HTTP boundary (backend, server, client)
+  sched/server.py — the scheduler process (SchedulerServer) over the API
+  apiserver/, client/, storage/, machinery/ — the apiserver the process
+             binds through, its client, the versioned store with its watch
+             hub, and the object machinery (copied: no JAX in them)
   component/ — the metrics registry and feature gates (copied)
   models/  — the benchmark workloads (copied)
 """

@@ -16,8 +16,8 @@ ones) into operator-facing surfaces:
   * the wave record: `observe_wave`'s return value rides the telemetry's
     `finish_wave(extra=...)` into the flight recorder;
   * the why-pending surface: `why(key)` returns the pod's latest
-    attribution (the JAX package serves it over HTTP; the port's server
-    comes with ROADMAP A11b).
+    attribution (served over HTTP at /debug/why/<ns>/<pod> by
+    sched/server.py TelemetryGateway).
 
 Kill switch: ``KTPU_EXPLAIN`` (default off — `build_explainer` returns None
 and the wave dispatch runs without the attribution). The
@@ -28,16 +28,15 @@ process without the env (`Scheduler.enable_explain`).
 from __future__ import annotations
 
 import os
-import random
 import threading
 import time
 import uuid
 from collections import OrderedDict
-from dataclasses import dataclass
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 
+from ..client.rest import RetryPolicy, status_code
 from ..ops.assign import EXPLAIN_PREDICATES, EXPLAIN_SCORE_COMPONENTS
 from .metrics import FAILED_EVENTS, SCORE_SHARE, UNSCHEDULABLE_REASONS
 
@@ -144,47 +143,6 @@ class ReasonCorrelator:
                 del self._seen[k]
 
 
-def _status_code(e: Exception) -> Optional[int]:
-    """The HTTP status of an apiserver client's error (an exception with an
-    int `code`, as the JAX package's machinery.errors.StatusError), or None
-    for any other exception."""
-    code = getattr(e, "code", None)
-    return code if isinstance(code, int) else None
-
-
-@dataclass
-class RetryPolicy:
-    """The client's retry budget for server pushback (the JAX package's
-    client/rest.py RetryPolicy): 429 and 503 are rejected before the
-    request mutates anything, so they retry with capped exponential
-    backoff and jitter, honoring the Status' retryAfterSeconds as a floor,
-    within `deadline_s`; every other failure propagates at once."""
-
-    attempts: int = 3          # retries after the first try
-    base_s: float = 0.05
-    cap_s: float = 1.0
-    deadline_s: float = 5.0
-
-    def run(self, fn):
-        deadline = time.monotonic() + self.deadline_s
-        delay = self.base_s
-        for attempt in range(self.attempts + 1):
-            try:
-                return fn()
-            except Exception as e:  # noqa: BLE001 - classified below
-                if _status_code(e) not in (429, 503) \
-                        or attempt >= self.attempts:
-                    raise
-                details = getattr(e, "details", None) or {}
-                ra = float(details.get("retryAfterSeconds") or 0)
-                wait = max(ra, delay * random.uniform(0.5, 1.0))
-                if time.monotonic() + wait > deadline:
-                    raise
-                time.sleep(wait)
-                delay = min(delay * 2, self.cap_s)
-        raise AssertionError("unreachable")  # the loop returns or raises
-
-
 def _now_rfc3339() -> str:
     return time.strftime("%Y-%m-%dT%H:%M:%SZ", time.gmtime())
 
@@ -262,7 +220,7 @@ class APIEventSink:
             self.writes += 1
             return True
         except Exception as e:  # noqa: BLE001 - status errors only
-            if _status_code(e) is None:
+            if status_code(e) is None:
                 raise
             self.errors += 1
             return False
@@ -279,9 +237,9 @@ class APIEventSink:
             cur["lastTimestamp"] = _now_rfc3339()
             return self.retry.run(lambda: self.client.events.update(cur, ns))
         except Exception as e:  # noqa: BLE001 - status errors only
-            if _status_code(e) is None:
+            if status_code(e) is None:
                 raise
-            if _status_code(e) == 404:
+            if status_code(e) == 404:
                 return None  # TTL-swept or GC'd: recreate
             self.errors += 1
             return False

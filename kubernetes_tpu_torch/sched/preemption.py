@@ -18,8 +18,9 @@ failed burst re-runs on the configured fallback device, or — with none
 configured, or a hung primary — evicts nothing, and the un-handled pods take
 the ordinary unschedulable path. The what-if honours the scheduler's
 configured composition (`engine_config`, `hard_pod_affinity_weight`), as
-in the JAX package. The API-backed evictor waits for the apiserver client
-(ROADMAP A11b).
+in the JAX package. `APIEvictor` deletes victims through the API (the
+scheduler process's evictor, sched/server.py); `CacheEvictor` only drops
+them from the scheduler's cache.
 """
 
 from __future__ import annotations
@@ -75,6 +76,35 @@ class CacheEvictor:
         pod = scheduler.cache.get_pod(victim_key)
         if pod is None:
             return False
+        scheduler.cache.remove_pod(victim_key)
+        self.evicted.append(victim_key)
+        return True
+
+
+class APIEvictor(CacheEvictor):
+    """Live-cluster evictor: DELETE the victim through the API (the
+    reference's generic_scheduler.go:352-364 pod deletes), then drop it
+    from the cache optimistically — the informer's delete event is the
+    authoritative confirmation. A victim that is already gone (404) counts
+    as evicted; any other API failure leaves the cache untouched so the
+    what-if's arithmetic never diverges from the real world."""
+
+    def __init__(self, client) -> None:
+        super().__init__()
+        self.client = client
+
+    def evict(self, scheduler, victim_key: str) -> bool:
+        from ..machinery import errors
+
+        pod = scheduler.cache.get_pod(victim_key)
+        if pod is None:
+            return False
+        ns, _, name = victim_key.partition("/")
+        try:
+            self.client.pods.delete(name, ns)
+        except errors.StatusError as e:
+            if not errors.is_not_found(e):
+                return False
         scheduler.cache.remove_pod(victim_key)
         self.evicted.append(victim_key)
         return True

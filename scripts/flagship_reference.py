@@ -20,6 +20,8 @@ many pods a package places, and a hash of where.
         --path restart
     JAX_PLATFORMS=cpu python3 scripts/flagship_reference.py --package jax \\
         --path framework|extender|cosched
+    JAX_PLATFORMS=cpu python3 scripts/flagship_reference.py --package jax \\
+        --path server [--transport http --pods 2000]
 
 `--path batch` (the default) runs `BatchScheduler.schedule` of the JAX
 package (`kubernetes_tpu`) or of the PyTorch port (`kubernetes_tpu_torch`)
@@ -62,6 +64,18 @@ timings); `--path cosched` runs phase 10d (`cosched_drain`,
 gang_workload_pods on the Permit path, `--pods` default
 chip_smoke.COSCHED_PODS). Each prints the JAX_FRAMEWORK, JAX_EXTENDER and
 JAX_COSCHED constants.
+
+`--path server` runs chip_smoke.py's phase-11a drain (`server_drain`): the
+package's SchedulerServer over its own in-process APIServer, 5,000 nodes
+and flagship_pods(`--pods`, default chip_smoke.SERVER_PODS) created
+through the client before the server starts, drained by one leader-elected
+server with a BindIntentLedger, each wave behind chip_smoke.wave_barrier
+(every earlier Binding confirmed, every backoff served). It prints the
+bound count, the per-wave bound counts and the sha256 of the sorted (pod,
+node) map the apiserver holds and of the first wave's placements (the
+JAX_SERVER constants); `--transport
+http` puts the client on HTTPTransport through an HTTPGateway (phase 11d,
+JAX_SERVER_HTTP, `--pods 2000`).
 
 `--workload gang` is BASELINE config 5 on the batch path: gang_workload_pods
 (jobs of 8 to 64 all-or-nothing members, 2% of them larger than any node);
@@ -136,6 +150,59 @@ def jax_serving_api():
         ledger=BindIntentLedger, storage=lambda: Storage(kv=PyKV()),
         faultline=faultline, load_config=load_config, framework=framework,
         extender=extender, backend=extender.ExtenderBackend)
+
+
+def jax_server_api():
+    """chip_smoke.port_server_api's namespace, from the JAX package."""
+    import types as pytypes
+
+    from kubernetes_tpu.api import types, v1
+    from kubernetes_tpu.apiserver import APIServer, HTTPGateway
+    from kubernetes_tpu.client import Client
+    from kubernetes_tpu.models import workloads
+    from kubernetes_tpu.sched.ledger import BindIntentLedger
+    from kubernetes_tpu.sched.server import SchedulerServer
+    from kubernetes_tpu.state.dims import Dims, bucket
+    from kubernetes_tpu.utils import faultline
+
+    made = []
+
+    def server(client, **kw):
+        srv = SchedulerServer(client, **kw)
+        srv.scheduler.prewarmer.enabled = False  # compile-ahead only
+        made.append(srv.scheduler)
+        return srv
+
+    return pytypes.SimpleNamespace(
+        types=types, workloads=workloads, Dims=Dims, bucket=bucket,
+        node_to_v1=v1.node_to_v1, pod_to_v1=v1.pod_to_v1,
+        node_from_v1=v1.node_from_v1, pod_from_v1=v1.pod_from_v1,
+        APIServer=APIServer, HTTPGateway=HTTPGateway, Client=Client,
+        server=server, made=made, ledger=BindIntentLedger,
+        faultline=faultline)
+
+
+def server_path(args) -> dict:
+    """Phase 11a (or 11d, `--transport http`) on the chosen package."""
+    os.environ["KTPU_OVERLOAD"] = "0"
+    import chip_smoke
+
+    if args.package == "jax":
+        api = jax_server_api()
+    else:
+        import torch
+
+        api = chip_smoke.port_server_api(torch.device(args.device))
+    t0 = time.perf_counter()
+    out = chip_smoke.server_drain(api, args.nodes, args.pods,
+                                  transport=args.transport)
+    keep = ("pods", "bound", "bound_sha256", "first_wave_sha256")
+    server = {k: out[k] for k in keep}
+    server["waves"] = [w["scheduled"] for w in out["waves"]]
+    return {"package": args.package, "path": "server",
+            "transport": args.transport, "nodes": args.nodes,
+            "pods": args.pods, "server": server,
+            "waves": out["waves"], "seconds": time.perf_counter() - t0}
 
 
 def restart(args) -> dict:
@@ -342,7 +409,7 @@ def main() -> int:
                     help="the port's device (ignored for --package jax)")
     ap.add_argument("--path",
                     choices=("batch", "serving", "preempt", "restart",
-                             "framework", "extender", "cosched"),
+                             "framework", "extender", "cosched", "server"),
                     default="batch")
     ap.add_argument("--nodes", type=int, default=5000)
     ap.add_argument("--pods", type=int, default=None,
@@ -356,8 +423,18 @@ def main() -> int:
     ap.add_argument("--explain", action="store_true",
                     help="batch path: also hash the dispatch's "
                     "ExplainResult")
+    ap.add_argument("--transport", choices=("local", "http"),
+                    default="local", help="--path server: the client's "
+                    "transport")
     args = ap.parse_args()
     os.environ["KTPU_ASSIGN"] = args.engine
+    if args.path == "server":
+        if args.pods is None:
+            import chip_smoke
+
+            args.pods = chip_smoke.SERVER_PODS
+        print(json.dumps(server_path(args)))
+        return 0
     if args.path == "preempt":
         print(json.dumps(preempt(args)))
         return 0

@@ -3396,7 +3396,15 @@ def _quiet(srv, watch, quiet_s: float, timeout: float) -> None:
     last, since = -1, time.monotonic()
     while True:
         if not srv.wait_until_idle(max(1.0, deadline - time.monotonic())):
-            fail("phase 11: the server's queue never drained")
+            s = srv.scheduler
+            st = s.supervisor.stats
+            fail(f"phase 11: the server's queue never drained: queue "
+                 f"{s.queue.lengths()}, bound {watch.count()}, loop alive "
+                 f"{[t.is_alive() for t in srv._threads]}, leader "
+                 f"{getattr(srv.elector, 'is_leader', None)}, supervisor "
+                 f"abandoned {st.abandoned} timeouts {st.watchdog_timeouts} "
+                 f"errors {st.device_errors} healthy {s.supervisor.healthy} "
+                 f"last failure {st.last_failure!r}")
         n = watch.count()
         if n != last:
             last, since = n, time.monotonic()
@@ -3889,6 +3897,551 @@ def check_drain(drain, who: str, ref: dict) -> None:
         fail(f"the binder's (pod, node) order differs from {who}")
 
 
+# --------------------------------------------------------------------------- #
+# phase 12: the fleet (shared with scripts/flagship_reference.py --path fleet)
+# --------------------------------------------------------------------------- #
+
+# 12a: bench.py's fleet stages on one device — FLEET_TENANTS tenants, each
+# make_nodes(FLEET_NODES) and FLEET_PODS pods of 20m/16Mi, engines by tenant
+# in this rotation, t00 under the tight quota (half its backlog). Every
+# FLEET_SPREAD_EVERY-th pod belongs to the tenant's deployment spread evenly
+# over zones (maxSkew 1, hard): bench.py's plain pods alone never reach the
+# wave engine's domain-quota pass (K2). A spread pod is a self-interacting
+# class, which the runs engine takes one pod at a time (711 torch ops a
+# step, as the scan): a tenth keeps the runs tenants' cost near the plain
+# backlog's
+FLEET_TENANTS, FLEET_NODES, FLEET_PODS = 24, 2000, 2000
+FLEET_SPREAD_EVERY = 10
+FLEET_BATCH = 1000
+FLEET_ENGINES = ("waves", "runs", "scan")
+FLEET_MAX_TICKS = 24
+# 12c: the watch plane through the port's apiserver; the mux.die@stream
+# seam fires on the WATCH_DIE_AT-th event fanned after it is installed,
+# while WATCH_LATE late pods per tenant are being created
+WATCH_TENANTS, WATCH_NODES, WATCH_PODS = 8, 1000, 1000
+WATCH_LATE, WATCH_DIE_AT = 16, 40
+
+# The JAX package's run of 12a (JAX 0.9.0 on the CPU): per tenant the bound
+# count and the sha256 over its sorted (pod, node) pairs, the per-tick
+# scheduled counts, t00's clamped pods over the run, and tick 1's DRF rows
+# per engine group (sha256 of admitted, share and dom). Reproduce with
+# `JAX_PLATFORMS=cpu python3 scripts/flagship_reference.py --package jax
+# --path fleet`.
+JAX_FLEET = {
+    "tenants": {
+        "t00": {"bound": 1000, "sha256":
+                "07961a3a7c9417d2367d5e9f62a783cf16c9819cb1edba29100ce3c167d89746"},
+        "t01": {"bound": 2000, "sha256":
+                "f974a70c7d27f8b97f44965692e8a0117f59ee78fe46cfeac363d440990d05f5"},
+        "t02": {"bound": 2000, "sha256":
+                "ad330356e556346a83f79313ee71de66166c047d847e81368c795605e566a502"},
+        "t03": {"bound": 2000, "sha256":
+                "ea6ddcd1e1a9d070de9934a75ccac2c85a251daa0af0161b698557aac011bc36"},
+        "t04": {"bound": 2000, "sha256":
+                "1f4c16c9219d30dd90a5d786fe2436ee608cea9d0b496da119991003f31ff1d9"},
+        "t05": {"bound": 2000, "sha256":
+                "99f939abd22c95a457692f8b67bc324c58db6c6deb166c9db66e77a8840b158c"},
+        "t06": {"bound": 2000, "sha256":
+                "aa575829d1c9edda94be566540909e7893db1e9b32534583d0bf45006142577b"},
+        "t07": {"bound": 2000, "sha256":
+                "7015cbb42927a8690ecc035553896e7c3c4b46f6e032e52d277186913604b31d"},
+        "t08": {"bound": 2000, "sha256":
+                "cda2fa65e6cd487eaea70a2023462045de20ceedc907c978e3d972ec51568b6e"},
+        "t09": {"bound": 2000, "sha256":
+                "612853aefbdb243a687b990fe5fc4a89e9f8394ff856dd05b2059ef8d6e4a60d"},
+        "t10": {"bound": 2000, "sha256":
+                "f9ab03be71d9c3e72c4e3553f0fa79a8e63a9d7d37120ecb940d47ab3ab25295"},
+        "t11": {"bound": 2000, "sha256":
+                "8a1fa8652421368e63f8e85788a16e5bb6330958d12e8037c8e9e5078946012e"},
+        "t12": {"bound": 2000, "sha256":
+                "d34c8a23eb1304ca4552d109febbf334dee370bc4fd130a4316f05798da29eb0"},
+        "t13": {"bound": 2000, "sha256":
+                "130e951ff10f2efa40a8bf5d685b8f2d7824e0e5ec4a0e029da5ac0fadd43a43"},
+        "t14": {"bound": 2000, "sha256":
+                "ac49fdb2fa9ad33f6c83eb441287d64bbb0c92798b81aa061858957c6649975e"},
+        "t15": {"bound": 2000, "sha256":
+                "d2ad4b70f73e983c5c2c49e6a778174dfa464ffd5c59ba8995a71a14feea9bb3"},
+        "t16": {"bound": 2000, "sha256":
+                "08297050c759eeca04b5c5f25f628761287737ba49518b2a3f6dc3b98a650092"},
+        "t17": {"bound": 2000, "sha256":
+                "699ff7bacfe712a299779c297ce6ba29ebb9450e9b9175b259fb574e8d0ddcf1"},
+        "t18": {"bound": 2000, "sha256":
+                "4ff130451ce81e561f90cae31623ed01fd9940f3293027a714acc17d69d3e96c"},
+        "t19": {"bound": 2000, "sha256":
+                "6116e8b068aea780bab10d270e1d1b3dbdd3cc85cc8804216a61b6300a70eb70"},
+        "t20": {"bound": 2000, "sha256":
+                "64da6bd8b6b41fecdf5749ecd8d4d8655a7d35c0b1112a263478912c061f0143"},
+        "t21": {"bound": 2000, "sha256":
+                "ea973c97aee4b7ae617a5acd51cba53803121872b8fff6291fa2bccf4f198278"},
+        "t22": {"bound": 2000, "sha256":
+                "93767f809cd7ad1c2c911f57c31fd5a552fede14d5cd550d6cea1c74dee2c169"},
+        "t23": {"bound": 2000, "sha256":
+                "e0fea8e0aa6285ee15fe817af793b7a52557006263883077675e6c08a7964d43"},
+    },
+    "scheduled": [24000, 23000, 0],
+    "t00_drf_clamped": 2000,
+    "tick1_drf": {
+        "runs": {
+            "admitted": "14b0a55a36483fe3f743a3584f0a0c753da351c08322dcc8b200ecc562355d8f",
+            "share": "66687aadf862bd776c8fc18b8e9f8e20089714856ee233b3902a591d0d5f2925",
+            "dom": "ec0b9c11bfb4fc3674a0edad8e4867720db85c9c3052e479ddd80f4b7b1bbe3f",
+        },
+        "scan": {
+            "admitted": "14b0a55a36483fe3f743a3584f0a0c753da351c08322dcc8b200ecc562355d8f",
+            "share": "66687aadf862bd776c8fc18b8e9f8e20089714856ee233b3902a591d0d5f2925",
+            "dom": "ec0b9c11bfb4fc3674a0edad8e4867720db85c9c3052e479ddd80f4b7b1bbe3f",
+        },
+        "waves": {
+            "admitted": "14b0a55a36483fe3f743a3584f0a0c753da351c08322dcc8b200ecc562355d8f",
+            "share": "66687aadf862bd776c8fc18b8e9f8e20089714856ee233b3902a591d0d5f2925",
+            "dom": "ec0b9c11bfb4fc3674a0edad8e4867720db85c9c3052e479ddd80f4b7b1bbe3f",
+        },
+    },
+}
+
+
+def port_fleet_api(device):
+    """What phase 12 drives, from the port, on `device`.
+    scripts/flagship_reference.py builds the same namespace from the JAX
+    package."""
+    import types as pytypes
+
+    from kubernetes_tpu_torch.api import types, v1
+    from kubernetes_tpu_torch.apiserver import APIServer
+    from kubernetes_tpu_torch.client import Client
+    from kubernetes_tpu_torch.component.metrics import DEFAULT_REGISTRY
+    from kubernetes_tpu_torch.fleet import FleetServer
+    from kubernetes_tpu_torch.fleet import server as fleet_server
+    from kubernetes_tpu_torch.models import workloads
+    from kubernetes_tpu_torch.sched.scheduler import RecordingBinder
+    from kubernetes_tpu_torch.state.dims import Dims, bucket
+    from kubernetes_tpu_torch.utils import faultline
+
+    made = []
+
+    def fleet(**kw):
+        srv = FleetServer(device=device, **kw)
+        made.append(srv)
+        return srv
+
+    return pytypes.SimpleNamespace(
+        types=types, workloads=workloads, Dims=Dims, bucket=bucket,
+        node_to_v1=v1.node_to_v1, pod_to_v1=v1.pod_to_v1,
+        APIServer=APIServer, Client=Client, registry=DEFAULT_REGISTRY,
+        fleet=fleet, fleet_module=fleet_server, made=made,
+        RecordingBinder=RecordingBinder, faultline=faultline,
+        to_np=lambda a: a.cpu().numpy())
+
+
+def fleet_tight_quota(n_nodes: int, n_pods: int) -> float:
+    """bench.py _fleet_stage's quota for tenant 0: half its backlog's
+    dominant demand (the pod slot dominates 20m/16Mi on make_nodes)."""
+    per_pod_dom = max(20.0 / (n_nodes * 32000.0),
+                      16.0 / (n_nodes * 128.0 * 1024.0),
+                      1.0 / (n_nodes * 110.0))
+    return max(n_pods * per_pod_dom / 2, 1e-5)
+
+
+def fleet_engine(name: str) -> str:
+    return FLEET_ENGINES[int(name[1:]) % len(FLEET_ENGINES)]
+
+
+def fleet_pods(api, name: str, n_pods: int) -> list:
+    """One tenant's backlog: n_pods pods of 20m/16Mi, every
+    FLEET_SPREAD_EVERY-th of them in the tenant's deployment spread over
+    zones with maxSkew 1, DoNotSchedule."""
+    T = api.types
+    app = {"app": f"{name}-spread"}
+    spread = (T.TopologySpreadConstraint(
+        max_skew=1, topology_key=api.workloads.ZONE,
+        when_unsatisfiable=T.UnsatisfiableAction.DO_NOT_SCHEDULE,
+        selector=T.LabelSelector.of(match_labels=app)),)
+    req = T.Resources.make(cpu="20m", memory="16Mi")
+    return [T.Pod(name=f"{name}-p{i}", requests=req, creation_index=i,
+                  **(dict(labels=app, topology_spread=spread)
+                     if i % FLEET_SPREAD_EVERY == 0 else {}))
+            for i in range(n_pods)]
+
+
+def rows_sha256(api, res) -> dict:
+    """sha256 of one dispatch's DRF rows (admitted, share, dom)."""
+    return {f: hashlib.sha256(api.to_np(getattr(res, f)).tobytes())
+            .hexdigest() for f in ("admitted", "share", "dom")}
+
+
+def fleet_run(api, names=None, n_nodes: int = None, n_pods: int = None,
+              after_tick=None) -> dict:
+    """Phase 12a on one package: the tenants `names` (default all
+    FLEET_TENANTS), each make_nodes(n_nodes) and fleet_pods(n_pods), through
+    one FleetServer ticked until every queue is empty or a tick schedules
+    nothing after the second. Tick 1's dispatch of each engine group is
+    captured (its inputs and DRF rows). `after_tick(i, tk)` runs after each
+    tick. Returns the outcome and its invariants."""
+    n_nodes = n_nodes or FLEET_NODES
+    n_pods = n_pods or FLEET_PODS
+    names = names or [f"t{k:02d}" for k in range(FLEET_TENANTS)]
+    base = api.Dims(N=api.bucket(n_nodes), P=api.bucket(FLEET_BATCH),
+                    E=api.bucket(n_pods + 256))
+    clk = {"t": 0.0}
+    srv = api.fleet(batch_size=FLEET_BATCH, base_dims=base,
+                    clock=lambda: clk["t"],
+                    engines={n: fleet_engine(n) for n in names})
+    srv.prewarmer.enabled = False
+    nodes = api.workloads.make_nodes(n_nodes)
+    binders = {}
+    t0 = time.perf_counter()
+    for name in names:
+        binders[name] = api.RecordingBinder()
+        t = srv.add_tenant(name, binder=binders[name],
+                           quota=(fleet_tight_quota(n_nodes, n_pods)
+                                  if name == "t00" else 1.0))
+        for n in nodes:
+            t.on_node_add(n)
+        for p in fleet_pods(api, name, n_pods):
+            t.on_pod_add(p)
+    ingest_s = time.perf_counter() - t0
+
+    mod = api.fleet_module
+    orig = mod.dispatch_fleet
+    captured = {}
+
+    def capture(*a, **kw):
+        out = orig(*a, **kw)
+        captured.setdefault(a[5], (a, out))
+        return out
+
+    ticks = []
+    for i in range(FLEET_MAX_TICKS):
+        if i == 0:
+            mod.dispatch_fleet = capture
+        try:
+            tk = srv.tick()
+        finally:
+            mod.dispatch_fleet = orig
+        clk["t"] += 1.0
+        ticks.append(tk)
+        if after_tick is not None:
+            after_tick(i, tk)
+        done = all(t.sched.queue.lengths()[0] == 0
+                   for t in srv.tenants.values())
+        if done or (tk.scheduled == 0 and len(ticks) > 2):
+            break
+
+    lost = double = 0
+    for name, b in binders.items():
+        keys = [k for k, _ in b.bound]
+        double += len(keys) - len(set(keys))
+        lost += n_pods - len(set(keys)) - sum(
+            srv.tenant(name).sched.queue.lengths())
+    return dict(
+        srv=srv, binders=binders, ticks=ticks, ingest_s=ingest_s,
+        captured=captured,
+        tenants={n: {"bound": len(b.bound),
+                     "sha256": placement_sha256(b.bound)}
+                 for n, b in binders.items()},
+        scheduled=[tk.scheduled for tk in ticks],
+        t00_drf_clamped=sum(tk.per_tenant["t00"].drf_clamped
+                            for tk in ticks if "t00" in tk.per_tenant),
+        tick1_drf={e: rows_sha256(api, out)
+                   for e, (_, out) in sorted(captured.items())},
+        drf_violations=srv.total_drf_violations,
+        cross_tenant_placements=srv.total_cross_tenant,
+        drf_clamped=srv.total_drf_clamped,
+        lost_pods=lost, double_bound=double,
+        dispatches_per_group=sorted({(tk.dispatches, tk.engine_groups)
+                                     for tk in ticks}))
+
+
+def fleet_reference(out) -> dict:
+    """The part of a fleet_run outcome JAX_FLEET holds."""
+    return {k: out[k] for k in ("tenants", "scheduled", "t00_drf_clamped",
+                                "tick1_drf")}
+
+
+def watch_plane_run(api, n_tenants: int = None, n_nodes: int = None,
+                    n_pods: int = None) -> dict:
+    """Phase 12c: n_tenants tenants of n_nodes nodes and n_pods pods, every
+    object created through the client into the apiserver with its tenant
+    label, served by a FleetServer through ONE watch plane (two upstream
+    streams). Once every pod reached its tenant's queue and one tick ran,
+    the mux.die@stream seam kills a stream while late pods are created; the
+    next tick serves from cache, exports the staleness and revives the
+    stream as a resume. Ticks until every pod is bound."""
+    n_tenants = n_tenants or WATCH_TENANTS
+    n_nodes = n_nodes or WATCH_NODES
+    n_pods = n_pods or WATCH_PODS
+    T = api.types
+    label = "ktpu.io/tenant"
+    a = api.APIServer()
+    client = api.Client.local(a)
+    clk = {"t": 0.0}
+    srv = api.fleet(batch_size=FLEET_BATCH,
+                    base_dims=api.Dims(N=api.bucket(n_nodes),
+                                       P=api.bucket(FLEET_BATCH),
+                                       E=api.bucket(n_pods + 256)),
+                    clock=lambda: clk["t"])
+    names = [f"w{k:02d}" for k in range(n_tenants)]
+    binders = {}
+    for name in names:
+        binders[name] = api.RecordingBinder()
+        srv.add_tenant(name, binder=binders[name])
+    plane = srv.attach_watch_plane(client)
+    t0 = time.perf_counter()
+
+    def pods(name, lo, hi):
+        for i in range(lo, hi):
+            client.pods.create(pod_obj(api, T.Pod(
+                name=f"{name}-p{i}", labels={label: name},
+                requests=T.Resources.make(cpu="20m", memory="16Mi"),
+                creation_index=i)))
+
+    try:
+        for name in names:
+            for n in api.workloads.make_nodes(n_nodes):
+                obj = api.node_to_v1(n)
+                obj["metadata"]["name"] = f"{name}-{n.name}"
+                obj["metadata"]["labels"][label] = name
+                obj["metadata"]["labels"]["kubernetes.io/hostname"] = \
+                    f"{name}-{n.name}"
+                client.nodes.create(obj)
+            pods(name, 0, n_pods)
+        create_s = time.perf_counter() - t0
+        _until(lambda: all(
+            t.sched.queue.lengths()[0] == n_pods
+            and t.sched.cache.node_count == n_nodes
+            for t in srv.tenants.values()), 120.0,
+            "every tenant's nodes and pods in its cache and queue")
+        sync_s = time.perf_counter() - t0
+        streams = (a.storage.live_watchers("/registry/core/pods/"),
+                   a.storage.live_watchers("/registry/core/nodes/"))
+        first = srv.tick()
+        clk["t"] += 1.0
+        relists = plane.pod_mux.informer.relists
+        api.faultline.install(f"mux.die@stream:{WATCH_DIE_AT}")
+        try:
+            for name in names:
+                pods(name, n_pods, n_pods + WATCH_LATE)
+            _until(lambda: not plane.pod_mux.alive, 30.0,
+                   "the mux.die@stream seam to kill the pod stream")
+        finally:
+            api.faultline.uninstall()
+        time.sleep(1.0)
+        dead = srv.tick()          # serves cached state, revives
+        clk["t"] += 1.0
+        total = n_pods + WATCH_LATE
+        _until(lambda: all(
+            t.sched.queue.lengths()[0] + len(binders[t.name].bound) >= total
+            for t in srv.tenants.values()), 60.0,
+            "the late pods after the revive")
+        ticks = [first, dead]
+        while not all(len(b.bound) >= total for b in binders.values()) \
+                and len(ticks) < FLEET_MAX_TICKS:
+            ticks.append(srv.tick())
+            clk["t"] += 1.0
+        text = api.registry.expose_text()
+        staleness_exported = all(
+            f'tenant_staleness_seconds{{tenant="{n}"}}' in text
+            for n in names)
+        mux = plane.pod_mux
+        out = dict(
+            tenants=n_tenants, nodes=n_nodes, pods=n_pods, late=WATCH_LATE,
+            create_s=create_s, sync_s=sync_s, streams=streams,
+            bound={n: len(b.bound) for n, b in binders.items()},
+            double_bound=sum(len(b.bound) - len({k for k, _ in b.bound})
+                             for b in binders.values()),
+            foreign=sum(1 for n, b in binders.items()
+                        for _, node in b.bound
+                        if not node.startswith(f"{n}-")),
+            cross_tenant_placements=srv.total_cross_tenant,
+            dead_tick_staleness_s=dead.staleness_seconds,
+            dead_tick_scheduled=dead.scheduled,
+            mux_failovers=plane.mux_failovers, deaths=mux.deaths,
+            relists_before=relists, relists_after=mux.informer.relists,
+            resumes=mux.informer.resumes,
+            staleness_exported=staleness_exported,
+            ticks=[tk.scheduled for tk in ticks],
+            tick_s=[tk.tick_seconds for tk in ticks])
+    finally:
+        plane.stop()
+        a.close()
+    return out
+
+
+def check_watch_plane(w, who: str) -> None:
+    total = w["pods"] + w["late"]
+    bad = []
+    if w["streams"] != (1, 1):
+        bad.append(f"upstream streams {w['streams']} (want one each)")
+    if any(n != total for n in w["bound"].values()):
+        bad.append(f"bound {w['bound']} (want {total} each)")
+    if w["double_bound"] or w["foreign"] or w["cross_tenant_placements"]:
+        bad.append("a double bind or a cross-tenant placement")
+    if not w["staleness_exported"]:
+        bad.append("per-tenant staleness not exported")
+    if w["deaths"] < 1 or w["mux_failovers"] < 1:
+        bad.append("the stream never died or was never revived")
+    if w["relists_after"] != w["relists_before"] or w["resumes"] < 1:
+        bad.append(f"the revive relisted ({w['relists_before']} → "
+                   f"{w['relists_after']}) or never resumed")
+    if w["dead_tick_staleness_s"] <= 0.0:
+        bad.append("the tick after the death exported no staleness")
+    if bad:
+        fail(f"{who}: " + "; ".join(bad))
+
+
+def check_fleet(out, who: str) -> None:
+    """12a's invariants on one run."""
+    bad = []
+    for k in ("drf_violations", "cross_tenant_placements", "lost_pods",
+              "double_bound"):
+        if out[k]:
+            bad.append(f"{k} {out[k]}")
+    if out["t00_drf_clamped"] < 1:
+        bad.append("the DRF clamp never fired on t00")
+    if any(d != g for d, g in out["dispatches_per_group"]):
+        bad.append(f"(dispatches, engine groups) per tick "
+                   f"{out['dispatches_per_group']}")
+    if bad:
+        fail(f"{who}: " + "; ".join(bad))
+
+
+def fleet_phase(device, card: str) -> dict:
+    """Phase 12 on the card: 12a the fleet tick at real width against
+    JAX_FLEET and each engine's solo run, with the K1/K2/K3 launches per
+    tick and the first launch of each kernel against its plain version;
+    12b tick 1's DRF rows on the card against the CPU and JAX_FLEET; 12c the
+    watch plane."""
+    import torch
+
+    from kubernetes_tpu_torch.fleet.quota import drf_admission_rows
+    from kubernetes_tpu_torch.ops import kernels as K
+    from kubernetes_tpu_torch.ops import preempt as OP
+    from kubernetes_tpu_torch.ops import waves as W
+    from kubernetes_tpu_torch.state.arrays import to_device
+
+    if JAX_FLEET is None:
+        fail("phase 12: JAX_FLEET is not recorded")
+    api = port_fleet_api(device)
+    t0 = time.perf_counter()
+    recs = [Recorder(W, "contention_scan"), Recorder(W, "domain_rank"),
+            Recorder(OP, "reprieve_scan")]
+    per_tick = []
+
+    def after_tick(i, tk):
+        c = K.launch_counts()
+        per_tick.append(c)
+
+    K.reset_launch_counts()
+    try:
+        a = fleet_run(api, after_tick=after_tick)
+    finally:
+        counts = K.launch_counts()
+        for r in recs:
+            r.restore()
+    launches = [{k: c.get(k, 0) - (per_tick[i - 1].get(k, 0) if i else 0)
+                 for k in ("contention_scan", "domain_rank",
+                           "reprieve_scan")}
+                for i, c in enumerate(per_tick)]
+    check_fleet(a, "12a")
+    ref = JAX_FLEET
+    for k in ("tenants", "scheduled", "t00_drf_clamped", "tick1_drf"):
+        if a[k] != ref[k]:
+            fail(f"12a: {k} differs from JAX_FLEET: {a[k]} != {ref[k]}")
+    ticks = a["ticks"]
+    steady = ticks[1]
+    idle = 1.0 - steady.execute_seconds / steady.tick_seconds
+    print(f"  12a: {FLEET_TENANTS} tenants x {FLEET_NODES} nodes x "
+          f"{FLEET_PODS} pods ({FLEET_TENANTS * FLEET_NODES} nodes, "
+          f"{FLEET_TENANTS * FLEET_PODS} pods) ingested in "
+          f"{a['ingest_s']:.3f} s; ticks scheduled {a['scheduled']} in "
+          f"{[round(tk.tick_seconds, 3) for tk in ticks]} s; t00 clamped "
+          f"{a['t00_drf_clamped']}; 0 violations, 0 cross-tenant, 0 lost, "
+          f"0 double; (dispatches, groups) per tick "
+          f"{a['dispatches_per_group']} ({card})")
+    print(f"    steady tick (tick 2): {steady.tick_seconds:.3f} s, "
+          f"{steady.scheduled / steady.tick_seconds:.1f} pods/s; the group "
+          f"dispatches' CUDA-event windows {steady.execute_seconds:.3f} s, "
+          f"so the device idles at least {idle:.3f} of the tick; launches "
+          f"per tick {launches}")
+    print("    every tenant's placements (sha256), the per-tick counts, "
+          "t00's clamp and tick 1's DRF rows equal JAX_FLEET")
+    solo = {}
+    for name in [f"t{k:02d}" for k in range(len(FLEET_ENGINES))]:
+        s = fleet_run(api, names=[name])
+        if sorted(s["binders"][name].bound) != \
+                sorted(a["binders"][name].bound):
+            fail(f"12a: {name} ({fleet_engine(name)}) differs from its "
+                 f"solo run")
+        solo[name] = s["tenants"][name]["bound"]
+    print(f"    each engine's first tenant equals its solo run: {solo}")
+    if device.type == "cuda" and not all(counts.get(n, 0)
+                                         for n in WAVE_KERNELS):
+        fail(f"12a: K1/K2 not launched: {counts}")
+    errs = server_kernel_check({"12a": recs}, {"12a": counts}, device)
+
+    # 12b: tick 1's DRF rows on the card, the CPU and in JAX_FLEET
+    b = {}
+    for engine, (args, out) in sorted(a["captured"].items()):
+        tables, pending, quota = args[0], args[1], args[6]
+        card_rows = drf_admission_rows(tables, pending, quota)
+        cpu = torch.device("cpu")
+        cpu_rows = drf_admission_rows(to_device(tables, cpu),
+                                      to_device(pending, cpu),
+                                      quota.to(cpu))
+        for f, x, y, z in zip(("admitted", "share", "dom"), card_rows,
+                              cpu_rows, out[2:]):
+            if not (torch.equal(x.cpu(), y) and torch.equal(x, z)):
+                fail(f"12b: {engine} {f} on {device} differs from the CPU "
+                     f"or from the dispatch")
+        b[engine] = dict(K=int(quota.shape[0]),
+                         admitted=int(card_rows[0].sum()),
+                         clamped=int((pending.valid
+                                      & ~card_rows[0]).sum()))
+    print(f"  12b: tick 1's DRF rows on {device} bit-equal to the CPU's and "
+          f"to JAX_FLEET's hashes: {b}")
+
+    # 12c: the watch plane
+    w = watch_plane_run(api)
+    check_watch_plane(w, "12c")
+    print(f"  12c: {WATCH_TENANTS} tenants x {WATCH_NODES} nodes x "
+          f"{WATCH_PODS} pods through the apiserver on {w['streams']} "
+          f"upstream streams (pods, nodes); created in {w['create_s']:.3f} "
+          f"s, in every tenant's queue at {w['sync_s']:.3f} s; the pod "
+          f"stream killed by mux.die@stream mid-create, the next tick "
+          f"served cached state ({w['dead_tick_scheduled']} bound, "
+          f"staleness {w['dead_tick_staleness_s']:.3f} s) and revived it as "
+          f"a resume (relists {w['relists_before']} → {w['relists_after']},"
+          f" resumes {w['resumes']}); {sum(w['bound'].values())} bound "
+          f"exactly once in ticks {w['ticks']}, none across tenants; "
+          f"per-tenant staleness exported")
+    settle_fleet(api, "12")
+    wall = time.perf_counter() - t0
+    return dict(a={k: a[k] for k in ("scheduled", "t00_drf_clamped",
+                                     "dispatches_per_group", "ingest_s")},
+                tick_s=[tk.tick_seconds for tk in ticks],
+                execute_s=[tk.execute_seconds for tk in ticks],
+                steady_pods_per_s=steady.scheduled / steady.tick_seconds,
+                steady_idle_share_min=idle, launches_per_tick=launches,
+                launches=counts, errs=errs["12a"], drf=b,
+                watch={k: v for k, v in w.items() if k != "bound"},
+                solo=solo, wall_s=wall)
+
+
+def settle_fleet(api, phase: str) -> None:
+    """No fleet of the phase may have fallen back or warmed a signature:
+    the launch counts read are the fleet path's own."""
+    for srv in api.made:
+        srv.prewarmer.wait(300)
+        if srv.prewarmer.warm_log:
+            fail(f"phase {phase}: the fleet prewarmer warmed "
+                 f"{len(srv.prewarmer.warm_log)} signatures")
+        scheds = [srv.supervisor] + [t.sched.supervisor
+                                     for t in srv.tenants.values()]
+        if any(s.stats.fallback_dispatches or s.stats.degraded_cycles
+               for s in scheds):
+            fail(f"phase {phase}: a fleet dispatch fell back")
+
+
 def main() -> int:
     import os
 
@@ -4061,6 +4614,23 @@ def main() -> int:
                        for sub, c in srvp["launches"].items()}
         r["max_abs_err"] = max([r["max_abs_err"]] + [
             e[name] for e in srvp["errs"].values() if name in e])
+    t12 = time.perf_counter()
+    print(f"[12] the fleet on one card: FleetServer(device='cuda'), 12a "
+          f"{FLEET_TENANTS} tenants x {FLEET_NODES} nodes x {FLEET_PODS} "
+          f"pods, engines {FLEET_ENGINES} by tenant, t00 under a tight DRF "
+          f"quota; 12b tick 1's DRF rows; 12c the watch plane, "
+          f"{WATCH_TENANTS} tenants x {WATCH_NODES} nodes x {WATCH_PODS} "
+          f"pods through the apiserver")
+    fleet = fleet_phase(device, card)
+    print(f"    phase 12 {time.perf_counter() - t12:.1f} s")
+    for r in rows:
+        name = r["name"]
+        r["fleet"] = dict(launches=fleet["launches"].get(name, 0),
+                          launches_per_tick=[t[name] for t in
+                                             fleet["launches_per_tick"]],
+                          max_abs_err=fleet["errs"].get(name))
+        if name in fleet["errs"]:
+            r["max_abs_err"] = max(r["max_abs_err"], fleet["errs"][name])
     for r in rows[:2]:
         name = r["name"]
         r["framework"] = dict(
@@ -4123,7 +4693,9 @@ def main() -> int:
                                 if k not in ("bound_sha256",
                                              "first_wave_sha256")}
                           for sub in ("a", "at", "b", "c", "d")},
-                      "server_wall_s": srvp["wall_s"]}))
+                      "server_wall_s": srvp["wall_s"],
+                      "fleet": {k: v for k, v in fleet.items()
+                                if k not in ("errs", "launches")}}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -19,6 +19,9 @@ Layers (module names follow the JAX package's, so each has a counterpart):
   framework/ — the scheduling-framework runtime and in-tree plugins
   extender/ — the scheduler-extender HTTP boundary (backend, server, client)
   sched/server.py — the scheduler process (SchedulerServer) over the API
+  fleet/   — K tenant clusters per tick on one device (FleetServer): the
+             stacked tenant state, the DRF quota clamp, the tenant watch
+             plane over client/watchmux.py
   apiserver/, client/, storage/, machinery/ — the apiserver the process
              binds through, its client, the versioned store with its watch
              hub, and the object machinery (copied: no JAX in them)

@@ -1,6 +1,7 @@
-"""Client machinery: the typed client, informers, events, leader election
-(a copy of the JAX package's client/, less its watch multiplexer and
-workqueues, which the scheduler does not use: ROADMAP A11b, second half)."""
+"""Client machinery: the typed client, informers, the watch multiplexer the
+fleet's watch plane rides, events, leader election (a copy of the JAX
+package's client/, less its workqueues, which the scheduler does not use:
+ROADMAP A11b, second half)."""
 
 from .events import EventRecorder
 from .informers import (
@@ -12,9 +13,11 @@ from .informers import (
 )
 from .leaderelection import LeaderElectionConfig, LeaderElector
 from .rest import Client, HTTPTransport, LocalTransport, ResourceClient, RetryPolicy
+from .watchmux import TENANT_LABEL, MuxRoute, WatchMux
 
 __all__ = [
     "Client", "EventRecorder", "HTTPTransport", "Indexer", "InformerFactory",
     "LeaderElectionConfig", "LeaderElector", "Lister", "LocalTransport",
-    "ResourceClient", "RetryPolicy", "SharedInformer", "pods_by_node_index",
+    "MuxRoute", "ResourceClient", "RetryPolicy", "SharedInformer",
+    "TENANT_LABEL", "WatchMux", "pods_by_node_index",
 ]

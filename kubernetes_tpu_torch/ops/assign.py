@@ -235,7 +235,9 @@ def assign_step(tables, cyc, state: AssignState, c: int, p_valid: bool,
 def assign_batch(tables: ClusterTables, cyc: CycleArrays, pods: PodArrays,
                  init: AssignState) -> AssignResult:
     """The sequential-assume scan (the spec): pods in queue order, each
-    against the state every earlier placement left."""
+    against the state every earlier placement left. An invalid row (a
+    padding slot, a quota-clamped pod) has an empty mask, places nowhere and
+    leaves the state as it was, so the loop skips it."""
     order = queue_order(pods).tolist()
     cls = pods.cls.tolist()
     valid = pods.valid.tolist()
@@ -244,8 +246,9 @@ def assign_batch(tables: ClusterTables, cyc: CycleArrays, pods: PodArrays,
     node = [-1] * P
     state = init
     for i in order:
-        state, node[i] = assign_step(tables, cyc, state, cls[i], valid[i],
-                                     nnr[i])
+        if valid[i]:
+            state, node[i] = assign_step(tables, cyc, state, cls[i], True,
+                                         nnr[i])
     node_t = torch.tensor(node, dtype=torch.int32, device=init.used.device)
     return AssignResult(node=node_t, feasible=node_t >= 0, state=state)
 

@@ -108,6 +108,22 @@ def warm_cycle(d: Dims, device: torch.device, gang: bool = False,
     return dd
 
 
+def warm_fleet(d: Dims, K: int, device: torch.device, engine: str = "waves",
+               rc: int = 0) -> Dims:
+    """One throwaway fleet dispatch (fleet/cycle.py) at dims `d` for a stack
+    of `K` probe tenants on the current stream, read back — what a fleet
+    signature's first live tick would otherwise pay."""
+    from ..fleet.cycle import dispatch_fleet
+    from ..fleet.tables import probe_fleet_args
+
+    (tables, pending, existing), keys_host, quota, dd = \
+        probe_fleet_args(d, K, device)
+    res = dispatch_fleet(tables, pending, keys_host, dd.D, existing, engine,
+                         quota, rc=rc)
+    res.node.cpu()
+    return dd
+
+
 def warm_preempt(d: Dims, burst: int, device: torch.device) -> Dims:
     """One throwaway preemption burst of `burst` lanes at dims `d` (P=1) on
     the current stream: the probe node holding one bound probe pod, a
@@ -137,8 +153,10 @@ def warm_preempt(d: Dims, burst: int, device: torch.device) -> Dims:
 class BucketPrewarmer:
     """Watches per-cycle occupancy and warms the next bucket ahead of need.
     One warm in flight at a time (the preemption burst on its own slot);
-    each (dims, engine, extras, gang, rc) signature is warmed at most once
-    until `invalidate()`.
+    each (dims, engine, extras, gang, rc, fleet) signature is warmed at most
+    once until `invalidate()`. `fleet` is the tenant-stack count K of a
+    fleet dispatch (fleet/cycle.py), None for a single cluster: a fleet entry
+    never answers a single-cluster lookup, nor the reverse.
 
     `warm` maps each warmed signature to the seconds its warm dispatch took;
     `lookup` is "is this signature warm" — the dispatch supervisor reads it
@@ -170,8 +188,10 @@ class BucketPrewarmer:
         self.supervisor = None
 
     @staticmethod
-    def _key(d: Dims, engine: str, extras: tuple, gang: bool, rc: int):
-        return (replace(d, has_node_name=False), engine, extras, gang, rc)
+    def _key(d: Dims, engine: str, extras: tuple, gang: bool, rc: int,
+             fleet=None):
+        return (replace(d, has_node_name=False), engine, extras, gang, rc,
+                fleet)
 
     def _on_stream(self):
         """The warm thread's context: the prewarmer's device and its own
@@ -188,7 +208,7 @@ class BucketPrewarmer:
 
     def observe(self, d: Dims, n_nodes: int, n_existing: int,
                 engine: str = "waves", extras: tuple = (),
-                gang: bool = False, rc: int = 0) -> None:
+                gang: bool = False, rc: int = 0, fleet=None) -> None:
         """Call once per cycle with live occupancy (and whether batches are
         gang-bearing — a gang batch runs a different program). Cheap when
         nothing is near a boundary. Warms one target per call; multiple
@@ -209,7 +229,7 @@ class BucketPrewarmer:
         for target in targets:
             if target == d:
                 continue
-            key = self._key(target, engine, extras, gang, rc)
+            key = self._key(target, engine, extras, gang, rc, fleet)
             with self._mu:
                 if key in self._warmed:
                     continue
@@ -218,7 +238,7 @@ class BucketPrewarmer:
                 self._warmed.add(key)
                 t = threading.Thread(
                     target=self._compile_fn,
-                    args=(target, engine, extras, gang, rc),
+                    args=(target, engine, extras, gang, rc, fleet),
                     name=f"ktpu-prewarm-{target.N}x{target.E}", daemon=True)
                 # start BEFORE publishing: wait() joins _inflight without
                 # the lock, and joining a not-yet-started thread raises
@@ -227,17 +247,21 @@ class BucketPrewarmer:
             return
 
     def _compile(self, d: Dims, engine: str, extras: tuple, gang: bool,
-                 rc: int = 0) -> None:
+                 rc: int = 0, fleet=None) -> None:
         """The warm of one cycle signature (the JAX package's background
-        compile): a throwaway dispatch at `d` on the prewarm stream."""
-        key = self._key(d, engine, extras, gang, rc)
+        compile): a throwaway dispatch at `d` on the prewarm stream — a
+        fleet dispatch of `fleet` probe tenants when that slot is set."""
+        key = self._key(d, engine, extras, gang, rc, fleet)
         epoch = self._epoch
         try:
             if faultline.should("device.error", "prewarm"):
                 raise InjectedDeviceError("injected device error at prewarm")
             t0 = time.perf_counter()
             with self._on_stream():
-                warm_cycle(d, self.device, gang=gang, extras=extras)
+                if fleet is not None:
+                    warm_fleet(d, int(fleet), self.device, engine, rc)
+                else:
+                    warm_cycle(d, self.device, gang=gang, extras=extras)
             seconds = time.perf_counter() - t0
             with self._mu:
                 if epoch != self._epoch:
@@ -257,9 +281,9 @@ class BucketPrewarmer:
                 self.supervisor.note_compile_failure(e)
 
     def lookup(self, d: Dims, engine: str, extras: tuple, gang: bool,
-               rc: int = 0) -> bool:
+               rc: int = 0, fleet=None) -> bool:
         """Is this cycle signature warm?"""
-        return self._key(d, engine, extras, gang, rc) in self.warm
+        return self._key(d, engine, extras, gang, rc, fleet) in self.warm
 
     def invalidate(self) -> None:
         """Drop every warm record and fence out in-flight warms (epoch bump:
@@ -271,7 +295,7 @@ class BucketPrewarmer:
             self._warmed.clear()
 
     def rewarm(self, d: Dims, engine: str = "waves", extras: tuple = (),
-               gang: bool = False, rc: int = 0) -> bool:
+               gang: bool = False, rc: int = 0, fleet=None) -> bool:
         """Force a background warm of the CURRENT dims regardless of
         occupancy thresholds — the backend re-admission path. If a warm is
         already in flight the rewarm CHAINS behind it. Returns True when
@@ -280,14 +304,15 @@ class BucketPrewarmer:
             return False
         if max(d.N, d.E) < self.min_axis:
             return False  # small shapes run cold in milliseconds
-        key = self._key(d, engine, extras, gang, rc)
+        key = self._key(d, engine, extras, gang, rc, fleet)
+        args = (d, engine, extras, gang, rc, fleet)
         with self._mu:
             self._warmed.add(key)
             prev = self._inflight
             if prev is not None and prev.is_alive():
                 def chained():
                     prev.join()
-                    self._compile_fn(d, engine, extras, gang, rc)
+                    self._compile_fn(*args)
 
                 t = threading.Thread(
                     target=chained,
@@ -295,14 +320,14 @@ class BucketPrewarmer:
             else:
                 t = threading.Thread(
                     target=self._compile_fn,
-                    args=(d, engine, extras, gang, rc),
+                    args=args,
                     name=f"ktpu-prewarm-re-{d.N}x{d.E}", daemon=True)
             t.start()  # before publishing: see observe()
             self._inflight = t
         return True
 
     def ensure_warm(self, d: Dims, engine: str = "waves", extras: tuple = (),
-                    gang: bool = False, rc: int = 0) -> bool:
+                    gang: bool = False, rc: int = 0, fleet=None) -> bool:
         """The warm-standby beat (Scheduler.warm_standby): warm this exact
         signature in the background IF it is neither warm nor warming —
         idempotent, unlike rewarm. Returns True when a warm was
@@ -310,9 +335,9 @@ class BucketPrewarmer:
         if not self.enabled or max(d.N, d.E) < self.min_axis:
             return False
         with self._mu:
-            if self._key(d, engine, extras, gang, rc) in self._warmed:
+            if self._key(d, engine, extras, gang, rc, fleet) in self._warmed:
                 return False
-        return self.rewarm(d, engine, extras, gang, rc)
+        return self.rewarm(d, engine, extras, gang, rc, fleet)
 
     def ensure_patch_ladder(self, cache, snap) -> bool:
         """Background warm of the resident patch ladder (state/cache.py

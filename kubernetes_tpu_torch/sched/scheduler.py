@@ -114,8 +114,7 @@ class RecordingBinder:
 @dataclass
 class CycleStats:
     """Per-wave outcome; feeds the scheduling metrics
-    (metrics/metrics.go:32-99). The JAX package's fields, less those only
-    its unported fleet ticks fill."""
+    (metrics/metrics.go:32-99). The JAX package's fields."""
 
     attempted: int = 0
     scheduled: int = 0
@@ -130,9 +129,16 @@ class CycleStats:
     # scan-step reduction P_valid/runs the collapse bought this wave
     class_runs: int = 0
     collapse_ratio: float = 0.0
-    # pods sent back to the queue without a failure verdict: the rest of a
-    # wave whose commit breaker opened mid-wave
+    # fleet-tick telemetry (fleet/server.py, per TENANT per tick): pods
+    # sent back to the queue without a failure verdict this tick (DRF
+    # quota clamp, storm requeue, abort, the rest of a wave whose commit
+    # breaker opened mid-wave — they retry promptly, unlike
+    # `unschedulable`), and whether this tenant's tick was degraded (its
+    # injected watch storm forced a full re-encode + requeue). The chaos
+    # tests assert tenant ISOLATION from these counters instead of scraping
+    # logs.
     requeued: int = 0
+    degraded: int = 0
     # overload governor (sched/overload.py): pods parked in the deferred
     # lane this wave (SHED_LOW — deferred, never dropped), and whether the
     # wave was paused outright by the open commit breaker (no pop, no
@@ -142,6 +148,10 @@ class CycleStats:
     # 1 when this wave was a micro-wave — a small fresh-delta batch grafted
     # onto the resident snapshot between bulk cycles
     micro: int = 0
+    # pods deferred by the DRF quota pre-mask this tick (fleet/server.py; a
+    # subset of `requeued`) — routed through sched/metrics.py
+    # observe_fleet_tick into the tenant-labelled DRF_CLAMPED counter
+    drf_clamped: int = 0
     cycle_seconds: float = 0.0
     assignments: Dict[str, str] = field(default_factory=dict)
     # pod keys that failed this wave (feeds FailedScheduling events)

@@ -206,8 +206,10 @@ class DispatchSupervisor:
         if self.prewarmer is None:
             return False
         if kind == "cycle":
-            dims, engine, extras, gang, rc = shape_key
-            return self.prewarmer.lookup(dims, engine, extras, gang, rc=rc)
+            # a fleet dispatch's key carries the stack count K last
+            dims, engine, extras, gang, rc, *fleet = shape_key
+            return self.prewarmer.lookup(dims, engine, extras, gang, rc=rc,
+                                         fleet=fleet[0] if fleet else None)
         if kind == "preempt":
             return self.prewarmer.lookup_preempt(*shape_key)
         return False
@@ -237,10 +239,10 @@ class DispatchSupervisor:
         return self.fallback_device
 
     def note_cycle_signature(self, dims, engine: str, extras: tuple,
-                             gang: bool, rc: int = 0) -> None:
+                             gang: bool, rc: int = 0, fleet=None) -> None:
         """Remember what the live cycle looks like so re-admission can warm
-        exactly it."""
-        self._cycle_sig = (dims, engine, extras, gang, rc)
+        exactly it (`fleet`: the tenant-stack count of a fleet dispatch)."""
+        self._cycle_sig = (dims, engine, extras, gang, rc, fleet)
 
     def _emit(self, kind: str, detail: str = "") -> None:
         sink = self.event_sink
@@ -330,10 +332,10 @@ class DispatchSupervisor:
             self.stats.unhealthy_since = None
             sig = self._cycle_sig
         if self.prewarmer is not None and sig is not None:
-            dims, engine, extras, gang, rc = sig
+            dims, engine, extras, gang, rc, fleet = sig
             try:
                 if self.prewarmer.rewarm(dims, engine=engine, extras=extras,
-                                         gang=gang, rc=rc):
+                                         gang=gang, rc=rc, fleet=fleet):
                     self.stats.rewarms += 1
                     self._emit("rewarm", f"{engine} rc={rc}")
             except Exception:  # noqa: BLE001 - rewarm is an optimization

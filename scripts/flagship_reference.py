@@ -22,6 +22,8 @@ many pods a package places, and a hash of where.
         --path framework|extender|cosched
     JAX_PLATFORMS=cpu python3 scripts/flagship_reference.py --package jax \\
         --path server [--transport http --pods 2000]
+    JAX_PLATFORMS=cpu python3 scripts/flagship_reference.py --package jax \\
+        --path fleet [--tenants 24 --nodes 2000 --pods 2000]
 
 `--path batch` (the default) runs `BatchScheduler.schedule` of the JAX
 package (`kubernetes_tpu`) or of the PyTorch port (`kubernetes_tpu_torch`)
@@ -76,6 +78,15 @@ node) map the apiserver holds and of the first wave's placements (the
 JAX_SERVER constants); `--transport
 http` puts the client on HTTPTransport through an HTTPGateway (phase 11d,
 JAX_SERVER_HTTP, `--pods 2000`).
+
+`--path fleet` runs chip_smoke.py's phase 12a (`fleet_run`): the
+package's FleetServer with `--tenants` tenants (default
+chip_smoke.FLEET_TENANTS) of make_nodes(`--nodes`) and `--pods` pods each
+(defaults chip_smoke.FLEET_NODES, FLEET_PODS), engines by tenant, t00
+under the tight DRF quota, ticked until idle. It prints per tenant the
+bound count and the sha256 of its sorted (pod, node) pairs, the per-tick
+scheduled counts, t00's clamped pods and tick 1's DRF rows per engine group
+(sha256 of admitted, share, dom) — the JAX_FLEET constant.
 
 `--workload gang` is BASELINE config 5 on the batch path: gang_workload_pods
 (jobs of 8 to 64 all-or-nothing members, 2% of them larger than any node);
@@ -180,6 +191,56 @@ def jax_server_api():
         APIServer=APIServer, HTTPGateway=HTTPGateway, Client=Client,
         server=server, made=made, ledger=BindIntentLedger,
         faultline=faultline)
+
+
+def jax_fleet_api():
+    """chip_smoke.port_fleet_api's namespace, from the JAX package (the
+    fleet part phase 12a uses)."""
+    import types as pytypes
+
+    import numpy as np
+
+    from kubernetes_tpu.api import types
+    from kubernetes_tpu.fleet import FleetServer
+    from kubernetes_tpu.fleet import server as fleet_server
+    from kubernetes_tpu.models import workloads
+    from kubernetes_tpu.sched.scheduler import RecordingBinder
+    from kubernetes_tpu.state.dims import Dims, bucket
+
+    made = []
+
+    def fleet(**kw):
+        srv = FleetServer(**kw)
+        srv.prewarmer.enabled = False  # compile-ahead only
+        made.append(srv)
+        return srv
+
+    return pytypes.SimpleNamespace(
+        types=types, workloads=workloads, Dims=Dims, bucket=bucket,
+        fleet=fleet, fleet_module=fleet_server, made=made,
+        RecordingBinder=RecordingBinder, to_np=np.asarray)
+
+
+def fleet_path(args) -> dict:
+    """Phase 12a on the chosen package."""
+    os.environ["KTPU_OVERLOAD"] = "0"
+    import chip_smoke
+
+    if args.package == "jax":
+        api = jax_fleet_api()
+    else:
+        import torch
+
+        api = chip_smoke.port_fleet_api(torch.device(args.device))
+    names = [f"t{k:02d}" for k in range(args.tenants)]
+    t0 = time.perf_counter()
+    out = chip_smoke.fleet_run(api, names=names, n_nodes=args.nodes,
+                               n_pods=args.pods)
+    chip_smoke.check_fleet(out, args.package)
+    return {"package": args.package, "path": "fleet",
+            "tenants": args.tenants, "nodes": args.nodes,
+            "pods": args.pods, "fleet": chip_smoke.fleet_reference(out),
+            "seconds": time.perf_counter() - t0}
 
 
 def server_path(args) -> dict:
@@ -409,9 +470,14 @@ def main() -> int:
                     help="the port's device (ignored for --package jax)")
     ap.add_argument("--path",
                     choices=("batch", "serving", "preempt", "restart",
-                             "framework", "extender", "cosched", "server"),
+                             "framework", "extender", "cosched", "server",
+                             "fleet"),
                     default="batch")
-    ap.add_argument("--nodes", type=int, default=5000)
+    ap.add_argument("--nodes", type=int, default=None,
+                    help="default 5,000 (chip_smoke.FLEET_NODES for "
+                    "--path fleet)")
+    ap.add_argument("--tenants", type=int, default=None,
+                    help="--path fleet: default chip_smoke.FLEET_TENANTS")
     ap.add_argument("--pods", type=int, default=None,
                     help="pending pods (default 50,000 for the batch path, "
                     "chip_smoke.SERVING_PODS for the serving drain)")
@@ -428,6 +494,14 @@ def main() -> int:
                     "transport")
     args = ap.parse_args()
     os.environ["KTPU_ASSIGN"] = args.engine
+    if args.path == "fleet":
+        args.tenants = args.tenants or chip_smoke.FLEET_TENANTS
+        args.nodes = args.nodes or chip_smoke.FLEET_NODES
+        args.pods = args.pods or chip_smoke.FLEET_PODS
+        print(json.dumps(fleet_path(args)))
+        return 0
+    if args.nodes is None:
+        args.nodes = 5000
     if args.path == "server":
         if args.pods is None:
             import chip_smoke

@@ -290,3 +290,47 @@ def test_framework_and_cosched_drains_on_the_card_match_cpu(cuda,
                         for d in ("cuda", "cpu"))]
     assert runs[0] == runs[1]
     assert runs[0][1]["released"] > 0
+
+
+def test_cuda_fleet_ticks_match_cpu_ticks(cuda):
+    """A small mixed-engine fleet (waves, runs, scan; one tenant under a
+    tight DRF quota) ticked to idle on the card and on the CPU: every
+    tenant's bound (pod, node) list and every tick's clamp counts equal, and
+    K1/K2 launched on the card."""
+    from kubernetes_tpu_torch.fleet import FleetServer
+    from kubernetes_tpu_torch.ops import kernels as K
+    from kubernetes_tpu_torch.state.dims import Dims
+
+    def run(device):
+        clk = {"t": 0.0}
+        srv = FleetServer(batch_size=64, base_dims=Dims(N=64, P=64, E=256),
+                          clock=lambda: clk["t"], device=device,
+                          engines={"t00": "waves", "t01": "runs",
+                                   "t02": "scan", "t03": "waves"})
+        binders, clamped = {}, []
+        for k in range(4):
+            name = f"t{k:02d}"
+            binders[name] = ktt.RecordingBinder()
+            t = srv.add_tenant(name, binder=binders[name],
+                               quota=0.01 if k == 0 else 1.0)
+            for n in make_nodes(48):
+                t.on_node_add(n)
+            for p in flagship_pods(150):
+                t.on_pod_add(p)
+        for _ in range(8):
+            tk = srv.tick()
+            clk["t"] += 1.0
+            clamped.append({n: s.drf_clamped
+                            for n, s in tk.per_tenant.items()})
+            if tk.scheduled == 0:
+                break
+        assert srv.total_drf_violations == 0
+        assert srv.total_cross_tenant == 0
+        return {n: b.bound for n, b in binders.items()}, clamped
+
+    K.reset_launch_counts()
+    got = run(cuda)
+    counts = K.launch_counts()
+    assert got == run("cpu")
+    assert counts.get("contention_scan", 0) and counts.get("domain_rank", 0)
+    assert sum(got[1][0].values()) > 0

@@ -548,3 +548,46 @@ def test_sink_retry_budget_absorbs_pushback():
     ev.fail = [429] * 5
     assert not sink.emit("default", "p2", "FailedScheduling", "m", "fp2")
     assert sink.errors == 2
+
+
+def _fleet_explain(side):
+    """test_explain.py's TestFleetExplain on one package: t00's pod fits
+    under its DRF headroom but on no single node; t01's fits."""
+    if side == "jax":
+        from kubernetes_tpu.fleet import FleetServer
+        from kubernetes_tpu.models.workloads import make_nodes
+        from kubernetes_tpu.state.dims import Dims
+        T, kw = JT, {}
+    else:
+        from kubernetes_tpu_torch.fleet import FleetServer
+        from kubernetes_tpu_torch.models.workloads import make_nodes
+        from kubernetes_tpu_torch.state.dims import Dims
+        T, kw = TT, {"device": "cpu"}
+    clk = {"t": 0.0}
+    srv = FleetServer(batch_size=32, base_dims=Dims(N=8, P=32, E=64),
+                      clock=lambda: clk["t"], **kw)
+    srv.prewarmer.enabled = False
+    for k in range(2):
+        t = srv.add_tenant(f"t{k:02d}")
+        for n in make_nodes(4):
+            t.on_node_add(n)
+    srv.tenant("t00").on_pod_add(T.Pod(
+        name="p0", requests=T.Resources.make(cpu="64", memory="16Mi"),
+        creation_index=0))
+    srv.tenant("t01").on_pod_add(_pod(T, 0))
+    return srv, srv.tick()
+
+
+class TestFleetExplain:
+    def test_attribution_is_per_tenant(self, monkeypatch):
+        monkeypatch.setenv("KTPU_EXPLAIN", "1")
+        jsrv, _ = _fleet_explain("jax")
+        srv, tick = _fleet_explain("port")
+        assert tick.per_tenant["t00"].unschedulable == 1
+        assert tick.per_tenant["t01"].scheduled == 1
+        doc = srv.tenant("t00").sched.explainer.why("default/p0")
+        assert doc is not None and doc["reasons"] == {"fit": 4}
+        assert doc["reasons"] == \
+            jsrv.tenant("t00").sched.explainer.why("default/p0")["reasons"]
+        # tenant isolation: t01's explainer never saw t00's pod
+        assert srv.tenant("t01").sched.explainer.why("default/p0") is None

@@ -8,8 +8,9 @@ port's own with the prewarmer off. Also held: the warm dispatch itself on
 the CPU (built from a fresh Encoder at the target Dims, never the live
 cache, launching K1/K2 — K3 for the preemption burst — through their
 wrappers), and warm_patch_ladder's rung count against the JAX package's on
-the same snapshot. The mesh and fleet cases of test_prewarm.py wait for
-ROADMAP items 12 and 13.
+the same snapshot, and test_prewarm.py's fleet cases: the fleet key slot
+never crosses a single-cluster one, and a fleet warm runs the stacked
+dispatch (fleet/cycle.py). Its mesh cases wait for ROADMAP item 13.
 """
 
 import dataclasses
@@ -39,7 +40,7 @@ def spy():
         calls.append((dataclasses.astuple(d), engine, gang))
         ev.set()
 
-    def port_compile(d, engine, extras, gang, rc=0):
+    def port_compile(d, engine, extras, gang, rc=0, fleet=None):
         calls.append((dataclasses.astuple(d), engine, gang))
         ev.set()
 
@@ -228,3 +229,49 @@ def test_patch_ladder_rung_count_matches_jax():
                         cache.warm_patch_ladder(snap))
     assert counts["port"] == counts["jax"]
     assert counts["port"][0] >= 6 and counts["port"][1] == 0
+
+
+class TestFleetKey:
+    def test_fleet_and_single_cluster_never_cross(self):
+        """The tenant-stack signature is a key slot of its own: a K-tenant
+        fleet entry is invisible to a single-cluster lookup at identical
+        dims (and vice versa), across every K."""
+        pw = TPrewarmer(threshold=0.8, min_axis=8, device="cpu")
+        d = TDims().grown_for(N=16, E=16)
+        pw.warm[pw._key(d, "waves", (), False, 0, 8)] = 0.5
+        assert pw.lookup(d, "waves", (), False, fleet=8)
+        assert not pw.lookup(d, "waves", (), False)
+        assert not pw.lookup(d, "waves", (), False, fleet=16)
+        pw.warm.clear()
+        pw.warm[pw._key(d, "waves", (), False, 0)] = 0.5
+        assert pw.lookup(d, "waves", (), False)
+        assert not pw.lookup(d, "waves", (), False, fleet=8)
+
+    def test_fleet_warm_runs_the_stacked_dispatch(self):
+        """ensure_warm(fleet=K) runs a throwaway fleet dispatch of K probe
+        tenants at the signature's dims and records it under the fleet
+        key; the single-cluster slot stays empty, and the warm is
+        idempotent per signature."""
+        import kubernetes_tpu_torch.fleet.cycle as FC
+
+        calls = []
+        orig = FC.dispatch_fleet
+
+        def spy(tables, pending, keys_host, D, existing, engine, quota,
+                **kw):
+            calls.append((tuple(pending.valid.shape), engine))
+            return orig(tables, pending, keys_host, D, existing, engine,
+                        quota, **kw)
+
+        FC.dispatch_fleet = spy
+        try:
+            d = TDims().grown_for(N=16, P=16, E=16)
+            pw = TPrewarmer(threshold=0.8, min_axis=8, device="cpu")
+            assert pw.ensure_warm(d, "waves", fleet=4)
+            pw.wait(120)
+        finally:
+            FC.dispatch_fleet = orig
+        assert calls == [((4, 16), "waves")]
+        assert pw.lookup(d, "waves", (), False, fleet=4)
+        assert not pw.lookup(d, "waves", (), False)
+        assert not pw.ensure_warm(d, "waves", fleet=4)

@@ -577,3 +577,76 @@ def test_profile_trace_holds_the_cycle_range(tmp_path, monkeypatch):
               and c["ts"] <= e["ts"] <= c["ts"] + c["dur"]]
     assert inside
     assert s.telemetry.stop_profile() is None
+
+
+def _fleet(side, quotas, n_pods=6):
+    """test_telemetry.py's fleet: tenants on make_nodes(4) at base dims
+    (8, 32, 64), 10m/8Mi pods, prewarmer off; returns (server, clock)."""
+    if side == "jax":
+        from kubernetes_tpu.fleet import FleetServer
+        from kubernetes_tpu.state.dims import Dims
+        T, nodes, kw = JT, jmake_nodes(4), {}
+    else:
+        from kubernetes_tpu_torch.fleet import FleetServer
+        from kubernetes_tpu_torch.state.dims import Dims
+        T, nodes, kw = TT, make_nodes(4), {"device": "cpu"}
+    clk = {"t": 0.0}
+    srv = FleetServer(batch_size=32, base_dims=Dims(N=8, P=32, E=64),
+                      clock=lambda: clk["t"], **kw)
+    srv.prewarmer.enabled = False
+    for name, quota in quotas:
+        t = srv.add_tenant(name, quota=quota)
+        for n in nodes:
+            t.on_node_add(n)
+        for i in range(n_pods):
+            t.on_pod_add(T.Pod(name=f"{name}-p{i}",
+                               requests=T.Resources.make(cpu="10m",
+                                                         memory="8Mi"),
+                               creation_index=i))
+    return srv, clk
+
+
+@pytest.mark.chaos
+class TestFleetStormDump:
+    def test_storm_degraded_tick_dumps_with_tenant_attribution(self):
+        srv, clk = _fleet("port", [("t00", 1.0), ("t01", 1.0)])
+        srv.tick()
+        clk["t"] += 1.0
+        faultline.install("tenant.storm@t00:1")
+        tk = srv.tick()
+        assert tk.per_tenant["t00"].degraded == 1
+        dump = srv.telemetry.last_dump
+        assert dump is not None and dump["trigger"] == "storm"
+        rec = dump["records"][-1]
+        assert [tuple(e) for e in rec["supervisor_events"]] == \
+            [("storm", "t00")]
+        # per-tenant attribution on the record itself: ONLY t00 degraded
+        assert rec["fleet"]["t00"]["degraded"] == 1
+        assert rec["fleet"]["t01"]["degraded"] == 0
+
+
+class TestDrfClampedMetric:
+    def test_clamp_routes_through_cyclestats_to_metric(self):
+        """The DRF clamp lands in the tenant-labelled metric through
+        CycleStats → observe_fleet_tick, with the JAX package's per-tenant
+        clamp counts."""
+        from kubernetes_tpu_torch.sched.metrics import DRF_CLAMPED
+
+        n_pods = 8
+        # tenant 0 under a quota that funds roughly half its backlog (the
+        # dominant demand at this shape is the implicit pod slot)
+        tight = (n_pods / 2) * (1.0 / (4 * 110.0))
+        quotas = [("q00", tight), ("q01", 1.0)]
+        want = _fleet("jax", quotas, n_pods)[0].tick()
+        srv, _ = _fleet("port", quotas, n_pods)
+        before = DRF_CLAMPED.value(tenant="q00")
+        before_other = DRF_CLAMPED.value(tenant="q01")
+        tk = srv.tick()
+        assert tk.per_tenant["q00"].drf_clamped >= 1
+        assert tk.per_tenant["q01"].drf_clamped == 0
+        assert {n: st.drf_clamped for n, st in tk.per_tenant.items()} == \
+            {n: st.drf_clamped for n, st in want.per_tenant.items()}
+        assert DRF_CLAMPED.value(tenant="q00") - before == \
+            tk.per_tenant["q00"].drf_clamped
+        assert DRF_CLAMPED.value(tenant="q01") == before_other
+        assert DRF_CLAMPED.total() >= DRF_CLAMPED.value(tenant="q00")

@@ -14,7 +14,14 @@ Phases, each fatal on failure (exit code != 0, no result line):
      extreme int32 requests; K2 counters in shared memory and in the
      scratch past 227 KB, one-domain rows, N = 1; K3 at R = 4..8 and, in
      its wide variant, R = 9, 16, 20 and 64 — 33 lanes, extreme int32,
-     INT32_MIN priorities, a 2,000-pod segment);
+     INT32_MIN priorities, a 2,000-pod segment; K4 on encoded workloads
+     (k4_edge_cases: identical nodes, a pod that fits nowhere, one pinned
+     to a missing node, invalid and padding rows, each Filter flag off,
+     R = 4 and 16, host ports at PWt == PWp, volumes at driver limits,
+     N = 1, 1,023, 1,025, 5,120 and 29,000 on the hostname key, no terms)
+     — every node and all nine state planes, WSYM bitwise, the initial
+     state untouched — and K4 refusing an even-spread total past 2^24,
+     k4_even_bound_case);
   3. the flagship cycle — 5,000 nodes × 50,000 pods (models/workloads.py
      make_nodes / flagship_pods) — through BatchScheduler(device="cuda"):
      launch counts of the cycle, placements and final state planes against
@@ -64,7 +71,8 @@ Phases, each fatal on failure (exit code != 0, no result line):
      placement sha256, class runs and collapse ratio equal the JAX
      package's, every run through the closed form, epochs per dispatch,
      cold and median warm cycle; 8b the scan and the runs engine on 2,000
-     pods, placements bit-equal; 8c Scheduler(device="cuda") draining the
+     pods, placements bit-equal, the scan through K4 (launched, the plain
+     scan not called; K4 equal to it over the first 256 rows); 8c Scheduler(device="cuda") draining the
      backlog in waves of 4,096 — per-wave counts, class runs and the
      binder's order equal the JAX package's, per-wave times;
   9. the serving Scheduler's resilience layer (KTPU_OVERLOAD=0): 9a a
@@ -113,7 +121,22 @@ Phases, each fatal on failure (exit code != 0, no result line):
      servers, the leader killed at post_bind of its second intent wave,
      the standby's takeover binding every pod exactly once, a stale-token
      Binding refused by the fence; 11d 2,000 pods over HTTPTransport
-     through an HTTPGateway against JAX_SERVER_HTTP.
+     through an HTTPGateway against JAX_SERVER_HTTP;
+ 12. the fleet on one card: 12a 24 tenants x make_nodes(2000) x 2,000 pods
+     through FleetServer(device="cuda"), engines waves/runs/scan by tenant,
+     against JAX_FLEET and each engine's solo run, with K1/K2/K4 launches
+     per tick (the scan tenants and the runs tenants' fallback through
+     K4, the plain scan never called), the stack patched in place
+     (donated_patches > 0, no donation failure), the steady tick's split;
+     12b tick 1's DRF rows on the card against the CPU; 12c the watch
+     plane with a stream killed and revived;
+ 13. the sequential-assume scan at full width on make_nodes(5000): 13a
+     BatchScheduler(device="cuda") on flagship_pods(10000) with every
+     hundredth pod pinned by spec.nodeName (the nodeName route), 13b
+     port_volume_workload(5000, 5000) under KTPU_ASSIGN=scan; each against
+     JAX_SCAN, K4 launched and the plain scan not called on the route, K4
+     equal to its plain version over the first 256 rows; K4's device time
+     per launch and per step.
 
 Prints a `kernels` JSON line, the nvidia-smi name/power line, and last
 `{"ok": true, "device": {...}}`. Imports nothing of JAX.
@@ -121,6 +144,7 @@ Prints a `kernels` JSON line, the nvidia-smi name/power line, and last
 
 from __future__ import annotations
 
+import dataclasses
 import hashlib
 import json
 import statistics
@@ -839,6 +863,522 @@ def check_k3(device, cases) -> int:
             fail(f"reprieve_scan disagrees with its plain version ({name})")
         err = max(err, d)
     return err
+
+
+# --------------------------------------------------------------------------- #
+# K4: the sequential-assume scan (phase 2's cases, phase 13)
+# --------------------------------------------------------------------------- #
+
+K4_SOURCE = "kubernetes_tpu_torch/csrc/assign_scan.cu"
+SCAN_ZONES = ("z-a", "z-b", "z-c")
+LEGACY_ZONE = "failure-domain.beta.kubernetes.io/zone"
+
+
+def scan_workload(T, n_nodes: int, n_pods: int, seed: int = 0,
+                  identical: bool = False, scalars: int = 0,
+                  terms: bool = True, hostname: bool = False,
+                  n_existing: int = None):
+    """Phase 2's K4 workloads from the api.types module T (the port's, or
+    the JAX package's for the CPU tests): n_nodes nodes over three zones
+    (a fifth also with the legacy zone label only; `identical` gives every
+    node the same capacity, so scores tie), some with per-driver volume
+    limits; n_existing pods bound (default a quarter of n_pods) and n_pods
+    pending, random templates over six apps: required affinity and
+    anti-affinity, preferred affinity and anti-affinity, hard and soft
+    spread (on the hostname key with `hostname`: D ≈ N), SelectorSpread
+    selectors, host ports (two pairs and two triples: PWt == PWp), pd
+    volumes, `scalars` extended resources (R = 4 + scalars, bucketed),
+    three priorities. One pending pod fits nowhere, one is pinned by
+    spec.nodeName to a missing node, a few to real ones. `terms=False`
+    leaves out every affinity, spread and selector (no term is
+    interned)."""
+    import random
+
+    rng = random.Random(seed)
+    host = "kubernetes.io/hostname"
+    zone = "topology.kubernetes.io/zone"
+    scal = [f"example.com/r{k}" for k in range(scalars)]
+    nodes = []
+    for i in range(n_nodes):
+        labels = {host: f"n{i}"}
+        z = SCAN_ZONES[i % 3]
+        if i % 5 == 4:
+            labels[LEGACY_ZONE] = z
+        elif identical or rng.random() < 0.9:
+            labels[zone] = z
+        if identical:
+            alloc = T.Resources.make(cpu="4", memory="8Gi", pods=20,
+                                     scalars={r: 4 for r in scal} or None)
+        else:
+            alloc = T.Resources.make(
+                cpu=rng.choice(["1", "2", "4", "8"]),
+                memory=rng.choice(["2Gi", "4Gi", "8Gi"]),
+                pods=rng.choice([3, 10, 110]),
+                scalars={r: rng.randint(0, 4) for r in scal} or None)
+        limits = {"pd": rng.randint(1, 3)} if rng.random() < 0.5 else {}
+        nodes.append(T.Node(name=f"n{i}", labels=labels, allocatable=alloc,
+                            volume_limits=limits))
+
+    def sel():
+        return T.LabelSelector.of(match_labels={"app": f"a{rng.randrange(6)}"})
+
+    def key():
+        return host if hostname or rng.random() < 0.4 else zone
+
+    def pod(i, node_name=""):
+        aff = T.Affinity()
+        spread, ssel = (), ()
+        if terms:
+            w = lambda: T.WeightedPodAffinityTerm(
+                weight=rng.randint(1, 100),
+                term=T.PodAffinityTerm(selector=sel(), topology_key=key()))
+            aff = T.Affinity(
+                pod_required=tuple(
+                    T.PodAffinityTerm(selector=sel(), topology_key=key())
+                    for _ in range(rng.random() < 0.2)),
+                anti_required=tuple(
+                    T.PodAffinityTerm(selector=sel(), topology_key=key())
+                    for _ in range(rng.random() < 0.25)),
+                pod_preferred=tuple(w() for _ in range(rng.random() < 0.3)),
+                anti_preferred=tuple(w() for _ in range(rng.random() < 0.3)))
+            if rng.random() < 0.4:
+                spread = (T.TopologySpreadConstraint(
+                    max_skew=rng.randint(1, 2),
+                    topology_key=host if hostname else zone,
+                    when_unsatisfiable=rng.choice(
+                        list(T.UnsatisfiableAction)),
+                    selector=sel()),)
+            if rng.random() < 0.3:
+                ssel = (sel(),)
+        ports = ()
+        if rng.random() < 0.2:
+            ports = (T.HostPort(rng.choice([80, 8080]), "TCP",
+                                rng.choice(["", "10.0.0.1"])),)
+        vols = ()
+        if rng.random() < 0.3:
+            vols = tuple(T.VolumeRef(rng.choice(["v1", "v2", "v3", "v4"]),
+                                     driver="pd",
+                                     read_only=rng.random() < 0.4)
+                         for _ in range(rng.randint(1, 2)))
+        sc = ({rng.choice(scal): rng.randint(1, 2)}
+              if scal and rng.random() < 0.3 else None)
+        return T.Pod(
+            name=f"p{i}", labels={"app": f"a{rng.randrange(6)}"},
+            requests=T.Resources.make(
+                cpu=rng.choice(["0", "100m", "500m", "2"]),
+                memory=rng.choice(["0", "128Mi", "1Gi"]), scalars=sc),
+            affinity=aff, topology_spread=spread, spread_selectors=ssel,
+            host_ports=ports, volumes=vols, priority=rng.randrange(3),
+            creation_index=i, node_name=node_name)
+
+    n_existing = n_pods // 4 if n_existing is None else n_existing
+    existing = [pod(n_pods + i, node_name=f"n{rng.randrange(n_nodes)}")
+                for i in range(n_existing)]
+    pending = [pod(i) for i in range(n_pods)]
+    pending[0] = T.Pod(name="p0-huge", requests=T.Resources.make(cpu="1000"),
+                       creation_index=0)
+    if n_pods > 1:
+        pending[1] = T.Pod(name="p1-ghost", node_name="ghost",
+                           requests=T.Resources.make(cpu="100m"),
+                           creation_index=1)
+    for i in range(2, n_pods, 37):
+        pending[i] = dataclasses.replace(pending[i],
+                                       node_name=f"n{rng.randrange(n_nodes)}")
+    return nodes, existing, pending
+
+
+# Phase 13: the sequential-assume scan at full width on make_nodes(5000).
+# 13a: flagship_pods(SCAN_PODS) with every SCAN_PIN_EVERY-th pending pod
+# pinned by spec.nodeName (one pinned pod routes the whole batch to the
+# scan); 13b: port_volume_workload(SCAN_NODES, SCAN_PV_PODS) under
+# KTPU_ASSIGN=scan. K4 is held to its plain version over the first
+# SCAN_CHECK_STEPS steps of each queue (the plain version takes ~8 ms a
+# step on the card).
+SCAN_NODES, SCAN_PODS, SCAN_PIN_EVERY = 5000, 10000, 100
+SCAN_PV_PODS = 5000
+SCAN_CHECK_STEPS = 256
+# The JAX package's BatchScheduler on both (JAX 0.9.0 on the CPU): the
+# scheduled count and the sha256 over the assignments. Reproduce with
+# `JAX_PLATFORMS=cpu python3 scripts/flagship_reference.py --package jax
+# --path scan` (35 s and 19 s on the CPU).
+JAX_SCAN = {
+    "nodename": {"scheduled": 6792, "sha256":
+                 "2a14153c3086899d5692838b478c2cd867dbe4e999491fae9e20533590d91e5c"},
+    "ports_volumes": {"scheduled": 5000, "sha256":
+                      "76a2099cea74e5522ef7fe47695b8c36c8cadb52142ea0f7242ac3c822088623"},
+}
+
+
+def pinned_flagship(workloads, n_nodes: int, n_pods: int):
+    """13a's input: make_nodes(n_nodes) and flagship_pods(n_pods) with every
+    SCAN_PIN_EVERY-th pending pod pinned by spec.nodeName to
+    node-(7·i mod n_nodes)."""
+    nodes = workloads.make_nodes(n_nodes)
+    pods = workloads.flagship_pods(n_pods)
+    for i in range(0, n_pods, SCAN_PIN_EVERY):
+        pods[i] = dataclasses.replace(pods[i],
+                                    node_name=f"node-{7 * i % n_nodes}")
+    return nodes, pods
+
+
+def scan_inputs(types, workloads, key: str, n_nodes: int = None):
+    """Phase 13's two batches from the given package's api.types and
+    models.workloads: (nodes, pods, KTPU_ASSIGN or None) for key
+    "nodename" (13a) or "ports_volumes" (13b)."""
+    n_nodes = n_nodes or SCAN_NODES
+    if key == "nodename":
+        return (*pinned_flagship(workloads, n_nodes, SCAN_PODS), None)
+    return (*port_volume_workload(n_nodes, SCAN_PV_PODS, types, workloads),
+            "scan")
+
+
+def scan_case(device, nodes, existing, pods, ecfg=None,
+              hard_weight: float = 1.0, invalid_every: int = 0,
+              trim: bool = False):
+    """One K4 input, from the port's encoder on `device`: (tables, cycle,
+    pending pods, the queue order, the initial state). `invalid_every`
+    marks every such pending pod invalid (as a quota clamp does); `trim`
+    cuts the node axis to the real nodes, so N is exactly len(nodes)."""
+    import torch
+    from kubernetes_tpu_torch.ops.assign import initial_state, queue_order
+    from kubernetes_tpu_torch.sched.cycle import (UNSCHEDULABLE_TAINT_KEY,
+                                                  _cycle)
+    from kubernetes_tpu_torch.state.arrays import tables_to_torch
+    from kubernetes_tpu_torch.state.encode import Encoder
+
+    enc = Encoder()
+    enc.vocabs.label_keys.intern(UNSCHEDULABLE_TAINT_KEY)
+    enc.vocabs.label_vals.intern("")
+    tables, ex, pe, d = enc.encode_cluster(nodes, existing, pods)
+    keys = (enc.vocabs.label_keys.get(UNSCHEDULABLE_TAINT_KEY),
+            enc.vocabs.label_vals.get(""))
+    tt, (ext, pet) = tables_to_torch(tables, (ex, pe), device)
+    if trim:
+        tt = tt._replace(nodes=type(tt.nodes)(
+            *(f[:len(nodes)] for f in tt.nodes)))
+    cyc = _cycle(tt, ext, keys, d.D, hard_weight, ecfg)
+    if invalid_every:
+        i = torch.arange(pet.valid.shape[0], device=device)
+        pet = pet._replace(valid=pet.valid & (i % invalid_every != 0))
+    return (tt, cyc, pet, queue_order(pet).to(torch.int32),
+            initial_state(tt, cyc))
+
+
+def k4_edge_cases(device, seed: int = 0):
+    """Phase 2's K4 cases: a mixed workload with invalid rows, identical
+    nodes (ties), each of the ten Filter flags off in turn, non-default
+    weights with hardPodAffinitySymmetricWeight 2, R = 16 (twelve scalar
+    resources), no terms, N = 1, 1,023, 1,025 and 5,120 on the hostname
+    key (D ≈ N: the histogram in shared memory), and 29,000 hostname
+    domains (the histogram in global memory). Every workload holds a pod
+    that fits nowhere, one pinned to a missing node, pods pinned to real
+    ones, host ports at PWt == PWp and pd volumes at per-node limits."""
+    from kubernetes_tpu_torch.api import types as T
+    from kubernetes_tpu_torch.ops.lattice import default_engine_config
+
+    cfg = default_engine_config()
+    flags = ("f_unsched", "f_name", "f_ports", "f_node_affinity", "f_fit",
+             "f_taints", "f_interpod", "f_spread", "f_volrestrict",
+             "f_vollimits")
+    cases = [
+        ("mixed N=60 R=4, every 7th row invalid",
+         scan_case(device, *scan_workload(T, 60, 150, seed),
+                   invalid_every=7)),
+        ("identical nodes N=33 (ties)",
+         scan_case(device, *scan_workload(T, 33, 120, seed + 1,
+                                          identical=True))),
+    ]
+    for k, f in enumerate(flags):
+        cases.append((f"{f} off N=48", scan_case(
+            device, *scan_workload(T, 48, 100, seed + 10 + k),
+            ecfg=cfg._replace(**{f: 0.0}))))
+    cases += [
+        ("weights least 0.5 most 1 interpod 2 ssel 3, hard weight 2",
+         scan_case(device, *scan_workload(T, 48, 120, seed + 2),
+                   ecfg=cfg._replace(w_least=0.5, w_most=1.0,
+                                     w_interpod=2.0, w_ssel=3.0),
+                   hard_weight=2.0)),
+        ("R=16 (12 scalar resources) N=64",
+         scan_case(device, *scan_workload(T, 64, 150, seed + 3,
+                                          scalars=12))),
+        ("no terms N=64", scan_case(device, *scan_workload(
+            T, 64, 150, seed + 4, terms=False))),
+        ("N=1", scan_case(device, *scan_workload(T, 1, 12, seed + 5),
+                          trim=True)),
+        ("N=1023 hostname key (D = N)", scan_case(
+            device, *scan_workload(T, 1023, 100, seed + 6, hostname=True),
+            trim=True)),
+        ("N=1025 hostname key (D = N)", scan_case(
+            device, *scan_workload(T, 1025, 100, seed + 7, hostname=True),
+            trim=True)),
+        ("N=5120 hostname key (D = N)", scan_case(
+            device, *scan_workload(T, 5120, 150, seed + 8, hostname=True),
+            trim=True)),
+        ("N=29000 hostname key (the histogram in global memory)",
+         scan_case(device, *scan_workload(T, 29000, 12, seed + 9,
+                                          hostname=True), trim=True)),
+    ]
+    return cases
+
+
+def k4_diff(a, b) -> int:
+    """Largest difference between two (node, state) results of the scan:
+    every node index and all nine state planes, WSYM by its bits."""
+    import torch
+
+    (na, sa), (nb, sb) = a, b
+    d = 0
+    for x, y in [(na, nb)] + list(zip(sa, sb)):
+        if x.shape != y.shape or x.dtype != y.dtype:
+            fail(f"K4: {tuple(x.shape)} {x.dtype} != {tuple(y.shape)} "
+                 f"{y.dtype}")
+        if x.dtype == torch.float32:
+            x, y = x.view(torch.int32), y.view(torch.int32)
+        if x.numel():
+            d = max(d, int((x.to(torch.int64) - y.to(torch.int64)).abs()
+                           .max()))
+    return d
+
+
+def check_k4(device, cases) -> int:
+    """K4 against its plain version on the card, exactly: every node and
+    all nine planes (WSYM bitwise); the initial state unchanged by the
+    kernel. Returns the max abs error."""
+    import torch
+    from kubernetes_tpu_torch.ops import kernels as K
+    from kubernetes_tpu_torch.ops.assign import assign_scan_plain
+
+    err = 0
+    for name, args in cases:
+        before = [t.clone() for t in args[4]]
+        got = K.assign_scan(*args)
+        sync(device)
+        if not all(torch.equal(x, y) for x, y in zip(before, args[4])):
+            fail(f"assign_scan wrote its initial state ({name})")
+        d = k4_diff(got, assign_scan_plain(*args))
+        pods = args[2]
+        placed = int((got[0] >= 0).sum())
+        print(f"  K4 {name}: N={args[0].nodes.valid.shape[0]} "
+              f"S={args[1].TM.shape[0]} D+1={args[1].ELD.shape[2]} "
+              f"R={args[0].nodes.alloc.shape[1]}, {int(pods.valid.sum())} "
+              f"valid rows, {placed} placed; max_abs_err={d}")
+        if d != 0:
+            fail(f"assign_scan disagrees with its plain version ({name})")
+        err = max(err, d)
+    return err
+
+
+def k4_device_fn(args):
+    """K4's launch alone on checked inputs, with no status readback, so
+    device_ms's GPU spin can hold the stream while the launches queue."""
+    from kubernetes_tpu_torch.ops import kernels as K
+
+    device = args[4].used.device
+    ins = K.k4_inputs(*args)
+    dims = K.k4_check(ins, device)
+    return lambda: K._k4_launch(ins, dims, args[1].ecfg, type(args[4]),
+                                device)
+
+
+def k4_bound(args) -> tuple:
+    """(bound_ms, bound_by) for K4 on `args`, counted from this run's data.
+    Bytes: each input read once and each output (node, the nine state
+    planes) written once. Operations, for each walked row of class c: on
+    the valid nodes c's static Filter row passes, the fit test over R
+    slots (under f_fit), the port words where c has a port set (under
+    f_ports), the volume words and per-driver popcounts where c has a
+    volume set (under f_volrestrict / f_vollimits); on every valid node a
+    few for each term slot of c and each term c matches (the spread
+    histograms, the domain totals); the Score's ~60 on each (row, node)
+    pair the Filter passed (K4's own count, read from one launch on these
+    inputs); and per placed row the commit over the S terms."""
+    import torch
+    from kubernetes_tpu_torch.ops import kernels as K
+    from kubernetes_tpu_torch.ops.lattice import _on
+
+    tables, cyc, pods, rows, init = args
+    device = init.used.device
+    ins = K.k4_inputs(*args)
+    d = K.k4_check(ins, device)
+    node, _, _, scored = k4_device_fn(args)()
+    sync(device)
+    walked = rows.long()[pods.valid[rows.long()]]
+    c = pods.cls[walked].long()
+    placed = int((node[walked] >= 0).sum())
+    cl, ecfg, valid = tables.classes, cyc.ecfg, tables.nodes.valid
+    i64 = lambda t: t.to(torch.int64)  # noqa: E731
+    static = i64((cyc.static.mask & valid).sum(1))               # [SC]
+    slots = sum(i64((getattr(cl, f) >= 0).sum(1)) for f in (
+        "aff_terms", "anti_terms", "paff_terms", "panti_terms", "tsc_term",
+        "ssel_terms"))
+    matched = i64(cyc.TM.sum(0))                                 # [SC]
+    per_node = (6 * d["R"] * int(_on(ecfg.f_fit))
+                + i64(cl.portset >= 0) * (4 * (2 * d["PWp"] + d["PWt"])
+                                         * int(_on(ecfg.f_ports)))
+                + i64(cl.volset >= 0) * (
+                    4 * d["VW"] * int(_on(ecfg.f_volrestrict))
+                    + 3 * d["DR"] * d["VW"] * int(_on(ecfg.f_vollimits))))
+    per_row = static * per_node + int(valid.sum()) * 4 * (slots + matched)
+    ops = (int(per_row[c].sum()) + 60 * int(scored)
+           + placed * d["S"] * 8)
+    b = nbytes(ins.values()) + nbytes(init) + 4 * d["P"]
+    t_b, t_o = b / HBM_BYTES_PER_S, ops / CUDA_CORE_OPS_PER_S
+    return (max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations")
+
+
+def k4_even_bound_case(device):
+    """A K4 input whose even-spread total passes 2^24 while every node's
+    own count stays far below it: 64 identical nodes over three zones,
+    8 pending pods with a ScheduleAnyway zone spread over their own app,
+    and existing pods standing for 20,000 matching pods on every node
+    (the spread term's CNT raised to that). Each node's count is its
+    zone's, ~430,000; the eligible nodes' total ~27.5 million. The plain
+    version sums that total in f32, which rounds past 2^24, so K4 must
+    refuse it (K4_STATUS's even-spread bit) — whatever share of the
+    nodes one thread owns."""
+    from kubernetes_tpu_torch.api import types as T
+
+    zone, host = "topology.kubernetes.io/zone", "kubernetes.io/hostname"
+    nodes = [T.Node(name=f"n{i}",
+                    labels={host: f"n{i}", zone: SCAN_ZONES[i % 3]},
+                    allocatable=T.Resources.make(cpu="4", memory="8Gi",
+                                                 pods=110))
+             for i in range(64)]
+    app = T.LabelSelector.of(match_labels={"app": "even"})
+    spread = (T.TopologySpreadConstraint(
+        max_skew=1, topology_key=zone,
+        when_unsatisfiable=T.UnsatisfiableAction.SCHEDULE_ANYWAY,
+        selector=app),)
+    pods = [T.Pod(name=f"e{i}", labels={"app": "even"},
+                  requests=T.Resources.make(cpu="100m"),
+                  topology_spread=spread, creation_index=i)
+            for i in range(8)]
+    existing = [dataclasses.replace(pods[0], name="e-bound", node_name="n0",
+                                    creation_index=8)]
+    tables, cyc, pe, rows, init = scan_case(device, nodes, existing, pods)
+    cl = tables.classes
+    soft = (cl.tsc_term >= 0) & ~cl.tsc_hard
+    terms = cl.tsc_term[soft].unique().long()
+    CNT = init.CNT.clone()
+    CNT[terms] = (tables.nodes.valid.to(CNT.dtype) * 20000)[None]
+    return tables, cyc, pe, rows, init._replace(CNT=CNT)
+
+
+def check_k4_status(device) -> None:
+    """K4 refuses an input whose even-spread total passes 2^24 (the plain
+    version's f32 sum would round): the wrapper raises, naming the bit."""
+    from kubernetes_tpu_torch.ops import kernels as K
+
+    try:
+        K.assign_scan(*k4_even_bound_case(device))
+    except ValueError as e:
+        if "even-spread total" not in str(e):
+            fail(f"K4 refused the even-spread case for another reason: {e}")
+        print(f"  K4 even-spread total past 2^24: refused ({e})")
+        return
+    fail("K4 took an even-spread total past 2^24 without raising")
+
+
+def check_k4_steps(device, args, steps: int, label: str) -> tuple:
+    """K4 against its plain version over the first `steps` rows of a
+    recorded scan, exactly. Returns (max abs error, the plain version's
+    seconds, the sub-scan's args)."""
+    from kubernetes_tpu_torch.ops import kernels as K
+    from kubernetes_tpu_torch.ops.assign import assign_scan_plain
+
+    tables, cyc, pods, rows, init = args
+    sub = (tables, cyc, pods, rows[:steps].contiguous(), init)
+    t0 = time.perf_counter()
+    want = assign_scan_plain(*sub)
+    sync(device)
+    plain_s = time.perf_counter() - t0
+    d = k4_diff(K.assign_scan(*sub), want)
+    sync(device)
+    if d != 0:
+        fail(f"{label}: assign_scan disagrees with its plain version over "
+             f"the first {steps} rows (max_abs_err={d})")
+    return d, plain_s, sub
+
+
+def scan_phase(device, card: str) -> dict:
+    """Phase 13 on the card: 13a the nodeName route and 13b KTPU_ASSIGN=scan
+    through BatchScheduler(device), each against JAX_SCAN (scheduled count,
+    placement sha256); K4 launched on the route and the plain version not
+    called there (counts set to 0 just before the cycle, read just after);
+    K4 against its plain version over the first SCAN_CHECK_STEPS rows; the
+    full launch's device time and the time per step."""
+    import os
+
+    from kubernetes_tpu_torch import BatchScheduler
+    from kubernetes_tpu_torch.api import types
+    from kubernetes_tpu_torch.models import workloads
+    from kubernetes_tpu_torch.ops import assign as A
+    from kubernetes_tpu_torch.ops import kernels as K
+
+    if JAX_SCAN is None:
+        fail("phase 13: JAX_SCAN is not recorded")
+    out = {}
+    for key, label in (("nodename", "13a"), ("ports_volumes", "13b")):
+        nodes, pods, engine = scan_inputs(types, workloads, key)
+        saved = os.environ.get("KTPU_ASSIGN")
+        if engine:
+            os.environ["KTPU_ASSIGN"] = engine
+        rec = Recorder(A, "assign_scan")
+        try:
+            sched = BatchScheduler(device=device)
+            K.reset_launch_counts()
+            A.assign_scan_plain.calls = 0
+            t0 = time.perf_counter()
+            res = sched.schedule(nodes, [], pods)
+            sync(device)
+            wall = time.perf_counter() - t0
+            launches = K.launch_counts()
+            plain_calls = A.assign_scan_plain.calls
+        finally:
+            rec.restore()
+            if saved is None:
+                os.environ.pop("KTPU_ASSIGN", None)
+            else:
+                os.environ["KTPU_ASSIGN"] = saved
+        got = {"scheduled": res.scheduled,
+               "sha256": assignments_sha256(res.assignments)}
+        ref = JAX_SCAN[key]
+        if got != {k: ref[k] for k in got}:
+            fail(f"{label}: {got} differs from JAX_SCAN's "
+                 f"{ {k: ref[k] for k in got} }")
+        if device.type == "cuda" and (launches["assign_scan"] < 1
+                                      or plain_calls):
+            fail(f"{label}: K4 launched {launches['assign_scan']} times, "
+                 f"the plain version called {plain_calls} times")
+        args = rec.args
+        err, plain_s, sub = check_k4_steps(device, args, SCAN_CHECK_STEPS,
+                                           label)
+        steps = int(args[2].valid.sum())
+        ms = device_ms(k4_device_fn(args), device, reps=3)
+        sub_ms = device_ms(k4_device_fn(sub), device, reps=5)
+        call_ms = time_ms(lambda: K.assign_scan(*args), device, reps=3)
+        b, by = k4_bound(args)
+        out[key] = dict(
+            nodes=len(nodes), pods=len(pods), steps=steps,
+            scheduled=res.scheduled, cycle_s=wall, launches=launches,
+            plain_calls=plain_calls, max_abs_err=err, ms=ms,
+            step_us=ms / max(steps, 1) * 1e3, call_ms=call_ms,
+            check_steps=SCAN_CHECK_STEPS, check_ms=sub_ms,
+            plain_ms=plain_s * 1e3,
+            plain_step_ms=plain_s * 1e3 / SCAN_CHECK_STEPS,
+            bound_ms=b, bound_by=by)
+        r = out[key]
+        r["check_bound_ms"], r["check_bound_by"] = k4_bound(sub)
+        print(f"  {label}: {len(nodes)} nodes x {len(pods)} pods, "
+              f"{res.scheduled} scheduled == JAX_SCAN, placement sha256 "
+              f"equal; cycle {wall:.3f} s; launches {launches}, plain "
+              f"calls {plain_calls}; K4 {ms:.3f} ms on the device for "
+              f"{steps} steps ({r['step_us']:.2f} us a step; {call_ms:.3f} "
+              f"ms a call; bound {b:.6f} ms by {by}); the first "
+              f"{SCAN_CHECK_STEPS} rows: K4 {sub_ms:.3f} ms, plain "
+              f"{r['plain_ms']:.1f} ms ({r['plain_step_ms']:.3f} ms a "
+              f"step), max_abs_err={err} ({card})")
+    return out
 
 
 def sync(device) -> None:
@@ -1724,10 +2264,26 @@ def most_rows(args) -> int:
     return args[0].shape[0]
 
 
+def own(x):
+    """`x` with every torch tensor in it cloned: tuples, NamedTuples and
+    lists rebuilt around the copies, anything else (a JAX array, a number)
+    as it is. What a recorder keeps must not move when the main path later
+    writes its tensors in place (the fleet's stack, B13a)."""
+    if hasattr(x, "clone") and hasattr(x, "data_ptr"):
+        return x.clone()
+    if isinstance(x, tuple):
+        kids = [own(k) for k in x]
+        return type(x)(*kids) if hasattr(x, "_fields") else tuple(kids)
+    if isinstance(x, list):
+        return [own(k) for k in x]
+    return x
+
+
 class Recorder:
     """Keeps a copy of a kernel wrapper's inputs while the main path runs
     (the shapes and data the cycle really gives it): the first call's, or
-    with `key` the call's whose key(args) is largest (the first of those)."""
+    with `key` the call's whose key(args) is largest (the first of those).
+    Every tensor is copied, inside the tables and cycle K4 takes too."""
 
     def __init__(self, module, name, key=None):
         self.module, self.name = module, name
@@ -1737,8 +2293,7 @@ class Recorder:
         def rec(*args):
             k = None if key is None else key(args)
             if self.args is None or (k is not None and k > self.best):
-                self.args = tuple(a.clone() if hasattr(a, "clone") else a
-                                  for a in args)
+                self.args = own(args)
                 self.best = k
             return self.fn(*args)
 
@@ -2541,6 +3096,7 @@ def runs_phase(device) -> dict:
     from kubernetes_tpu_torch import BatchScheduler
     from kubernetes_tpu_torch.models.workloads import (deployment_backlog_pods,
                                                        make_nodes)
+    from kubernetes_tpu_torch.ops import assign as A
     from kubernetes_tpu_torch.ops import kernels as K
     from kubernetes_tpu_torch.ops import runs as RN
 
@@ -2597,25 +3153,43 @@ def runs_phase(device) -> dict:
         t_phase = time.perf_counter()
         small = deployment_backlog_pods(CLASSES_SCAN_PODS,
                                         deployments=CLASSES_SCAN_DEPLOYMENTS)
-        cmp = {}
+        cmp, k4 = {}, {}
         for engine in ("scan", "runs"):
             os.environ["KTPU_ASSIGN"] = engine
+            sched = BatchScheduler(device=device)
+            rec = Recorder(A, "assign_scan")
+            K.reset_launch_counts()
+            A.assign_scan_plain.calls = 0
             t0 = time.perf_counter()
-            r = BatchScheduler(device=device).schedule(nodes, [], small)
-            sync(device)
+            try:
+                r = sched.schedule(nodes, [], small)
+                sync(device)
+            finally:
+                rec.restore()
             cmp[engine] = (r.assignments, time.perf_counter() - t0)
+            k4[engine] = (K.launch_counts()["assign_scan"],
+                          A.assign_scan_plain.calls)
+            if engine == "scan":
+                out["k4_err"] = check_k4_steps(device, rec.args,
+                                               SCAN_CHECK_STEPS, "8b")[0]
         if cmp["scan"][0] != cmp["runs"][0]:
             bad = sum(a != b for a, b in zip(cmp["scan"][0], cmp["runs"][0]))
             fail(f"the runs engine's placements differ from the scan's "
                  f"({bad} pods)")
+        if device.type == "cuda" and (k4["scan"][0] < 1
+                                      or k4["scan"][1] or k4["runs"][1]):
+            fail(f"8b: K4 (launches, plain calls) by engine {k4}")
         print(f"  8b: {CLASSES_SCAN_PODS} pods of {CLASSES_SCAN_DEPLOYMENTS} "
               f"deployments: runs equal to the scan, placements bit-equal "
               f"({sum(a is not None for a in cmp['runs'][0])} placed); scan "
-              f"{cmp['scan'][1]:.3f} s, runs {cmp['runs'][1]:.3f} s "
+              f"{cmp['scan'][1]:.3f} s, runs {cmp['runs'][1]:.3f} s; K4 "
+              f"(launches, plain calls) {k4} "
               f"({time.perf_counter() - t_phase:.1f} s)")
         out["scan_vs_runs"] = {"pods": CLASSES_SCAN_PODS,
                                "scan_s": cmp["scan"][1],
-                               "runs_s": cmp["runs"][1]}
+                               "runs_s": cmp["runs"][1],
+                               "k4_launches": {e: v[0]
+                                               for e, v in k4.items()}}
 
         t_phase = time.perf_counter()
         os.environ["KTPU_ASSIGN"] = "runs"
@@ -4107,7 +4681,9 @@ def fleet_run(api, names=None, n_nodes: int = None, n_pods: int = None,
 
     def capture(*a, **kw):
         out = orig(*a, **kw)
-        captured.setdefault(a[5], (a, out))
+        if a[5] not in captured:
+            # a copy: the resident stack is patched in place next tick
+            captured[a[5]] = (own(a), out)
         return out
 
     ticks = []
@@ -4314,8 +4890,10 @@ def fleet_phase(device, card: str) -> dict:
     import torch
 
     from kubernetes_tpu_torch.fleet.quota import drf_admission_rows
+    from kubernetes_tpu_torch.ops import assign as A
     from kubernetes_tpu_torch.ops import kernels as K
     from kubernetes_tpu_torch.ops import preempt as OP
+    from kubernetes_tpu_torch.ops import runs as RN
     from kubernetes_tpu_torch.ops import waves as W
     from kubernetes_tpu_torch.state.arrays import to_device
 
@@ -4325,6 +4903,10 @@ def fleet_phase(device, card: str) -> dict:
     t0 = time.perf_counter()
     recs = [Recorder(W, "contention_scan"), Recorder(W, "domain_rank"),
             Recorder(OP, "reprieve_scan")]
+    # K4's calls from the scan tenants (the longest: a whole batch) and
+    # from the runs tenants' fallback
+    k4_rec = Recorder(A, "assign_scan", key=lambda a: a[3].shape[0])
+    k4_runs = Recorder(RN, "assign_scan")
     per_tick = []
 
     def after_tick(i, tk):
@@ -4332,17 +4914,27 @@ def fleet_phase(device, card: str) -> dict:
         per_tick.append(c)
 
     K.reset_launch_counts()
+    A.assign_scan_plain.calls = 0
+    RN.reset_run_stats()
     try:
         a = fleet_run(api, after_tick=after_tick)
     finally:
         counts = K.launch_counts()
-        for r in recs:
+        plain_calls = A.assign_scan_plain.calls
+        fallback_runs = RN.assign_runs.stats["fallback"]
+        for r in recs + [k4_rec, k4_runs]:
             r.restore()
     launches = [{k: c.get(k, 0) - (per_tick[i - 1].get(k, 0) if i else 0)
                  for k in ("contention_scan", "domain_rank",
-                           "reprieve_scan")}
+                           "reprieve_scan", "assign_scan")}
                 for i, c in enumerate(per_tick)]
     check_fleet(a, "12a")
+    stacks = a["srv"].stacks.values()
+    donated = sum(st.donated_patches for st in stacks)
+    donation_failures = sum(st.donation_failures for st in stacks)
+    if donated < 1 or donation_failures:
+        fail(f"12a: donated_patches {donated}, donation_failures "
+             f"{donation_failures} (want > 0 and 0)")
     ref = JAX_FLEET
     for k in ("tenants", "scheduled", "t00_drf_clamped", "tick1_drf"):
         if a[k] != ref[k]:
@@ -4363,6 +4955,8 @@ def fleet_phase(device, card: str) -> dict:
           f"dispatches' CUDA-event windows {steady.execute_seconds:.3f} s, "
           f"so the device idles at least {idle:.3f} of the tick; launches "
           f"per tick {launches}")
+    print("    steady tick's split (the fleet-tick spans, s): "
+          + ", ".join(f"{p} {dt:.3f}" for p, dt in tick_split(a["srv"], 1)))
     print("    every tenant's placements (sha256), the per-tick counts, "
           "t00's clamp and tick 1's DRF rows equal JAX_FLEET")
     solo = {}
@@ -4375,9 +4969,27 @@ def fleet_phase(device, card: str) -> dict:
         solo[name] = s["tenants"][name]["bound"]
     print(f"    each engine's first tenant equals its solo run: {solo}")
     if device.type == "cuda" and not all(counts.get(n, 0)
-                                         for n in WAVE_KERNELS):
-        fail(f"12a: K1/K2 not launched: {counts}")
+                                         for n in WAVE_KERNELS
+                                         + ("assign_scan",)):
+        fail(f"12a: K1/K2/K4 not launched: {counts}")
+    if device.type == "cuda" and plain_calls:
+        fail(f"12a: the plain scan was called {plain_calls} times")
     errs = server_kernel_check({"12a": recs}, {"12a": counts}, device)
+    # K4's longest launch (a scan tenant's batch) and the runs fallback's
+    # first against the plain version, over their first 256 rows
+    k4_err = max(check_k4_steps(device, r.args, SCAN_CHECK_STEPS, "12a")[0]
+                 for r in (k4_rec, k4_runs) if r.args is not None)
+    errs["12a"]["assign_scan"] = k4_err
+    k4_first = dict(rows=int(k4_rec.args[3].shape[0]),
+                    nodes=int(k4_rec.args[0].nodes.valid.shape[0]),
+                    ms=device_ms(k4_device_fn(k4_rec.args), device, reps=3))
+    print(f"    K4 {counts.get('assign_scan', 0)} launches ({fallback_runs} "
+          f"of them the runs tenants' fallback runs), plain scan "
+          f"{plain_calls} calls; its longest launch ({k4_first['rows']} rows "
+          f"at N={k4_first['nodes']}) {k4_first['ms']:.3f} ms on the device "
+          f"and equal to the plain version over {SCAN_CHECK_STEPS} rows; "
+          f"stack patches in place {donated}, donation failures "
+          f"{donation_failures}")
 
     # 12b: tick 1's DRF rows on the card, the CPU and in JAX_FLEET
     b = {}
@@ -4423,8 +5035,20 @@ def fleet_phase(device, card: str) -> dict:
                 steady_pods_per_s=steady.scheduled / steady.tick_seconds,
                 steady_idle_share_min=idle, launches_per_tick=launches,
                 launches=counts, errs=errs["12a"], drf=b,
+                donated_patches=donated, donation_failures=donation_failures,
+                k4_first=k4_first, k4_fallback_runs=fallback_runs,
+                steady_split=tick_split(a["srv"], 1),
                 watch={k: v for k, v in w.items() if k != "bound"},
                 solo=solo, wall_s=wall)
+
+
+def tick_split(srv, i: int) -> list:
+    """Tick i's phases as [name, seconds] pairs, from the fleet's flight
+    recorder (its `fleet-tick` spans: snapshots, then per engine group the
+    stack refresh, prewarm check, dispatch and readback, then the
+    commit)."""
+    recs = srv.telemetry.recorder.records()
+    return [[p, dt] for p, dt in recs[i]["phases"]] if len(recs) > i else []
 
 
 def settle_fleet(api, phase: str) -> None:
@@ -4440,6 +5064,9 @@ def settle_fleet(api, phase: str) -> None:
         if any(s.stats.fallback_dispatches or s.stats.degraded_cycles
                for s in scheds):
             fail(f"phase {phase}: a fleet dispatch fell back")
+
+
+T_START = time.perf_counter()
 
 
 def main() -> int:
@@ -4470,6 +5097,10 @@ def main() -> int:
     errs = check_kernels(device, *edge_cases(device))
     k3_cases = dict(k3_edge_cases(device))
     errs["reprieve_scan"] = check_k3(device, list(k3_cases.items()))
+    t0 = time.perf_counter()
+    errs["assign_scan"] = check_k4(device, k4_edge_cases(device))
+    check_k4_status(device)
+    print(f"    K4's cases {time.perf_counter() - t0:.1f} s")
 
     print("[3] flagship cycle, 5000 nodes x 50000 pods, BatchScheduler(cuda)")
     from kubernetes_tpu_torch.models.workloads import flagship_pods, make_nodes
@@ -4623,10 +5254,45 @@ def main() -> int:
           f"pods through the apiserver")
     fleet = fleet_phase(device, card)
     print(f"    phase 12 {time.perf_counter() - t12:.1f} s")
+    t13 = time.perf_counter()
+    print(f"[13] the sequential-assume scan at full width: BatchScheduler("
+          f"device='cuda') on make_nodes({SCAN_NODES}), 13a flagship_pods("
+          f"{SCAN_PODS}) with every {SCAN_PIN_EVERY}th pod pinned by "
+          f"spec.nodeName, 13b port_volume_workload({SCAN_NODES}, "
+          f"{SCAN_PV_PODS}) under KTPU_ASSIGN=scan")
+    scan = scan_phase(device, card)
+    scan_wall = time.perf_counter() - t13
+    print(f"    phase 13 {scan_wall:.1f} s")
+    a13 = scan["nodename"]
+    rows.append(dict(
+        name="assign_scan", route="cuda", source=K4_SOURCE,
+        replaces="kubernetes_tpu/ops/assign.py:124",
+        launches=a13["launches"]["assign_scan"],
+        max_abs_err=max(errs["assign_scan"], a13["max_abs_err"],
+                        scan["ports_volumes"]["max_abs_err"],
+                        runs["k4_err"]),
+        # ms, plain_ms and bound_ms on one piece of work: 13a's first
+        # SCAN_CHECK_STEPS rows (the plain version at ~8 ms a step makes a
+        # whole 13a scan too long to time)
+        ms=a13["check_ms"], plain_ms=a13["plain_ms"],
+        bound_ms=a13["check_bound_ms"], bound_by=a13["check_bound_by"],
+        library_ms=None,
+        steps_timed=SCAN_CHECK_STEPS,
+        full_launch={k: dict(steps=v["steps"], ms=v["ms"],
+                             step_us=v["step_us"], call_ms=v["call_ms"],
+                             bound_ms=v["bound_ms"], bound_by=v["bound_by"],
+                             plain_step_ms=v["plain_step_ms"])
+                     for k, v in scan.items()},
+        launches_by_phase={"8b": runs["scan_vs_runs"]["k4_launches"],
+                           "12a": fleet["launches"].get("assign_scan", 0),
+                           "12a_runs_fallback": fleet["k4_fallback_runs"],
+                           "13a": a13["launches"]["assign_scan"],
+                           "13b": scan["ports_volumes"]["launches"][
+                               "assign_scan"]}))
     for r in rows:
         name = r["name"]
         r["fleet"] = dict(launches=fleet["launches"].get(name, 0),
-                          launches_per_tick=[t[name] for t in
+                          launches_per_tick=[t.get(name, 0) for t in
                                              fleet["launches_per_tick"]],
                           max_abs_err=fleet["errs"].get(name))
         if name in fleet["errs"]:
@@ -4695,7 +5361,9 @@ def main() -> int:
                           for sub in ("a", "at", "b", "c", "d")},
                       "server_wall_s": srvp["wall_s"],
                       "fleet": {k: v for k, v in fleet.items()
-                                if k not in ("errs", "launches")}}))
+                                if k not in ("errs", "launches")},
+                      "scan": scan, "scan_wall_s": scan_wall,
+                      "wall_s": time.perf_counter() - T_START}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -10,11 +10,11 @@ pads up to match. Unoccupied slots are inert rows (valid=False, zero
 capacity, -1 ids) that no engine can admit a pod onto.
 
 `FleetStack` keeps the STACKED tensors resident on the device. A tenant
-whose snapshot object changed since the last tick has its row replaced
-through ONE batched out-of-place row patch for every changed tenant
-(state/cache.py `_patch_rows`, `_pad_patch`), unchanged tenants cost
-nothing, and a shape change restacks. Not ported: the fleet mesh and the
-donated in-place patch (ROADMAP A13).
+whose snapshot object changed since the last tick has its row written IN
+PLACE into every resident leaf (`index_copy_` at the changed tenants'
+rows: the JAX package's donated patch, fleet/tables.py:294-298, on one
+device), unchanged tenants cost nothing, and a shape change restacks. Not
+ported: the fleet mesh (ROADMAP A13).
 """
 
 from __future__ import annotations
@@ -24,7 +24,7 @@ from typing import List, Optional, Sequence, Tuple
 
 import torch
 
-from ..state.dims import Dims, bucket
+from ..state.dims import Dims
 
 # floor on the padded tenant axis (exact on a single device)
 RC_TENANT_MIN = 1
@@ -71,13 +71,6 @@ def stack_blocks(blocks: Sequence[Tuple]):
 def tenant_view(tree, k: int):
     """Tenant k's row of a stacked tree: views, no copies."""
     return tree_map(lambda a: a[k], tree)
-
-
-class _Leaves(tuple):
-    """A flat tuple of leaves that `_patch_rows` can rebuild by type."""
-
-    def __new__(cls, *xs):
-        return super().__new__(cls, xs)
 
 
 def empty_tenant_block(d: Dims, device):
@@ -135,13 +128,21 @@ class FleetStack:
 
     `refresh` compares each tenant's Snapshot by object identity (the cache
     returns the SAME object when nothing changed), so idle tenants cost zero
-    device work per tick; changed tenants' rows are replaced by one batched
-    out-of-place row patch (`row_patches` counts the tenant rows it wrote).
-    Shape changes (the fleet bucket grew, a tenant joined) rebuild the whole
-    stack — the fleet analog of the cache's full-snapshot path. The donated
-    in-place patch is not ported (ROADMAP A13): `donated_patches` and
-    `donation_failures` stay 0. Each tenant's interned taint-key pair stays
-    on the host (`keys_host`): the engines take it as two ints."""
+    device work per tick; changed tenants' rows are written in place into
+    the resident leaves, one `index_copy_` per leaf for every changed
+    tenant (`row_patches` and `donated_patches` count the tenant rows
+    written; `index_copy_` never moves a leaf's storage, so
+    `donation_failures`, the JAX package's count of patches XLA could not
+    donate, stays 0). The in-place write needs that no dispatch still
+    reads the stack: refresh runs on the tick path, between dispatches,
+    and an abandoned dispatch's worker may still read it, so the server
+    invalidates the stack then (its supervisor-epoch check and its
+    DispatchAbandonedError handler) and the next refresh restacks onto
+    fresh tensors. Shape changes (the fleet
+    bucket grew, a tenant joined) rebuild the whole stack — the fleet
+    analog of the cache's full-snapshot path. Each tenant's interned
+    taint-key pair stays on the host (`keys_host`): the engines take it as
+    two ints."""
 
     def __init__(self, device):
         self.device = torch.device(device)
@@ -159,7 +160,8 @@ class FleetStack:
     def invalidate(self) -> None:
         """Drop the resident stacked tree. Called when it may still be read
         by an abandoned dispatch's worker, or lives on a lost backend: the
-        next refresh restacks onto fresh tensors."""
+        next refresh restacks onto fresh tensors (the abandoned worker keeps
+        the old ones)."""
         self.block = None
         self.dims = None
         self._snaps = []
@@ -175,8 +177,6 @@ class FleetStack:
     def refresh(self, snaps: Sequence, keys: Sequence[Tuple], d: Dims) -> int:
         """Bring the resident stack current with this tick's per-tenant
         snapshots. Returns the padded tenant count K of the stacked tree."""
-        from ..state.cache import _pad_patch, _patch_index, _patch_rows
-
         live = len(snaps)
         Kp = self.padded_k(live)
         keys_host = [(int(uk), int(ev)) for uk, ev in keys]
@@ -199,21 +199,21 @@ class FleetStack:
                 if not (snap is self._snaps[k]
                         and kh == self.keys_host[k])]
             if changed:
-                # ONE batched patch for every changed tenant; the changed
-                # count is bucketed (cache._pad_patch repeats the first
-                # entry — copying identical rows twice is idempotent)
-                kb = bucket(len(changed))
-                padded = list(changed) + [changed[0]] * (kb - len(changed))
-                rows = stack_blocks([self._row(s) for _, s, _ in padded])
-                idx = _patch_index(_pad_patch([k for k, _, _ in changed],
-                                              kb), self.device)
-                out = _patch_rows(_Leaves(*_leaves(self.block)), idx,
-                                  _Leaves(*_leaves(rows)))
-                self.block = _rebuild(self.block, iter(out))
-                self.row_patches += len(changed)
+                self._patch_in_place([k for k, _, _ in changed],
+                                     [self._row(s) for _, s, _ in changed])
         self._snaps = list(snaps)
         self.keys_host = keys_host
         return self.K
+
+    def _patch_in_place(self, ks: List[int], rows: Sequence[Tuple]) -> None:
+        """Write the tenants' rows `rows` at stack rows `ks` into every
+        resident leaf in place."""
+        idx = torch.tensor(ks, dtype=torch.int64, device=self.device)
+        for leaf, row in zip(_leaves(self.block),
+                             _leaves(stack_blocks(rows))):
+            leaf.index_copy_(0, idx, row)
+        self.row_patches += len(ks)
+        self.donated_patches += len(ks)
 
     # convenience accessors for the dispatch layer
     @property

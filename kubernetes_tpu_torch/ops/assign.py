@@ -3,10 +3,12 @@
 
 The reference schedules one pod per `scheduleOne` call (scheduler.go:596-763):
 filter → score → selectHost → assume, each placement visible to the next pod.
-`assign_batch` reproduces that literally, as a host loop of `assign_step` in
-queue order (priority desc, creation asc — scheduling_queue.go:119-138). It is
-the executable spec the wave engine is held against, and it serves batches
-with a `spec.nodeName` pod.
+`assign_batch` reproduces that literally, pod by pod in queue order (priority
+desc, creation asc — scheduling_queue.go:119-138): on a CUDA device as one
+launch of the hand kernel K4 (ops/kernels.py assign_scan), on the CPU as its
+plain version `assign_scan_plain`, a host loop of `assign_step`. It is the
+executable spec the wave engine is held against, and it serves batches with
+a `spec.nodeName` pod.
 
 The row functions take a vector of class ids `cls` [B] and return [B, N]
 rows (the JAX package vmaps the same per-class rows over classes). Ties in
@@ -22,6 +24,7 @@ import torch
 from ..state.arrays import Array, ClusterTables, PodArrays
 from .fit import fit_row, resource_scores, resource_scores_row
 from .interpod import affinity_rows, soft_affinity_row
+from .kernels import _COUNT_LOCK, assign_scan
 from .lattice import CycleArrays, _on
 from .ports import port_conflict_row
 from .scores import even_spread_soft_row, selector_spread_row
@@ -232,25 +235,41 @@ def assign_step(tables, cyc, state: AssignState, c: int, p_valid: bool,
                        vol_any, vol_rw), n
 
 
-def assign_batch(tables: ClusterTables, cyc: CycleArrays, pods: PodArrays,
-                 init: AssignState) -> AssignResult:
-    """The sequential-assume scan (the spec): pods in queue order, each
-    against the state every earlier placement left. An invalid row (a
-    padding slot, a quota-clamped pod) has an empty mask, places nowhere and
-    leaves the state as it was, so the loop skips it."""
-    order = queue_order(pods).tolist()
+def assign_scan_plain(tables, cyc, pods: PodArrays, rows: Array,
+                      init: AssignState):
+    """The plain version of K4 (ops/kernels.py assign_scan): the pods
+    `rows` [Q] (indices into `pods`) one at a time through assign_step,
+    each against the state every earlier one left. An invalid row (a
+    padding slot, a quota-clamped pod) has an empty mask, places nowhere
+    and leaves the state as it was, so the loop skips it. Returns (node [P]
+    int32, -1 where a pod placed nowhere or was not walked; the final
+    state). Counts its calls in `assign_scan_plain.calls`."""
+    with _COUNT_LOCK:
+        assign_scan_plain.calls += 1
     cls = pods.cls.tolist()
     valid = pods.valid.tolist()
     nnr = pods.node_name_req.tolist()
-    P = len(cls)
-    node = [-1] * P
+    node = [-1] * len(cls)
     state = init
-    for i in order:
+    for i in rows.tolist():
         if valid[i]:
             state, node[i] = assign_step(tables, cyc, state, cls[i], True,
                                          nnr[i])
-    node_t = torch.tensor(node, dtype=torch.int32, device=init.used.device)
-    return AssignResult(node=node_t, feasible=node_t >= 0, state=state)
+    return (torch.tensor(node, dtype=torch.int32, device=init.used.device),
+            state)
+
+
+assign_scan_plain.calls = 0
+
+
+def assign_batch(tables: ClusterTables, cyc: CycleArrays, pods: PodArrays,
+                 init: AssignState) -> AssignResult:
+    """The sequential-assume scan (the spec): pods in queue order, each
+    against the state every earlier placement left — one launch of K4 on a
+    CUDA device, assign_scan_plain on the CPU. `init` is never written."""
+    node, state = assign_scan(tables, cyc, pods,
+                              queue_order(pods).to(torch.int32), init)
+    return AssignResult(node=node, feasible=node >= 0, state=state)
 
 
 # rows (classes or pods) evaluated together by the [rows, N] surfaces —

@@ -11,7 +11,10 @@ replaces and what bounds it at the top of each source):
   * K3 `reprieve_scan` — the per-node half of the preemption what-if, per
     (lane, node): pass 1, the fit half of the candidate test, the reprieve
     walk and the node-choice summaries (JAX package ops/preempt.py:128-156,
-    183-217).
+    183-217);
+  * K4 `assign_scan` — the sequential-assume scan, every pod of a
+    queue-ordered list in one launch (JAX package ops/assign.py:64,124);
+    its plain version is ops/assign.py assign_scan_plain.
 
 Each wrapper takes its plain version for tensors on the CPU and launches its
 kernel for tensors on a CUDA device — never falling back from one to the
@@ -21,9 +24,10 @@ in plain Python, `k1_launch_config` / `k2_launch_config` /
 `k3_launch_config`.
 
 Build: `nvcc -gencode arch=compute_90a,code=sm_90a` into one shared library
-per source with a plain C interface, loaded with ctypes, at first use. The
-libraries go to `build/kernels/` in the checkout, named by a hash of source
-and flags so an edited source never loads a stale build.
+per source with a plain C interface, loaded with ctypes, at first use (K4
+adds its own flags, KERNEL_FLAGS). The libraries go to `build/kernels/` in
+the checkout, named by a hash of source and flags so an edited source never
+loads a stale build.
 """
 
 from __future__ import annotations
@@ -40,14 +44,19 @@ from typing import Dict, NamedTuple, Sequence, Tuple
 import torch
 
 from .fit import _fit
+from .lattice import _on
+from .scores import ZONE_WEIGHTING
 from .volumes import popcount32
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
-KERNELS = ("contention_scan", "domain_rank", "reprieve_scan")
+KERNELS = ("contention_scan", "domain_rank", "reprieve_scan", "assign_scan")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# flags a source adds to NVCC_FLAGS: K4 repeats the plain version's f32
+# operations one rounding each, so no a*b + c may contract into an FMA
+KERNEL_FLAGS = {"assign_scan": ("-fmad=false",)}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -55,6 +64,7 @@ _ARGTYPES = {
     "contention_scan_launch": [_P] * 21 + [_I] * 11 + [_P],
     "domain_rank_launch": [_P] * 3 + [_I] * 7 + [_P],
     "reprieve_scan_launch": [_P] * 17 + [_I] * 6 + [_P],
+    "assign_scan_launch": [_P, _I, _P],
 }
 _LIBS: Dict[str, ctypes.CDLL] = {}
 # one lock around every build and load: the dispatch supervisor's worker and
@@ -76,9 +86,14 @@ def _nvcc() -> str:
     return found
 
 
+def nvcc_flags(name: str) -> Tuple[str, ...]:
+    return NVCC_FLAGS + KERNEL_FLAGS.get(name, ())
+
+
 def library_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    digest = hashlib.sha256(src + " ".join(nvcc_flags(name)).encode()
+                            ).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
 
 
@@ -97,7 +112,7 @@ def build(names: Sequence[str] = KERNELS) -> Dict[str, str]:
                 continue
             tmp = out.with_suffix(
                 f".{os.getpid()}.{threading.get_ident()}.tmp")
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+            cmd = [_nvcc(), *nvcc_flags(name), "-o", str(tmp),
                    str(CSRC / f"{name}.cu")]
             procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                             stderr=subprocess.STDOUT,
@@ -607,13 +622,251 @@ def reprieve_scan(seg_ptr, seg_e, req_e, prio_e, pdb_e, creation_e, req_p,
 reprieve_scan.launches = 0
 
 
+# --------------------------------------------------------------------------- #
+# K4 assign_scan
+# --------------------------------------------------------------------------- #
+
+# K4's launch arguments, in the order of csrc/assign_scan.cu's struct Args:
+# pointers, then ints, then floats
+K4_POINTERS = (
+    "node_valid", "name_id", "alloc", "domain", "vol_limit", "req_vec",
+    "pair_words", "wild_words", "trip_words", "any_words", "rw_words",
+    "drv_masks", "topo_key", "zone_keys", "rid", "portset", "volset",
+    "aff_terms", "anti_terms", "paff_terms", "paff_w", "panti_terms",
+    "panti_w", "tsc_term", "tsc_maxskew", "tsc_hard", "ssel_terms", "smask",
+    "node_match", "sscore", "TM", "has_anti", "ELD", "WCOLS", "rows", "cls",
+    "pvalid", "nnr", "used", "ppa", "ppw", "ppt", "CNT", "HOLD", "WSYM",
+    "vol_any", "vol_rw", "node", "status", "scored", "wbound", "dCNT",
+    "dHOLD", "dWSYM", "tCNT", "lc", "hist", "node_f", "node_i", "node_s",
+    "node_b")
+K4_INTS = ("N", "R", "K", "PWp", "PWt", "VW", "DR", "S", "SC", "AT", "AN",
+           "PAT", "PAN", "TS", "SS", "D", "P", "Q", "hist_shared",
+           "f_interpod", "f_spread", "f_name", "f_fit", "f_ports",
+           "f_volrestrict", "f_vollimits")
+K4_FLOATS = ("w_least", "w_balanced", "w_most", "w_interpod", "w_even",
+             "w_ssel", "zw_node", "zw_zone", "eps")
+
+
+class K4Args(ctypes.Structure):
+    _fields_ = ([(f, ctypes.c_void_p) for f in K4_POINTERS]
+                + [(f, ctypes.c_int) for f in K4_INTS]
+                + [(f, ctypes.c_float) for f in K4_FLOATS])
+
+
+# each input K4 reads: its shape by dimension name (D1 = D + 1) — bool
+# planes in K4_BOOL, f32 in K4_F32, int32 (uint32 words as their int32
+# view) the rest
+K4_SHAPES = {
+    "node_valid": ("N",), "name_id": ("N",), "alloc": ("N", "R"),
+    "domain": ("N", "K"), "vol_limit": ("N", "DR"), "req_vec": ("SR", "R"),
+    "pair_words": ("SPP", "PWp"), "wild_words": ("SPP", "PWp"),
+    "trip_words": ("SPP", "PWt"), "any_words": ("SV", "VW"),
+    "rw_words": ("SV", "VW"), "drv_masks": ("DR", "VW"), "topo_key": ("S",),
+    "zone_keys": ("ZK",), "rid": ("SC",), "portset": ("SC",),
+    "volset": ("SC",), "aff_terms": ("SC", "AT"), "anti_terms": ("SC", "AN"),
+    "paff_terms": ("SC", "PAT"), "paff_w": ("SC", "PAT"),
+    "panti_terms": ("SC", "PAN"), "panti_w": ("SC", "PAN"),
+    "tsc_term": ("SC", "TS"), "tsc_maxskew": ("SC", "TS"),
+    "tsc_hard": ("SC", "TS"), "ssel_terms": ("SC", "SS"),
+    "smask": ("SC", "N"), "node_match": ("SC", "N"), "sscore": ("SC", "N"),
+    "TM": ("S", "SC"), "has_anti": ("SC", "S"), "ELD": ("SC", "TS", "D1"),
+    "WCOLS": ("S", "SC"), "rows": ("Q",), "cls": ("P",), "pvalid": ("P",),
+    "nnr": ("P",), "used": ("N", "R"), "ppa": ("N", "PWp"),
+    "ppw": ("N", "PWp"), "ppt": ("N", "PWt"), "CNT": ("S", "N"),
+    "HOLD": ("S", "N"), "WSYM": ("S", "N"), "vol_any": ("N", "VW"),
+    "vol_rw": ("N", "VW")}
+K4_BOOL = {"node_valid", "tsc_hard", "smask", "node_match", "TM", "has_anti",
+           "ELD", "pvalid"}
+K4_F32 = {"sscore", "WCOLS", "WSYM"}
+K4_STATE = ("used", "ppa", "ppw", "ppt", "CNT", "HOLD", "WSYM", "vol_any",
+            "vol_rw")
+
+
+def k4_inputs(tables, cyc, pods, rows, init) -> Dict[str, torch.Tensor]:
+    """Every tensor K4 reads, by its launch-argument name: the tables, the
+    cycle, the pods, the row order `rows` and the state `init`."""
+    n, cl = tables.nodes, tables.classes
+    st = cyc.static
+    return dict(
+        node_valid=n.valid, name_id=n.name_id, alloc=n.alloc,
+        domain=n.domain, vol_limit=n.vol_limit, req_vec=tables.reqs.vec,
+        pair_words=tables.portsets.pair_words,
+        wild_words=tables.portsets.wild_words,
+        trip_words=tables.portsets.trip_words,
+        any_words=tables.volsets.any_words, rw_words=tables.volsets.rw_words,
+        drv_masks=tables.drv_masks, topo_key=tables.terms.topo_key,
+        zone_keys=tables.zone_keys, rid=cl.rid, portset=cl.portset,
+        volset=cl.volset, aff_terms=cl.aff_terms, anti_terms=cl.anti_terms,
+        paff_terms=cl.paff_terms, paff_w=cl.paff_w,
+        panti_terms=cl.panti_terms, panti_w=cl.panti_w,
+        tsc_term=cl.tsc_term, tsc_maxskew=cl.tsc_maxskew,
+        tsc_hard=cl.tsc_hard, ssel_terms=cl.ssel_terms, smask=st.mask,
+        node_match=st.node_match, sscore=st.score, TM=cyc.TM,
+        has_anti=cyc.has_anti, ELD=cyc.ELD, WCOLS=cyc.WCOLS, rows=rows,
+        cls=pods.cls, pvalid=pods.valid, nnr=pods.node_name_req,
+        **dict(zip(K4_STATE, init)))
+
+
+def k4_check(ins: Dict[str, torch.Tensor], device: torch.device
+             ) -> Dict[str, int]:
+    """What K4 takes, checked before either route runs: every tensor on
+    `device`, of its dtype, with dimensions that agree (two zone keys, the
+    four fixed resource slots at least), and contiguous but for the state
+    planes (K4_STATE), which the wrapper copies into contiguous clones
+    (build_cycle's count planes are column slices). Returns the
+    dimensions by name; raises ValueError."""
+    dims: Dict[str, int] = {}
+    for name, spec in K4_SHAPES.items():
+        t = ins[name]
+        if t.device != device:
+            raise ValueError(f"{name} on {t.device}, expected {device}")
+        if name not in K4_STATE and not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        dtype = (torch.bool if name in K4_BOOL else
+                 torch.float32 if name in K4_F32 else torch.int32)
+        if t.dtype != dtype:
+            raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
+        if t.dim() != len(spec):
+            raise ValueError(f"{name} must have {len(spec)} dimensions "
+                             f"{spec}, got shape {tuple(t.shape)}")
+        for d, size in zip(spec, t.shape):
+            if dims.setdefault(d, size) != size:
+                raise ValueError(f"{name} has {d} = {size}, elsewhere "
+                                 f"{dims[d]}")
+    if dims["ZK"] != 2:
+        raise ValueError("zone_keys must hold the two zone topology keys")
+    if dims["R"] < 4:
+        raise ValueError("resource vectors carry at least the 4 fixed slots")
+    dims["D"] = dims["D1"] - 1
+    return dims
+
+
+# K4's status bits (csrc/assign_scan.cu), each a reason an f32 sum of the
+# plain version's Score might round
+K4_STATUS = ("a WSYM or WCOLS value is not an integer",
+             "a term's |WSYM| sums may reach 2^24",
+             "the symmetric credit over a class's terms may reach 2^24",
+             "the weighted soft-affinity counts reach 2^24",
+             "the even-spread total reaches 2^24",
+             "a SelectorSpread zone count reaches 2^24")
+# dynamic shared memory K4's [2D+1] histogram may take: the block's
+# limit less its static shared memory (the reduction buffers)
+K4_SMEM_MAX = SMEM_MAX - 4096
+
+
+def k4_launch_config(D: int) -> Tuple[bool, int]:
+    """(histogram in shared memory, dynamic shared bytes): the [2D+1]
+    int32 bins of K4's spread and zone histograms in shared memory where
+    they fit, else in global scratch."""
+    smem = 4 * (2 * D + 1)
+    return (True, smem) if smem <= K4_SMEM_MAX else (False, 0)
+
+
+_K4_F32: Dict[torch.device, Tuple[float, float, float]] = {}
+
+
+def k4_constants(device: torch.device) -> Tuple[float, float, float]:
+    """The f32 values torch multiplies and clamps by on `device` where the
+    plain version writes Python floats: 1 - ZONE_WEIGHTING and
+    ZONE_WEIGHTING (SelectorSpread's blend, ops/scores.py) and the 1e-9
+    of the score normalisations' clamps."""
+    got = _K4_F32.get(device)
+    if got is None:
+        one = torch.ones((), dtype=torch.float32, device=device)
+        got = (float(one * (1.0 - ZONE_WEIGHTING)),
+               float(one * ZONE_WEIGHTING),
+               float(torch.clamp(one * 0.0, min=1e-9)))
+        _K4_F32[device] = got
+    return got
+
+
+def assign_scan(tables, cyc, pods, rows: torch.Tensor, init):
+    """K4: the sequential-assume scan over the pods `rows` [Q] (int32
+    indices into `pods`, in walk order), from the state `init`. Returns
+    (node [P] int32 — each walked pod's node, -1 where it placed nowhere
+    or was not walked — and the final AssignState). `init` is never
+    written: the kernel updates one clone per call in place. The plain
+    version (ops/assign.py assign_scan_plain) on the CPU, the CUDA kernel
+    on a CUDA device; the inputs are checked on both (k4_check). Raises
+    ValueError where an f32 sum of the Score would not be exact (the
+    kernel's status word; csrc/assign_scan.cu)."""
+    from .assign import assign_scan_plain
+
+    ins = k4_inputs(tables, cyc, pods, rows, init)
+    device = _device_of(init.used)
+    dims = k4_check(ins, device)
+    if device.type == "cpu":
+        return assign_scan_plain(tables, cyc, pods, rows, init)
+    node, state, status, _ = _k4_launch(ins, dims, cyc.ecfg, type(init),
+                                        device)
+    _count(assign_scan)
+    bits = int(status)
+    if bits:
+        raise ValueError(
+            f"assign_scan: an f32 sum of the Score may round (status "
+            f"{bits:#x}: " + ", ".join(
+                why for bit, why in enumerate(K4_STATUS) if bits >> bit & 1)
+            + "), so the kernel could not match its plain version exactly")
+    return node, state
+
+
+def _k4_launch(ins, dims, ecfg, state_type, device):
+    """K4's launch on checked inputs: the state cloned (contiguous), the
+    outputs and one zeroed scratch allocated, the arguments packed.
+    Returns (node, state, the status word as a 0-d tensor, the number of
+    (row, node) pairs the Filter passed as a 0-d int64 tensor)."""
+    state = state_type(*(ins[k].clone(memory_format=torch.contiguous_format)
+                         for k in K4_STATE))
+    N, S, D, P = dims["N"], dims["S"], dims["D"], dims["P"]
+    hist_shared, smem = k4_launch_config(D)
+    # one zeroed scratch, carved by word offsets (the 8-byte words first:
+    # wbound [S] f64, scored [1] u64)
+    parts = (("wbound", 2 * S), ("scored", 2), ("dCNT", S * (D + 1)), ("dHOLD", S * (D + 1)),
+             ("dWSYM", S * (D + 1)), ("tCNT", S), ("lc", S),
+             ("hist", 0 if hist_shared else 2 * D + 1), ("node_f", N),
+             ("node_i", N), ("node_s", N), ("node_b", -(-N // 4)),
+             ("status", 1))
+    scratch = torch.zeros((sum(w for _, w in parts),), dtype=torch.int32,
+                          device=device)
+    node = torch.full((P,), -1, dtype=torch.int32, device=device)
+    ptr, at = {}, 0
+    for name, words in parts:
+        ptr[name] = scratch.data_ptr() + 4 * at
+        at += words
+    ptr.update({k: v.data_ptr() for k, v in ins.items()})
+    ptr.update({k: getattr(state, k).data_ptr() for k in K4_STATE})
+    ptr["node"] = node.data_ptr()
+    zw_node, zw_zone, eps = k4_constants(device)
+    args = K4Args(
+        *(ptr[f] for f in K4_POINTERS),
+        N, dims["R"], dims["K"], dims["PWp"], dims["PWt"], dims["VW"],
+        dims["DR"], S, dims["SC"], dims["AT"], dims["AN"], dims["PAT"],
+        dims["PAN"], dims["TS"], dims["SS"], D, P, dims["Q"],
+        int(hist_shared),
+        *(int(_on(getattr(ecfg, f))) for f in (
+            "f_interpod", "f_spread", "f_name", "f_fit", "f_ports",
+            "f_volrestrict", "f_vollimits")),
+        *(float(getattr(ecfg, f)) for f in (
+            "w_least", "w_balanced", "w_most", "w_interpod", "w_even",
+            "w_ssel")),
+        zw_node, zw_zone, eps)
+    _launch("assign_scan", ctypes.addressof(args), smem, _stream(device))
+    return (node, state, scratch[at - 1],
+            scratch[2 * S:2 * S + 2].view(torch.int64)[0])
+
+
+assign_scan.launches = 0
+
+
 def reset_launch_counts() -> None:
     contention_scan.launches = 0
     domain_rank.launches = 0
     reprieve_scan.launches = 0
+    assign_scan.launches = 0
 
 
 def launch_counts() -> Dict[str, int]:
     return {"contention_scan": contention_scan.launches,
             "domain_rank": domain_rank.launches,
-            "reprieve_scan": reprieve_scan.launches}
+            "reprieve_scan": reprieve_scan.launches,
+            "assign_scan": assign_scan.launches}

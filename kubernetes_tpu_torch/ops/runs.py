@@ -9,8 +9,9 @@ admission epochs over the exact per-node head scores — each epoch admits
 the longest prefix of distinct nodes, in (score desc, node index asc)
 order, whose heads provably reproduce the per-pod argmax chain. Runs whose
 class reads or writes terms that match itself, and runs pinned by
-spec.nodeName, take the per-pod fallback through the scan's own step body
-(`assign_step`).
+spec.nodeName, take the per-pod fallback through the scan itself: one K4
+launch over the run's slice of the queue order (ops/kernels.py
+assign_scan; its plain version, `assign_step` pod by pod, on the CPU).
 
 The JAX package runs the run loop as a lax.scan over a static capacity
 `rc`, the epochs as a while_loop and the closed-form/fallback choice as a
@@ -34,9 +35,10 @@ import torch
 
 from ..state.arrays import Array, ClusterTables, PodArrays
 from ..state.dims import bucket
-from .assign import (AssignResult, AssignState, assign_step, mask_context_row,
+from .assign import (AssignResult, AssignState, mask_context_row,
                      mask_dynamic_row, queue_order, score_combine_row,
                      score_context_row)
+from .kernels import assign_scan
 
 # floor for the bucketed run capacity (the JAX package's compile-signature
 # floor; here it only sizes the run table's scatter)
@@ -139,15 +141,17 @@ def _encode_runs(pods: PodArrays, rc: int):
     return order, run_start, run_len, run_cls, run_nnr, newrun.sum()
 
 
-def _perpod_run(tables, cyc, pod_rows, state, node_out, order, k, start):
-    """Fallback: the run's pods one at a time through the scan's exact step
-    body — self-interacting classes and nodeName-pinned runs. `pod_rows`
-    holds the pods' (cls, valid, node_name_req) as host lists."""
-    cls, valid, nnr = pod_rows
-    for t in range(k):
-        idx = order[start + t]
-        state, node_out[idx] = assign_step(tables, cyc, state, cls[idx],
-                                           valid[idx], nnr[idx])
+def _perpod_run(tables, cyc, pods, state, node_out, order_d, order, k,
+                start):
+    """Fallback: the run's pods one at a time through the scan —
+    self-interacting classes and nodeName-pinned runs. One call of the
+    scan (K4 on a CUDA device) over the run's slice of the queue order
+    `order_d` (int32 on the device; `order` the same as a host list);
+    the run's nodes come back once."""
+    rows = order_d[start:start + k]
+    node, state = assign_scan(tables, cyc, pods, rows, state)
+    for idx, nd in zip(order[start:start + k], node[rows.long()].tolist()):
+        node_out[idx] = nd
     return state
 
 
@@ -288,8 +292,8 @@ def assign_runs(tables: ClusterTables, cyc, pods: PodArrays,
     starts, lens, clss, nnrs = table.tolist()
     selfi = self_interaction_vector(tables, cyc).tolist()
     wsym = (cyc.WCOLS != 0.0).any(0).tolist()
+    order_d = order.to(torch.int32)
     order = order.tolist()
-    pod_rows = None
     node_out = [-1] * P
     state = init
     for start, k, c, nnr in zip(starts, lens, clss, nnrs):
@@ -299,10 +303,7 @@ def assign_runs(tables: ClusterTables, cyc, pods: PodArrays,
                                 start, wsym[c], stats)
         else:
             stats["fallback"] += 1
-            if pod_rows is None:
-                pod_rows = (pods.cls.tolist(), pods.valid.tolist(),
-                            pods.node_name_req.tolist())
-            state = _perpod_run(tables, cyc, pod_rows, state, node_out,
+            state = _perpod_run(tables, cyc, pods, state, node_out, order_d,
                                 order, k, start)
     node = torch.tensor(node_out, dtype=torch.int32, device=pods.valid.device)
     return AssignResult(node=node, feasible=node >= 0, state=state)

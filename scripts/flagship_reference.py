@@ -24,6 +24,7 @@ many pods a package places, and a hash of where.
         --path server [--transport http --pods 2000]
     JAX_PLATFORMS=cpu python3 scripts/flagship_reference.py --package jax \\
         --path fleet [--tenants 24 --nodes 2000 --pods 2000]
+        --path scan
 
 `--path batch` (the default) runs `BatchScheduler.schedule` of the JAX
 package (`kubernetes_tpu`) or of the PyTorch port (`kubernetes_tpu_torch`)
@@ -87,6 +88,13 @@ under the tight DRF quota, ticked until idle. It prints per tenant the
 bound count and the sha256 of its sorted (pod, node) pairs, the per-tick
 scheduled counts, t00's clamped pods and tick 1's DRF rows per engine group
 (sha256 of admitted, share, dom) — the JAX_FLEET constant.
+
+`--path scan` runs chip_smoke.py's phase 13 batches through the package's
+BatchScheduler: 13a, make_nodes(5000) x flagship_pods(10000) with every
+hundredth pod pinned by spec.nodeName (the nodeName route to the
+sequential scan), and 13b, port_volume_workload(5000, 5000) under
+KTPU_ASSIGN=scan. It prints each one's scheduled count and the sha256 over
+its assignments — the JAX_SCAN constant.
 
 `--workload gang` is BASELINE config 5 on the batch path: gang_workload_pods
 (jobs of 8 to 64 all-or-nothing members, 2% of them larger than any node);
@@ -241,6 +249,37 @@ def fleet_path(args) -> dict:
             "tenants": args.tenants, "nodes": args.nodes,
             "pods": args.pods, "fleet": chip_smoke.fleet_reference(out),
             "seconds": time.perf_counter() - t0}
+
+
+def scan_path(args) -> dict:
+    """Phase 13 (13a and 13b) on the chosen package."""
+    import chip_smoke
+
+    if args.package == "jax":
+        import kubernetes_tpu as pkg
+        from kubernetes_tpu.api import types
+        from kubernetes_tpu.models import workloads
+
+        make = pkg.BatchScheduler
+    else:
+        import kubernetes_tpu_torch as pkg
+        from kubernetes_tpu_torch.api import types
+        from kubernetes_tpu_torch.models import workloads
+
+        def make():
+            return pkg.BatchScheduler(device=args.device)
+    out = {}
+    for key in ("nodename", "ports_volumes"):
+        nodes, pods, engine = chip_smoke.scan_inputs(types, workloads, key,
+                                                     args.nodes)
+        os.environ["KTPU_ASSIGN"] = engine or args.engine
+        t0 = time.perf_counter()
+        res = make().schedule(nodes, [], pods)
+        out[key] = {"nodes": len(nodes), "pods": len(pods),
+                    "scheduled": res.scheduled,
+                    "sha256": chip_smoke.assignments_sha256(res.assignments),
+                    "seconds": time.perf_counter() - t0}
+    return {"package": args.package, "path": "scan", "scan": out}
 
 
 def server_path(args) -> dict:
@@ -471,7 +510,7 @@ def main() -> int:
     ap.add_argument("--path",
                     choices=("batch", "serving", "preempt", "restart",
                              "framework", "extender", "cosched", "server",
-                             "fleet"),
+                             "fleet", "scan"),
                     default="batch")
     ap.add_argument("--nodes", type=int, default=None,
                     help="default 5,000 (chip_smoke.FLEET_NODES for "
@@ -502,6 +541,9 @@ def main() -> int:
         return 0
     if args.nodes is None:
         args.nodes = 5000
+    if args.path == "scan":
+        print(json.dumps(scan_path(args)))
+        return 0
     if args.path == "server":
         if args.pods is None:
             import chip_smoke

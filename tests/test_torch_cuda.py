@@ -295,8 +295,10 @@ def test_framework_and_cosched_drains_on_the_card_match_cpu(cuda,
 def test_cuda_fleet_ticks_match_cpu_ticks(cuda):
     """A small mixed-engine fleet (waves, runs, scan; one tenant under a
     tight DRF quota) ticked to idle on the card and on the CPU: every
-    tenant's bound (pod, node) list and every tick's clamp counts equal, and
-    K1/K2 launched on the card."""
+    tenant's bound (pod, node) list and every tick's clamp counts equal,
+    K1/K2 launched on the card, and the scan tenant and the runs tenant's
+    fallback (the flagship's spread pods) through K4, the plain scan never
+    called there; the stack patched in place."""
     from kubernetes_tpu_torch.fleet import FleetServer
     from kubernetes_tpu_torch.ops import kernels as K
     from kubernetes_tpu_torch.state.dims import Dims
@@ -326,11 +328,67 @@ def test_cuda_fleet_ticks_match_cpu_ticks(cuda):
                 break
         assert srv.total_drf_violations == 0
         assert srv.total_cross_tenant == 0
+        stacks = srv.stacks.values()
+        assert sum(st.donation_failures for st in stacks) == 0
+        if device != "cpu":
+            assert sum(st.donated_patches for st in stacks) > 0
         return {n: b.bound for n, b in binders.items()}, clamped
 
+    from kubernetes_tpu_torch.ops import assign as A
+
     K.reset_launch_counts()
+    A.assign_scan_plain.calls = 0
     got = run(cuda)
     counts = K.launch_counts()
+    assert A.assign_scan_plain.calls == 0
     assert got == run("cpu")
     assert counts.get("contention_scan", 0) and counts.get("domain_rank", 0)
+    assert counts.get("assign_scan", 0) > 1
     assert sum(got[1][0].values()) > 0
+
+
+def test_assign_scan_matches_plain_version_exactly(cuda):
+    """K4 on chip_smoke.py's phase-2 cases (ties, a pod that fits nowhere,
+    one pinned to a missing node, invalid rows, each Filter flag off, R =
+    16, N = 1, 1,023, 1,025, 5,120 and 29,000 on the hostname key, no
+    terms) against its plain version: every node and all nine planes,
+    WSYM bitwise, the initial state untouched."""
+    cs = _chip_smoke()
+    assert cs.check_k4(cuda, cs.k4_edge_cases(cuda, seed=1)) == 0
+
+
+def test_assign_scan_refuses_an_even_spread_total_past_2_24(cuda):
+    """chip_smoke.py's k4_even_bound_case: every node's own even-spread
+    count far below 2^24, the eligible nodes' total past it (the plain
+    version's f32 sum would round). K4 sums the total over the whole block
+    and the wrapper raises, naming the even-spread bit."""
+    from kubernetes_tpu_torch.ops import kernels as K
+
+    cs = _chip_smoke()
+    with pytest.raises(ValueError, match="even-spread total"):
+        K.assign_scan(*cs.k4_even_bound_case(cuda))
+
+
+def test_node_name_route_on_the_card_matches_cpu(cuda):
+    """Phase 13a's shape at 200 nodes: flagship pods with every hundredth
+    pinned by spec.nodeName take the scan; on the card that is one K4
+    launch and no plain scan, and the placements and planes equal the
+    CPU's."""
+    from kubernetes_tpu_torch.models import workloads
+    from kubernetes_tpu_torch.ops import assign as A
+    from kubernetes_tpu_torch.ops import kernels as K
+
+    cs = _chip_smoke()
+    nodes, pods = cs.pinned_flagship(workloads, 200, 1500)
+    gpu = ktt.BatchScheduler(device="cuda")
+    cpu = ktt.BatchScheduler(device="cpu")
+    K.reset_launch_counts()
+    A.assign_scan_plain.calls = 0
+    got = gpu.schedule(nodes, [], pods)
+    assert K.launch_counts()["assign_scan"] == 1
+    assert A.assign_scan_plain.calls == 0
+    assert got.assignments == cpu.schedule(nodes, [], pods).assignments
+    for f in ("used", "ppa", "ppw", "ppt", "CNT", "HOLD", "vol_any", "vol_rw",
+              "WSYM"):
+        assert torch.equal(getattr(gpu.last_result.state, f).cpu(),
+                           getattr(cpu.last_result.state, f)), f

@@ -19,6 +19,12 @@ import torch
 PACKAGES = ("kubernetes_tpu", "kubernetes_tpu_torch")
 
 
+def _stack_leaves(stack):
+    from kubernetes_tpu_torch.fleet.tables import _leaves
+
+    return _leaves(stack.block)
+
+
 def api(pkg: str):
     """One package's fleet surface under the same names on both sides."""
     m = lambda name: importlib.import_module(f"{pkg}.{name}")  # noqa: E731
@@ -163,20 +169,24 @@ class TestStacking:
             assert int((res.node >= 0).sum()) == 0
 
     def test_unchanged_tenant_skips_patch_changed_one_patches(self):
-        """The JAX package's donated-patch case on the port's out-of-place
-        row patch: no restack without a shape change, the changed tenant's
-        row patched, nothing counted as donated."""
+        """The JAX package's donated-patch case (test_fleet.py) on the
+        port's in-place row patch: no restack without a shape change, the
+        changed tenant's row written in place (donated_patches grows, every
+        resident leaf on its storage), no donation failure."""
         srv, binders = build_fleet(
             PORT, [("a", 2, 4, 1.0), ("b", 2, 0, 1.0)], batch_size=2)
         srv.tick()
         assert srv.stack.full_restacks >= 1
         patched0 = srv.stack.row_patches
+        donated0 = srv.stack.donated_patches
         restacks0 = srv.stack.full_restacks
+        ptrs = [a.data_ptr() for a in _stack_leaves(srv.stack)]
         srv.tick()  # a changed (pods bound), b is identical
         assert srv.stack.full_restacks == restacks0
         assert srv.stack.row_patches == patched0 + 1
-        assert srv.stack.donated_patches == 0
+        assert srv.stack.donated_patches > donated0
         assert srv.stack.donation_failures == 0
+        assert [a.data_ptr() for a in _stack_leaves(srv.stack)] == ptrs
 
     def test_row_patch_equals_a_restack(self):
         """The batched row patch leaves the resident stack equal, leaf for
@@ -192,6 +202,57 @@ class TestStacking:
         snaps = st._snaps
         fresh = stack_blocks([st._row(s) for s in snaps])
         for a, b in zip(_leaves(st.block), _leaves(fresh)):
+            assert torch.equal(a, b)
+
+    def test_invalidated_stack_restacks_and_keeps_the_old_tensors(self):
+        """After invalidate() — the server's response to an abandoned
+        dispatch, whose worker may still read the stack — a changed tenant
+        restacks onto fresh tensors instead of being written in place: the
+        old tensors stay as the worker read them."""
+        srv, _ = build_fleet(PORT, [("a", 2, 4, 1.0), ("b", 2, 0, 1.0)],
+                             batch_size=2)
+        srv.tick()
+        st = srv.stack
+        old = _stack_leaves(st)
+        kept = [a.clone() for a in old]
+        st.invalidate()
+        restacks0, donated0 = st.full_restacks, st.donated_patches
+        srv.tick()
+        assert st.full_restacks == restacks0 + 1
+        assert st.donated_patches == donated0
+        assert all(torch.equal(a, b) for a, b in zip(old, kept))
+        assert all(a.data_ptr() != b.data_ptr()
+                   for a, b in zip(old, _stack_leaves(st)))
+
+    def test_in_place_patch_counts_each_changed_tenant(self):
+        """Two changed tenants in one refresh: both rows written in place in
+        one index_copy_ per leaf (row_patches and donated_patches grow by
+        two, no leaf moves), the third tenant's row untouched, and the
+        stack equal to a fresh one."""
+        import dataclasses
+
+        from kubernetes_tpu_torch.fleet.tables import _leaves, stack_blocks
+
+        srv, _ = build_fleet(PORT, [("a", 2, 4, 1.0), ("b", 2, 3, 1.0),
+                                    ("c", 2, 0, 1.0)], batch_size=2)
+        srv.tick()
+        st = srv.stack
+        snaps, keys = st._snaps, st.keys_host
+        ptrs = [a.data_ptr() for a in _stack_leaves(st)]
+        third = [a[2].clone() for a in _stack_leaves(st)]
+        patched0, donated0 = st.row_patches, st.donated_patches
+        changed = list(snaps)
+        changed[0] = dataclasses.replace(snaps[0])   # new snapshot objects
+        changed[1] = dataclasses.replace(snaps[1])
+        st.refresh(changed, keys, st.dims)
+        assert st.row_patches == patched0 + 2
+        assert st.donated_patches == donated0 + 2
+        assert st.donation_failures == 0
+        leaves = _stack_leaves(st)
+        assert [a.data_ptr() for a in leaves] == ptrs
+        assert all(torch.equal(a[2], b) for a, b in zip(leaves, third))
+        fresh = stack_blocks([st._row(s) for s in changed])
+        for a, b in zip(leaves, _leaves(fresh)):
             assert torch.equal(a, b)
 
 

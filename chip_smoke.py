@@ -20,8 +20,10 @@ Phases, each fatal on failure (exit code != 0, no result line):
      R = 4 and 16, host ports at PWt == PWp, volumes at driver limits,
      N = 1, 1,023, 1,025, 5,120 and 29,000 on the hostname key, no terms)
      — every node and all nine state planes, WSYM bitwise, the initial
-     state untouched — and K4 refusing an even-spread total past 2^24,
-     k4_even_bound_case);
+     state untouched, through the wrapper and at each cluster size 1, 2,
+     4, 8, 16 — and K4 refusing an even-spread total past 2^24,
+     k4_even_bound_case, through the wrapper and at each cluster size
+     above 1);
   3. the flagship cycle — 5,000 nodes × 50,000 pods (models/workloads.py
      make_nodes / flagship_pods) — through BatchScheduler(device="cuda"):
      launch counts of the cycle, placements and final state planes against
@@ -127,7 +129,9 @@ Phases, each fatal on failure (exit code != 0, no result line):
      against JAX_FLEET and each engine's solo run, with K1/K2/K4 launches
      per tick (the scan tenants and the runs tenants' fallback through
      K4, the plain scan never called), the stack patched in place
-     (donated_patches > 0, no donation failure), the steady tick's split;
+     (donated_patches > 0, no donation failure), the steady tick's split,
+     K4's longest launch per step and at each cluster size, one short
+     fallback run's device time and time per call;
      12b tick 1's DRF rows on the card against the CPU; 12c the watch
      plane with a stream killed and revived;
  13. the sequential-assume scan at full width on make_nodes(5000): 13a
@@ -136,7 +140,7 @@ Phases, each fatal on failure (exit code != 0, no result line):
      port_volume_workload(5000, 5000) under KTPU_ASSIGN=scan; each against
      JAX_SCAN, K4 launched and the plain scan not called on the route, K4
      equal to its plain version over the first 256 rows; K4's device time
-     per launch and per step.
+     per launch and per step, and per step at each cluster size.
 
 Prints a `kernels` JSON line, the nvidia-smi name/power line, and last
 `{"ok": true, "device": {...}}`. Imports nothing of JAX.
@@ -870,6 +874,7 @@ def check_k3(device, cases) -> int:
 # --------------------------------------------------------------------------- #
 
 K4_SOURCE = "kubernetes_tpu_torch/csrc/assign_scan.cu"
+K4_SWEEP = (1, 2, 4, 8, 16)   # cluster sizes K4 is held and timed at
 SCAN_ZONES = ("z-a", "z-b", "z-c")
 LEGACY_ZONE = "failure-domain.beta.kubernetes.io/zone"
 
@@ -1140,10 +1145,53 @@ def k4_diff(a, b) -> int:
     return d
 
 
-def check_k4(device, cases) -> int:
+def k4_at(args, cluster):
+    """K4 on `args` at an explicit cluster size (kernels._k4_launch's
+    keyword: the sweep and the card tests only), raising as the wrapper
+    does on a status bit; not counted as a launch of the main path."""
+    from kubernetes_tpu_torch.ops import kernels as K
+
+    device = args[4].used.device
+    ins = K.k4_inputs(*args)
+    dims = K.k4_check(ins, device)
+    node, state, status, _ = K._k4_launch(ins, dims, args[1].ecfg,
+                                          type(args[4]), device,
+                                          cluster=cluster)
+    K.k4_raise_on_status(status)
+    return node, state
+
+
+def k4_config(args):
+    """The K4Launch k4_launch_config picks for `args`."""
+    from kubernetes_tpu_torch.ops import kernels as K
+
+    ins = K.k4_inputs(*args)
+    return K.k4_launch_config(K.k4_check(ins, args[4].used.device))
+
+
+def k4_cluster(args) -> int:
+    """The cluster size k4_launch_config picks for `args`."""
+    return k4_config(args).cluster
+
+
+def k4_shape(args) -> str:
+    """K4's launch shape for `args`, as phases 12a and 13 print it: the
+    cluster, each CTA's nodes, threads and dynamic shared bytes, and the
+    optional regions placed in shared memory."""
+    from kubernetes_tpu_torch.ops import kernels as K
+
+    cfg = k4_config(args)
+    placed = [n for b, n in enumerate(K.K4_PLACE) if cfg.place >> b & 1]
+    return (f"cluster {cfg.cluster}, {cfg.slice} nodes and {cfg.threads} "
+            f"threads a CTA, {cfg.smem_bytes} bytes of shared memory a CTA "
+            f"of {K.SMEM_MAX} (placed there: {', '.join(placed) or 'none'})")
+
+
+def check_k4(device, cases, clusters=K4_SWEEP) -> int:
     """K4 against its plain version on the card, exactly: every node and
     all nine planes (WSYM bitwise); the initial state unchanged by the
-    kernel. Returns the max abs error."""
+    kernel. Each case through the wrapper (the cluster size it picks) and
+    at each of `clusters`. Returns the max abs error."""
     import torch
     from kubernetes_tpu_torch.ops import kernels as K
     from kubernetes_tpu_torch.ops.assign import assign_scan_plain
@@ -1151,33 +1199,48 @@ def check_k4(device, cases) -> int:
     err = 0
     for name, args in cases:
         before = [t.clone() for t in args[4]]
+        want = assign_scan_plain(*args)
         got = K.assign_scan(*args)
         sync(device)
         if not all(torch.equal(x, y) for x, y in zip(before, args[4])):
             fail(f"assign_scan wrote its initial state ({name})")
-        d = k4_diff(got, assign_scan_plain(*args))
+        d = k4_diff(got, want)
+        diffs = {}
+        for c in clusters:
+            diffs[c] = k4_diff(k4_at(args, c), want)
+            sync(device)
+        if not all(torch.equal(x, y) for x, y in zip(before, args[4])):
+            fail(f"assign_scan wrote its initial state ({name})")
         pods = args[2]
         placed = int((got[0] >= 0).sum())
         print(f"  K4 {name}: N={args[0].nodes.valid.shape[0]} "
               f"S={args[1].TM.shape[0]} D+1={args[1].ELD.shape[2]} "
               f"R={args[0].nodes.alloc.shape[1]}, {int(pods.valid.sum())} "
-              f"valid rows, {placed} placed; max_abs_err={d}")
-        if d != 0:
+              f"valid rows, {placed} placed; cluster {k4_cluster(args)} "
+              f"max_abs_err={d}; by cluster size {diffs}")
+        if d != 0 or any(diffs.values()):
             fail(f"assign_scan disagrees with its plain version ({name})")
-        err = max(err, d)
+        err = max([err, d] + list(diffs.values()))
     return err
 
 
-def k4_device_fn(args):
+def k4_device_fn(args, cluster=None):
     """K4's launch alone on checked inputs, with no status readback, so
-    device_ms's GPU spin can hold the stream while the launches queue."""
+    device_ms's GPU spin can hold the stream while the launches queue;
+    at `cluster` CTAs when given."""
     from kubernetes_tpu_torch.ops import kernels as K
 
     device = args[4].used.device
     ins = K.k4_inputs(*args)
     dims = K.k4_check(ins, device)
     return lambda: K._k4_launch(ins, dims, args[1].ecfg, type(args[4]),
-                                device)
+                                device, cluster=cluster)
+
+
+def k4_sweep(device, args, reps: int = 3) -> dict:
+    """K4's device ms on `args` at each cluster size of K4_SWEEP."""
+    return {c: device_ms(k4_device_fn(args, c), device, reps=reps)
+            for c in K4_SWEEP}
 
 
 def k4_bound(args) -> tuple:
@@ -1266,17 +1329,28 @@ def k4_even_bound_case(device):
 
 def check_k4_status(device) -> None:
     """K4 refuses an input whose even-spread total passes 2^24 (the plain
-    version's f32 sum would round): the wrapper raises, naming the bit."""
+    version's f32 sum would round): the wrapper raises, naming the bit —
+    through the wrapper, and at every cluster size above 1, where each
+    CTA's share of the total stays under 2^24 and only the cluster's total
+    passes it."""
     from kubernetes_tpu_torch.ops import kernels as K
 
-    try:
-        K.assign_scan(*k4_even_bound_case(device))
-    except ValueError as e:
-        if "even-spread total" not in str(e):
-            fail(f"K4 refused the even-spread case for another reason: {e}")
-        print(f"  K4 even-spread total past 2^24: refused ({e})")
-        return
-    fail("K4 took an even-spread total past 2^24 without raising")
+    args = k4_even_bound_case(device)
+    for c in (None,) + tuple(c for c in K4_SWEEP if c > 1):
+        try:
+            if c is None:
+                K.assign_scan(*args)
+            else:
+                k4_at(args, c)
+        except ValueError as e:
+            if "even-spread total" not in str(e):
+                fail(f"K4 refused the even-spread case for another reason "
+                     f"(cluster {c}): {e}")
+            print(f"  K4 even-spread total past 2^24, cluster "
+                  f"{c or k4_cluster(args)}: refused ({e})")
+            continue
+        fail(f"K4 took an even-spread total past 2^24 without raising "
+             f"(cluster {c})")
 
 
 def check_k4_steps(device, args, steps: int, label: str) -> tuple:
@@ -1358,11 +1432,16 @@ def scan_phase(device, card: str) -> dict:
         sub_ms = device_ms(k4_device_fn(sub), device, reps=5)
         call_ms = time_ms(lambda: K.assign_scan(*args), device, reps=3)
         b, by = k4_bound(args)
+        sweep = k4_sweep(device, args)
         out[key] = dict(
             nodes=len(nodes), pods=len(pods), steps=steps,
             scheduled=res.scheduled, cycle_s=wall, launches=launches,
             plain_calls=plain_calls, max_abs_err=err, ms=ms,
             step_us=ms / max(steps, 1) * 1e3, call_ms=call_ms,
+            cluster=k4_cluster(args),
+            sweep_ms=sweep,
+            sweep_step_us={c: t / max(steps, 1) * 1e3
+                           for c, t in sweep.items()},
             check_steps=SCAN_CHECK_STEPS, check_ms=sub_ms,
             plain_ms=plain_s * 1e3,
             plain_step_ms=plain_s * 1e3 / SCAN_CHECK_STEPS,
@@ -1372,12 +1451,17 @@ def scan_phase(device, card: str) -> dict:
         print(f"  {label}: {len(nodes)} nodes x {len(pods)} pods, "
               f"{res.scheduled} scheduled == JAX_SCAN, placement sha256 "
               f"equal; cycle {wall:.3f} s; launches {launches}, plain "
-              f"calls {plain_calls}; K4 {ms:.3f} ms on the device for "
-              f"{steps} steps ({r['step_us']:.2f} us a step; {call_ms:.3f} "
-              f"ms a call; bound {b:.6f} ms by {by}); the first "
-              f"{SCAN_CHECK_STEPS} rows: K4 {sub_ms:.3f} ms, plain "
-              f"{r['plain_ms']:.1f} ms ({r['plain_step_ms']:.3f} ms a "
-              f"step), max_abs_err={err} ({card})")
+              f"calls {plain_calls}; K4 (cluster {r['cluster']}) "
+              f"{ms:.3f} ms on the device for {steps} steps "
+              f"({r['step_us']:.2f} us a step; {call_ms:.3f} ms a call; "
+              f"bound {b:.6f} ms by {by}); the first {SCAN_CHECK_STEPS} "
+              f"rows: K4 {sub_ms:.3f} ms, plain {r['plain_ms']:.1f} ms "
+              f"({r['plain_step_ms']:.3f} ms a step), max_abs_err={err} "
+              f"({card})")
+        print(f"    {label} cluster-size sweep, us a step: "
+              + ", ".join(f"{c}: {t:.2f}"
+                          for c, t in r["sweep_step_us"].items()))
+        print(f"    {label} K4 launch: {k4_shape(args)}")
     return out
 
 
@@ -4246,8 +4330,13 @@ def server_takeover(api, n_nodes: int = None, n_pods: int = None) -> dict:
         api.faultline.uninstall()
         t_kill = time.monotonic()
         token_a = a.elector.fencing_token
-        a.crash()
+        # the intents the kill left, counted at the kill: the dead loop can
+        # retire nothing and a's elector still holds the lease, so the
+        # standby cannot have reconciled them yet. After a.crash() it may
+        # have: crash() stops the elector first, then joins a's informer
+        # and loop threads (seconds under load), past the 1.5 s lease.
         orphaned = len(a.scheduler.ledger.unretired())
+        a.crash()
         if orphaned < 1:
             fail("11c: the kill left no unretired intent to replay")
         bound_at_kill = watch.count()
@@ -4981,15 +5070,32 @@ def fleet_phase(device, card: str) -> dict:
                  for r in (k4_rec, k4_runs) if r.args is not None)
     errs["12a"]["assign_scan"] = k4_err
     k4_first = dict(rows=int(k4_rec.args[3].shape[0]),
+                    steps=int(k4_rec.args[2].valid[
+                        k4_rec.args[3].long()].sum()),
                     nodes=int(k4_rec.args[0].nodes.valid.shape[0]),
+                    cluster=k4_cluster(k4_rec.args),
                     ms=device_ms(k4_device_fn(k4_rec.args), device, reps=3))
+    k4_first["step_us"] = k4_first["ms"] / max(k4_first["steps"], 1) * 1e3
+    k4_first["sweep_ms"] = k4_sweep(device, k4_rec.args)
+    # one short fallback run (a run's rows): the launch's fixed cost
+    short = k4_runs.args
+    k4_short = dict(rows=int(short[3].shape[0]), cluster=k4_cluster(short),
+                    ms=device_ms(k4_device_fn(short), device),
+                    call_ms=time_ms(lambda: K.assign_scan(*short), device))
     print(f"    K4 {counts.get('assign_scan', 0)} launches ({fallback_runs} "
           f"of them the runs tenants' fallback runs), plain scan "
           f"{plain_calls} calls; its longest launch ({k4_first['rows']} rows "
-          f"at N={k4_first['nodes']}) {k4_first['ms']:.3f} ms on the device "
-          f"and equal to the plain version over {SCAN_CHECK_STEPS} rows; "
-          f"stack patches in place {donated}, donation failures "
-          f"{donation_failures}")
+          f"at N={k4_first['nodes']}, cluster {k4_first['cluster']}) "
+          f"{k4_first['ms']:.3f} ms on the device "
+          f"({k4_first['step_us']:.2f} us a step) and equal to the plain "
+          f"version over {SCAN_CHECK_STEPS} rows; cluster-size sweep, ms: "
+          + ", ".join(f"{c}: {t:.3f}"
+                      for c, t in k4_first["sweep_ms"].items())
+          + f"; a fallback run of {k4_short['rows']} rows (cluster "
+          f"{k4_short['cluster']}): {k4_short['ms']:.4f} ms on the device, "
+          f"{k4_short['call_ms']:.4f} ms a call; stack patches in place "
+          f"{donated}, donation failures {donation_failures}")
+    print(f"    K4 longest launch: {k4_shape(k4_rec.args)}")
 
     # 12b: tick 1's DRF rows on the card, the CPU and in JAX_FLEET
     b = {}
@@ -5036,7 +5142,8 @@ def fleet_phase(device, card: str) -> dict:
                 steady_idle_share_min=idle, launches_per_tick=launches,
                 launches=counts, errs=errs["12a"], drf=b,
                 donated_patches=donated, donation_failures=donation_failures,
-                k4_first=k4_first, k4_fallback_runs=fallback_runs,
+                k4_first=k4_first, k4_short=k4_short,
+                k4_fallback_runs=fallback_runs,
                 steady_split=tick_split(a["srv"], 1),
                 watch={k: v for k, v in w.items() if k != "bound"},
                 solo=solo, wall_s=wall)
@@ -5266,7 +5373,7 @@ def main() -> int:
     a13 = scan["nodename"]
     rows.append(dict(
         name="assign_scan", route="cuda", source=K4_SOURCE,
-        replaces="kubernetes_tpu/ops/assign.py:124",
+        replaces="kubernetes_tpu/ops/assign.py:124", cluster=a13["cluster"],
         launches=a13["launches"]["assign_scan"],
         max_abs_err=max(errs["assign_scan"], a13["max_abs_err"],
                         scan["ports_volumes"]["max_abs_err"],
@@ -5281,7 +5388,9 @@ def main() -> int:
         full_launch={k: dict(steps=v["steps"], ms=v["ms"],
                              step_us=v["step_us"], call_ms=v["call_ms"],
                              bound_ms=v["bound_ms"], bound_by=v["bound_by"],
-                             plain_step_ms=v["plain_step_ms"])
+                             plain_step_ms=v["plain_step_ms"],
+                             cluster=v["cluster"],
+                             sweep_step_us=v["sweep_step_us"])
                      for k, v in scan.items()},
         launches_by_phase={"8b": runs["scan_vs_runs"]["k4_launches"],
                            "12a": fleet["launches"].get("assign_scan", 0),

@@ -13,15 +13,17 @@ replaces and what bounds it at the top of each source):
     walk and the node-choice summaries (JAX package ops/preempt.py:128-156,
     183-217);
   * K4 `assign_scan` — the sequential-assume scan, every pod of a
-    queue-ordered list in one launch (JAX package ops/assign.py:64,124);
-    its plain version is ops/assign.py assign_scan_plain.
+    queue-ordered list in one launch on one thread-block cluster, each CTA
+    owning a slice of the nodes (JAX package ops/assign.py:64,124); its
+    plain version is ops/assign.py assign_scan_plain.
 
 Each wrapper takes its plain version for tensors on the CPU and launches its
 kernel for tensors on a CUDA device — never falling back from one to the
 other — and counts its launches in `<wrapper>.launches`. The launch shape
-(K1's variant and grid, K2's segments and counter storage) is chosen
-in plain Python, `k1_launch_config` / `k2_launch_config` /
-`k3_launch_config`.
+(K1's variant and grid, K2's segments and counter storage, K4's cluster
+and shared-memory placement) is chosen in plain Python,
+`k1_launch_config` / `k2_launch_config` / `k3_launch_config` /
+`k4_launch_config`.
 
 Build: `nvcc -gencode arch=compute_90a,code=sm_90a` into one shared library
 per source with a plain C interface, loaded with ctypes, at first use (K4
@@ -636,13 +638,12 @@ K4_POINTERS = (
     "panti_w", "tsc_term", "tsc_maxskew", "tsc_hard", "ssel_terms", "smask",
     "node_match", "sscore", "TM", "has_anti", "ELD", "WCOLS", "rows", "cls",
     "pvalid", "nnr", "used", "ppa", "ppw", "ppt", "CNT", "HOLD", "WSYM",
-    "vol_any", "vol_rw", "node", "status", "scored", "wbound", "dCNT",
-    "dHOLD", "dWSYM", "tCNT", "lc", "hist", "node_f", "node_i", "node_s",
-    "node_b")
+    "vol_any", "vol_rw", "node", "status", "scored", "cblock", "qinfo",
+    "gdom", "ghist", "gnode")
 K4_INTS = ("N", "R", "K", "PWp", "PWt", "VW", "DR", "S", "SC", "AT", "AN",
-           "PAT", "PAN", "TS", "SS", "D", "P", "Q", "hist_shared",
-           "f_interpod", "f_spread", "f_name", "f_fit", "f_ports",
-           "f_volrestrict", "f_vollimits")
+           "PAT", "PAN", "TS", "SS", "D", "P", "Q", "cluster", "slice",
+           "threads", "cbw", "place", "f_interpod", "f_spread", "f_name",
+           "f_fit", "f_ports", "f_volrestrict", "f_vollimits")
 K4_FLOATS = ("w_least", "w_balanced", "w_most", "w_interpod", "w_even",
              "w_ssel", "zw_node", "zw_zone", "eps")
 
@@ -749,17 +750,113 @@ K4_STATUS = ("a WSYM or WCOLS value is not an integer",
              "the weighted soft-affinity counts reach 2^24",
              "the even-spread total reaches 2^24",
              "a SelectorSpread zone count reaches 2^24")
-# dynamic shared memory K4's [2D+1] histogram may take: the block's
-# limit less its static shared memory (the reduction buffers)
-K4_SMEM_MAX = SMEM_MAX - 4096
+# K4's launch shape. The node axis is spread over one thread-block cluster
+# of `cluster` CTAs, CTA r owning the nodes [r * slice, (r + 1) * slice);
+# the cluster is the smallest that leaves each CTA at most K4_NODES_PER_CTA
+# nodes (one a thread), up to K4_MAX_CLUSTER (16 needs the non-portable
+# cluster attribute, which the launch sets). 320 from the cluster-size
+# sweep on an H100 (PERF.md, §6): the step time falls with the slice
+# down to ~256-320 nodes a CTA, below which the wider cluster's barriers
+# cost more than the shorter per-node passes save.
+K4_CLUSTERS = (1, 2, 4, 8, 16)
+K4_MAX_CLUSTER = 16
+K4_NODES_PER_CTA = 320
+# csrc/assign_scan.cu kMaxThreads, its __launch_bounds__: 512 leaves the
+# kernel 128 registers a thread and no spill (at 1,024 it had 64 and
+# spilled, and took 20-35% longer a step on an H100; PERF.md, §6)
+K4_MAX_THREADS = 512
+# the optional shared-memory regions (csrc/assign_scan.cu kNode ... kWords),
+# in the order they are offered the room left: the per-node values of a
+# step, the ring of the next row's static rows, the slice's node rows, the
+# histograms, the slice of CNT, the domain totals, the port and volume
+# words (each in global memory only where the shapes leave no room; the
+# histograms before CNT measured faster at 13a's shapes, PERF.md §6)
+K4_PLACE = ("node", "ring", "rows", "hist", "cnt", "dtot", "words")
+K4_RED_BYTES = 704         # sizeof(Red): 3 f32, 2 i64, 2 i32 and 1 u64 x 16
+K4_XCH_BYTES = 1112        # sizeof(Xch): 8 u64 and 1 i32 x 16, 2 i32, 2 u64
 
 
-def k4_launch_config(D: int) -> Tuple[bool, int]:
-    """(histogram in shared memory, dynamic shared bytes): the [2D+1]
-    int32 bins of K4's spread and zone histograms in shared memory where
-    they fit, else in global scratch."""
-    smem = 4 * (2 * D + 1)
-    return (True, smem) if smem <= K4_SMEM_MAX else (False, 0)
+class K4Launch(NamedTuple):
+    cluster: int      # CTAs in the one cluster
+    slice: int        # nodes each CTA owns (the last may own fewer)
+    threads: int      # threads per CTA
+    place: int        # K4_PLACE bits: regions in shared memory
+    cbw: int          # int32 words of one class block
+    smem_bytes: int   # dynamic shared memory per CTA
+
+
+def _al16(x: int) -> int:
+    return (x + 15) & ~15
+
+
+def k4_cbw(d: Dict[str, int]) -> int:
+    """Words of one class block (csrc/assign_scan.cu cb_layout): flags, nl,
+    hard bits, port set, volume set, the matched terms and the WCOLS
+    column (S each), the TM and has_anti bits, the term lists, the request
+    and the port and volume words."""
+    sw = (d["S"] + 31) // 32
+    return (5 + 2 * d["S"] + 2 * sw + d["AT"] + d["AN"] + 2 * d["PAT"]
+            + 2 * d["PAN"] + 2 * d["TS"] + d["SS"] + d["R"] + 2 * d["PWp"]
+            + d["PWt"] + 2 * d["VW"])
+
+
+def k4_layout(d: Dict[str, int], slice_: int, cbw: int, place: int
+              ) -> Tuple[int, Dict[str, int]]:
+    """(total bytes, each region's bytes) of one CTA's dynamic shared
+    memory (csrc/assign_scan.cu layout; every region rounded up to 16
+    bytes): the mandatory part (fold and exchange slots, each CTA's argmax
+    candidate's domains, the ring of two class blocks, per-term keys,
+    totals and bounds, the driver masks),
+    then each K4_PLACE region whose bit is in `place`."""
+    L, S, D1, H = slice_, d["S"], d["D"] + 1, 2 * d["D"] + 1
+    must = [2 * K4_RED_BYTES, K4_XCH_BYTES, 4 * K4_MAX_CLUSTER * (d["K"] + 1),
+            2 * 4 * cbw, 4 * S, 4 * S, 4 * d["K"], 8 * S,
+            4 * d["DR"] * d["VW"]]
+    parts = {
+        "node": [L, 4 * L, 4 * L, 4 * L],
+        "ring": [2 * (_al16(L + 8) * 2 + 4 * L)],
+        "rows": [L, 4 * L, 4 * L * d["R"], 4 * L * d["R"], 4 * L * d["K"]],
+        "hist": [3 * 4 * H], "cnt": [4 * S * L], "dtot": [3 * 4 * S * D1],
+        "words": [4 * L * (2 * d["PWp"] + d["PWt"] + 2 * d["VW"]
+                           + d["DR"])]}
+    sizes = {"must": sum(_al16(b) for b in must)}
+    for bit, name in enumerate(K4_PLACE):
+        if place >> bit & 1:
+            sizes[name] = sum(_al16(b) for b in parts[name])
+    return sum(sizes.values()), sizes
+
+
+def k4_launch_config(d: Dict[str, int], cluster: int = None) -> K4Launch:
+    """K4's launch shape from the dimensions alone (k4_check's): the
+    cluster size (the smallest power of two that leaves each CTA at most
+    K4_NODES_PER_CTA nodes, at most 16; `cluster` overrides it, for the
+    card's sweep and tests only), each CTA's slice and threads (one a node,
+    a multiple of 32, at most K4_MAX_THREADS), and the dynamic shared memory:
+    the mandatory part (k4_layout), then each optional region in K4_PLACE
+    order where it still fits in SMEM_MAX (232,448 bytes a CTA on an
+    H100). Raises ValueError when the mandatory part does not fit."""
+    N = d["N"]
+    if cluster is None:
+        cluster = 1
+        while (cluster < K4_MAX_CLUSTER
+               and -(-N // cluster) > K4_NODES_PER_CTA):
+            cluster *= 2
+    elif cluster not in K4_CLUSTERS:
+        raise ValueError(f"K4's cluster size is one of {K4_CLUSTERS}, not "
+                         f"{cluster}")
+    slice_ = -(-N // cluster)
+    threads = min(K4_MAX_THREADS, max(32, -(-slice_ // 32) * 32))
+    cbw = k4_cbw(d)
+    place = 0
+    total, _ = k4_layout(d, slice_, cbw, place)
+    if total > SMEM_MAX:
+        raise ValueError(f"K4 needs {total} bytes of shared memory a CTA for "
+                         f"{slice_} nodes, over the {SMEM_MAX} an H100 has")
+    for bit in range(len(K4_PLACE)):
+        t, _ = k4_layout(d, slice_, cbw, place | 1 << bit)
+        if t <= SMEM_MAX:
+            place, total = place | 1 << bit, t
+    return K4Launch(cluster, slice_, threads, place, cbw, total)
 
 
 _K4_F32: Dict[torch.device, Tuple[float, float, float]] = {}
@@ -800,6 +897,14 @@ def assign_scan(tables, cyc, pods, rows: torch.Tensor, init):
     node, state, status, _ = _k4_launch(ins, dims, cyc.ecfg, type(init),
                                         device)
     _count(assign_scan)
+    k4_raise_on_status(status)
+    return node, state
+
+
+def k4_raise_on_status(status: torch.Tensor) -> None:
+    """Raise ValueError when K4's status word (a 0-d tensor, read back
+    here) has a bit set: an f32 sum of the Score the plain version might
+    round, named by K4_STATUS."""
     bits = int(status)
     if bits:
         raise ValueError(
@@ -807,31 +912,65 @@ def assign_scan(tables, cyc, pods, rows: torch.Tensor, init):
             f"{bits:#x}: " + ", ".join(
                 why for bit, why in enumerate(K4_STATUS) if bits >> bit & 1)
             + "), so the kernel could not match its plain version exactly")
-    return node, state
 
 
-def _k4_launch(ins, dims, ecfg, state_type, device):
+# the clusters the card was found to co-schedule, by (cluster, threads,
+# shared bytes): cudaOccupancyMaxActiveClusters at a shape's first launch
+_K4_CLUSTERS_OK: Dict[Tuple[int, int, int], int] = {}
+
+
+def _k4_check_cluster(args: "K4Args", cfg: K4Launch) -> None:
+    """At a launch shape's first use: the card can co-schedule the cluster
+    (cudaOccupancyMaxActiveClusters > 0), else KernelLaunchError."""
+    key = (cfg.cluster, cfg.threads, cfg.smem_bytes)
+    if key in _K4_CLUSTERS_OK:
+        return
+    lib = _library("assign_scan")
+    fn = lib.assign_scan_max_clusters
+    fn.argtypes, fn.restype = [_P, _I], ctypes.c_int
+    n = fn(ctypes.addressof(args), cfg.smem_bytes)
+    if n < 0:
+        raise KernelLaunchError(
+            f"assign_scan: cluster query failed: "
+            f"{lib.kernel_error_string(-n).decode()}")
+    if n == 0:
+        raise KernelLaunchError(
+            f"assign_scan: a cluster of {cfg.cluster} CTAs x {cfg.threads} "
+            f"threads with {cfg.smem_bytes} bytes of shared memory each "
+            f"cannot be co-scheduled on this card")
+    _K4_CLUSTERS_OK[key] = n
+
+
+def _k4_launch(ins, dims, ecfg, state_type, device, *, cluster=None):
     """K4's launch on checked inputs: the state cloned (contiguous), the
-    outputs and one zeroed scratch allocated, the arguments packed.
-    Returns (node, state, the status word as a 0-d tensor, the number of
-    (row, node) pairs the Filter passed as a 0-d int64 tensor)."""
+    outputs and one scratch allocated (the kernel writes every word it
+    reads: the class blocks and walk rows, one copy the cluster builds,
+    and each CTA's domain totals and histograms where they are not in
+    shared memory), the arguments packed.
+    `cluster` overrides k4_launch_config's cluster size (the card's sweep
+    and tests only). Returns (node, state, the status word as a 0-d
+    tensor, the number of (row, node) pairs the Filter passed as a 0-d
+    int64 tensor)."""
     state = state_type(*(ins[k].clone(memory_format=torch.contiguous_format)
                          for k in K4_STATE))
-    N, S, D, P = dims["N"], dims["S"], dims["D"], dims["P"]
-    hist_shared, smem = k4_launch_config(D)
-    # one zeroed scratch, carved by word offsets (the 8-byte words first:
-    # wbound [S] f64, scored [1] u64)
-    parts = (("wbound", 2 * S), ("scored", 2), ("dCNT", S * (D + 1)), ("dHOLD", S * (D + 1)),
-             ("dWSYM", S * (D + 1)), ("tCNT", S), ("lc", S),
-             ("hist", 0 if hist_shared else 2 * D + 1), ("node_f", N),
-             ("node_i", N), ("node_s", N), ("node_b", -(-N // 4)),
-             ("status", 1))
-    scratch = torch.zeros((sum(w for _, w in parts),), dtype=torch.int32,
+    N, S, D, P, Q = dims["N"], dims["S"], dims["D"], dims["P"], dims["Q"]
+    cfg = k4_launch_config(dims, cluster)
+    C = cfg.cluster
+    place = {name: bool(cfg.place >> bit & 1)
+             for bit, name in enumerate(K4_PLACE)}
+    # one scratch, carved by word offsets (the 8-byte word first)
+    parts = (("scored", 2), ("status", 1),
+             ("cblock", dims["SC"] * cfg.cbw), ("qinfo", Q * 3),
+             ("gdom", 0 if place["dtot"] else C * 3 * S * (D + 1)),
+             ("ghist", 0 if place["hist"] else C * 3 * (2 * D + 1)),
+             ("gnode", 0 if place["node"] else C * 4 * cfg.slice))
+    scratch = torch.empty((sum(w for _, w in parts),), dtype=torch.int32,
                           device=device)
-    node = torch.full((P,), -1, dtype=torch.int32, device=device)
-    ptr, at = {}, 0
+    node = torch.empty((P,), dtype=torch.int32, device=device)
+    ptr, off, at = {}, {}, 0
     for name, words in parts:
         ptr[name] = scratch.data_ptr() + 4 * at
+        off[name] = at
         at += words
     ptr.update({k: v.data_ptr() for k, v in ins.items()})
     ptr.update({k: getattr(state, k).data_ptr() for k in K4_STATE})
@@ -841,8 +980,8 @@ def _k4_launch(ins, dims, ecfg, state_type, device):
         *(ptr[f] for f in K4_POINTERS),
         N, dims["R"], dims["K"], dims["PWp"], dims["PWt"], dims["VW"],
         dims["DR"], S, dims["SC"], dims["AT"], dims["AN"], dims["PAT"],
-        dims["PAN"], dims["TS"], dims["SS"], D, P, dims["Q"],
-        int(hist_shared),
+        dims["PAN"], dims["TS"], dims["SS"], D, P, Q,
+        C, cfg.slice, cfg.threads, cfg.cbw, cfg.place,
         *(int(_on(getattr(ecfg, f))) for f in (
             "f_interpod", "f_spread", "f_name", "f_fit", "f_ports",
             "f_volrestrict", "f_vollimits")),
@@ -850,9 +989,11 @@ def _k4_launch(ins, dims, ecfg, state_type, device):
             "w_least", "w_balanced", "w_most", "w_interpod", "w_even",
             "w_ssel")),
         zw_node, zw_zone, eps)
-    _launch("assign_scan", ctypes.addressof(args), smem, _stream(device))
-    return (node, state, scratch[at - 1],
-            scratch[2 * S:2 * S + 2].view(torch.int64)[0])
+    _k4_check_cluster(args, cfg)
+    _launch("assign_scan", ctypes.addressof(args), cfg.smem_bytes,
+            _stream(device))
+    return (node, state, scratch[off["status"]],
+            scratch[0:2].view(torch.int64)[0])
 
 
 assign_scan.launches = 0

@@ -351,10 +351,71 @@ def test_assign_scan_matches_plain_version_exactly(cuda):
     """K4 on chip_smoke.py's phase-2 cases (ties, a pod that fits nowhere,
     one pinned to a missing node, invalid rows, each Filter flag off, R =
     16, N = 1, 1,023, 1,025, 5,120 and 29,000 on the hostname key, no
-    terms) against its plain version: every node and all nine planes,
-    WSYM bitwise, the initial state untouched."""
+    terms) against its plain version, through the wrapper (the cluster
+    size it picks) and on one CTA: every node and all nine planes, WSYM
+    bitwise, the initial state untouched."""
     cs = _chip_smoke()
-    assert cs.check_k4(cuda, cs.k4_edge_cases(cuda, seed=1)) == 0
+    assert cs.check_k4(cuda, cs.k4_edge_cases(cuda, seed=1),
+                       clusters=(1,)) == 0
+
+
+@pytest.mark.parametrize("cluster", [1, 2, 4, 8, 16])
+def test_assign_scan_at_every_cluster_size(cuda, cluster):
+    """K4 at an explicit cluster size on the phase-2 cases — N below the
+    cluster size (N = 1), N not a multiple of the CTA's threads (60, 1,023,
+    1,025, 29,000) — against its plain version: every node, all nine
+    planes, WSYM bitwise, the initial state untouched."""
+    cs = _chip_smoke()
+    assert cs.check_k4(cuda, cs.k4_edge_cases(cuda, seed=2),
+                       clusters=(cluster,)) == 0
+
+
+def test_assign_scan_from_several_threads_at_different_shapes(cuda):
+    """K4 launched from several threads at once, each on a phase-2 case of
+    its own launch shape (its own cluster and shared-memory size), as the
+    dispatch worker, the bucket prewarmer and the fleet's dispatch may:
+    every launch goes through and equals its plain version."""
+    import threading
+
+    from kubernetes_tpu_torch.ops import kernels as K
+    from kubernetes_tpu_torch.ops.assign import assign_scan_plain
+
+    cs = _chip_smoke()
+    by_shape = {}
+    for name, args in cs.k4_edge_cases(cuda, seed=3):
+        by_shape.setdefault(cs.k4_config(args).smem_bytes, (name, args))
+    cases = list(by_shape.values())
+    assert len(cases) >= 2
+    wants = [assign_scan_plain(*args) for _, args in cases]
+    errors = []
+
+    def run(i):
+        name, args = cases[i]
+        try:
+            for _ in range(20):
+                got = K.assign_scan(*args)
+                torch.cuda.synchronize(cuda)
+                if cs.k4_diff(got, wants[i]):
+                    errors.append(f"{name}: differs from the plain version")
+        except Exception as e:  # noqa: BLE001 - reported below
+            errors.append(f"{name}: {e!r}")
+
+    threads = [threading.Thread(target=run, args=(i,))
+               for i in range(len(cases))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert not errors, errors
+
+
+def test_assign_scan_refuses_the_even_spread_case_at_cluster_16(cuda):
+    """k4_even_bound_case at 16 CTAs: each CTA's share of the eligible
+    total stays under 2^24 (tests/test_torch_scan.py), only the cluster's
+    total passes it, and the launch still raises on the even-spread bit."""
+    cs = _chip_smoke()
+    with pytest.raises(ValueError, match="even-spread total"):
+        cs.k4_at(cs.k4_even_bound_case(cuda), 16)
 
 
 def test_assign_scan_refuses_an_even_spread_total_past_2_24(cuda):

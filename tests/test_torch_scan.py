@@ -196,6 +196,27 @@ def test_even_bound_case_passes_2_24_in_total_only():
     assert int((node >= 0).sum()) == int(pe.valid.sum())
 
 
+def test_even_bound_case_passes_2_24_only_over_the_cluster():
+    """At cluster size 16 (where the card must still refuse it), every
+    CTA's share of k4_even_bound_case's eligible total stays under 2^24:
+    only the fold over the whole cluster passes it."""
+    tables, cyc, pe, rows, init = CS.k4_even_bound_case(CPU)
+    cl, nodes = tables.classes, tables.nodes
+    c = int(pe.cls[0])
+    s = int(cl.tsc_term[c][cl.tsc_term[c] >= 0][0])
+    dom = nodes.domain[:, int(tables.terms.topo_key[s])].long()
+    elig = cyc.static.node_match[c] & nodes.valid & (dom >= 0)
+    zone = torch.zeros(int(dom.max()) + 1, dtype=torch.int64).index_add_(
+        0, dom[elig], init.CNT[s][elig].to(torch.int64))
+    raw = torch.where(elig, zone[dom.clamp(min=0)], 0)
+    dims = K.k4_check(K.k4_inputs(tables, cyc, pe, rows, init), CPU)
+    for cluster in (2, 4, 8, 16):
+        cfg = K.k4_launch_config(dims, cluster=cluster)
+        shares = [int(raw[r * cfg.slice:(r + 1) * cfg.slice].sum())
+                  for r in range(cluster)]
+        assert max(shares) < 2 ** 24 <= sum(shares), (cluster, shares)
+
+
 def test_runs_fallback_equals_the_scan():
     """The runs engine on a backlog of plain replica runs, self-interacting
     (spread) pods and a pinned pod: the fallback runs go through the scan
@@ -352,9 +373,89 @@ def test_k4_is_built_with_its_own_flags():
     body = src[src.index("struct Args {"):]
     body = body[:body.index("};")]
     assert re.findall(r"\*\s*(\w+);", body) == list(K.K4_POINTERS)
+
+    def names(kind):
+        return [n.strip() for decl in re.findall(
+            rf"^\s*{kind} ([^;(]+);", body, re.M) for n in decl.split(",")]
+
+    assert names("int") == list(K.K4_INTS)
+    assert names("float") == list(K.K4_FLOATS)
     packed = 8 * len(K.K4_POINTERS) + 4 * (len(K.K4_INTS)
                                            + len(K.K4_FLOATS))
     assert ctypes.sizeof(K.K4Args) == -(-packed // 8) * 8  # no inner padding
+    # the fold and exchange slots' sizes (struct Red over the block's
+    # warps, struct Xch over the cluster's CTAs), which k4_layout counts
+    consts = dict(re.findall(r"constexpr int (kMaxThreads|kMaxCluster) = "
+                             r"(\d+);", src))
+    warps, ctas = int(consts["kMaxThreads"]) // 32, int(consts["kMaxCluster"])
+    assert K.K4_RED_BYTES == warps * (3 * 4 + 2 * 8 + 2 * 4 + 8)
+    assert K.K4_XCH_BYTES == ctas * (8 * 8 + 4) + 2 * 4 + 2 * 8
+    assert K.K4_MAX_THREADS == int(consts["kMaxThreads"])
+    assert K.K4_MAX_CLUSTER == ctas
+    # the shared-memory placement bits, in K4_PLACE's order
+    bits = dict(re.findall(r"constexpr int k(Node|Ring|Rows|Hist|Cnt|Dtot|"
+                           r"Words) = (\d+);", src))
+    assert [int(bits[n.capitalize()]) for n in K.K4_PLACE] == [
+        1 << i for i in range(len(K.K4_PLACE))]
+
+
+# 13a's dimensions (the flagship with pinned pods on make_nodes(5000))
+K4_DIMS = dict(N=5120, R=4, K=4, DR=2, PWp=1, PWt=1, VW=1, S=72, SC=52, AT=2,
+               AN=1, PAT=2, PAN=2, TS=1, SS=2, D=5120, Q=10240, P=10240)
+
+
+@pytest.mark.parametrize("D", [0, 3, 5000])
+@pytest.mark.parametrize("N", [1, 31, 1023, 1025, 5120, 29000])
+def test_k4_launch_config_covers_every_node_once(N, D):
+    """K4's launch shape from the shapes alone: a cluster of 1, 2, 4, 8 or
+    16 CTAs whose slices hold every node exactly once, none empty when
+    the cluster has more than one CTA; threads a multiple of 32, one a
+    node up to K4_MAX_THREADS; the shared bytes per CTA within an H100's
+    232,448 and equal to the layout of the regions placed there."""
+    d = dict(K4_DIMS, N=N, D=D)
+    cfg = K.k4_launch_config(d)
+    assert cfg.cluster in (1, 2, 4, 8, 16)
+    owner = np.zeros(N, dtype=np.int64)
+    for r in range(cfg.cluster):
+        owner[r * cfg.slice:min(N, (r + 1) * cfg.slice)] += 1
+        if cfg.cluster > 1:
+            assert r * cfg.slice < N, f"CTA {r} owns no node"
+    assert (owner == 1).all()
+    assert cfg.slice * cfg.cluster >= N
+    assert cfg.threads % 32 == 0 and 32 <= cfg.threads <= K.K4_MAX_THREADS
+    assert cfg.threads >= min(cfg.slice, K.K4_MAX_THREADS)
+    assert cfg.smem_bytes <= 232448 == K.SMEM_MAX
+    assert K.k4_layout(d, cfg.slice, cfg.cbw, cfg.place)[0] == cfg.smem_bytes
+    assert cfg.cbw == K.k4_cbw(d)
+    # a region left out did not fit beside the ones placed
+    for bit in range(len(K.K4_PLACE)):
+        if not cfg.place >> bit & 1:
+            assert K.k4_layout(d, cfg.slice, cfg.cbw,
+                               cfg.place | 1 << bit)[0] > K.SMEM_MAX
+
+
+def test_k4_cluster_size_follows_n():
+    """The smallest cluster that leaves each CTA at most 320 nodes: one
+    CTA up to 320 nodes, 8 at the fleet's 2,048, 16 at 13a's 5,120 and (at
+    most) at 29,000; an explicit size is taken as given, and only 1, 2, 4,
+    8 or 16."""
+    cluster = {N: K.k4_launch_config(dict(K4_DIMS, N=N)).cluster
+               for N in (1, 320, 321, 2048, 5120, 29000)}
+    assert cluster == {1: 1, 320: 1, 321: 2, 2048: 8, 5120: 16, 29000: 16}
+    for c in (1, 2, 4, 8, 16):
+        cfg = K.k4_launch_config(dict(K4_DIMS, N=3), cluster=c)
+        assert cfg.cluster == c and cfg.slice * c >= 3
+    with pytest.raises(ValueError):
+        K.k4_launch_config(K4_DIMS, cluster=3)
+    # one CTA over 29,000 nodes: the per-node values and the row ring
+    # leave shared memory for the scratch, the kernel stays the same
+    cfg = K.k4_launch_config(dict(K4_DIMS, N=29000), cluster=1)
+    assert cfg.slice == 29000 and cfg.smem_bytes <= K.SMEM_MAX
+    assert not cfg.place & 0b11
+    # the mandatory part (per-term keys, totals and bounds) does not fit
+    # for ~15,000 terms
+    with pytest.raises(ValueError):
+        K.k4_launch_config(dict(K4_DIMS, S=15000))
 
 
 def test_k4_constants_are_torch_f32_values():

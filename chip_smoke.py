@@ -140,7 +140,24 @@ Phases, each fatal on failure (exit code != 0, no result line):
      port_volume_workload(5000, 5000) under KTPU_ASSIGN=scan; each against
      JAX_SCAN, K4 launched and the plain scan not called on the route, K4
      equal to its plain version over the first 256 rows; K4's device time
-     per launch and per step, and per step at each cluster size.
+     per launch and per step, and per step at each cluster size;
+ 14. the durable control plane (KTPU_OVERLOAD=0), data dirs under the
+     run's temporary directory: 14a an APIServer(data_dir, durability=
+     "batch") on the native kvstore (csrc/kvstore.cpp, built at first use;
+     the backend gauge must say native) holding make_nodes(5000) and
+     flagship_pods(4096), a Scheduler(device="cuda") with an APIBinder and
+     a BindIntentLedger, a SharedInformer on the pods; the apiserver killed
+     at proc.crash@wal:post_append:2 (the wave's intent durable, its first
+     Binding committed and unanswered), its pump and batch flusher stopped
+     with no final fsync, rebooted from disk: recovered, the revision
+     continuous, the informer resumed with 0 relists, the successor's
+     recover() replaying exactly 1 intent, every pod bound exactly once
+     and the whole map against JAX_DURABLE; WAL records, bytes, fsyncs and
+     fsync seconds, recovery, replay and kill-to-first-bind seconds; 14b
+     11d's drain over HTTPTransport(binary=True) against a durable
+     apiserver, its map, per-wave counts and per-wave binder order against
+     JAX_SERVER_BINARY, its creates/s beside 11d's. K1/K2 launch in both,
+     their first launches equal to the plain versions.
 
 Prints a `kernels` JSON line, the nvidia-smi name/power line, and last
 `{"ok": true, "device": {...}}`. Imports nothing of JAX.
@@ -3887,13 +3904,17 @@ def port_server_api(device):
     same namespace from the JAX package."""
     import types as pytypes
 
+    import kubernetes_tpu_torch as ktt
     from kubernetes_tpu_torch.api import types, v1
     from kubernetes_tpu_torch.apiserver import APIServer, HTTPGateway
     from kubernetes_tpu_torch.client import Client
+    from kubernetes_tpu_torch.client.informers import SharedInformer
+    from kubernetes_tpu_torch.machinery import errors
     from kubernetes_tpu_torch.models import workloads
     from kubernetes_tpu_torch.sched.ledger import BindIntentLedger
-    from kubernetes_tpu_torch.sched.server import SchedulerServer
+    from kubernetes_tpu_torch.sched.server import APIBinder, SchedulerServer
     from kubernetes_tpu_torch.state.dims import Dims, bucket
+    from kubernetes_tpu_torch.storage import native, wal
     from kubernetes_tpu_torch.utils import faultline
 
     made = []
@@ -3903,13 +3924,20 @@ def port_server_api(device):
         made.append(srv.scheduler)
         return srv
 
+    def scheduler(**kw):
+        s = ktt.Scheduler(device=device, **kw)
+        made.append(s)
+        return s
+
     return pytypes.SimpleNamespace(
         types=types, workloads=workloads, Dims=Dims, bucket=bucket,
         node_to_v1=v1.node_to_v1, pod_to_v1=v1.pod_to_v1,
         node_from_v1=v1.node_from_v1, pod_from_v1=v1.pod_from_v1,
         APIServer=APIServer, HTTPGateway=HTTPGateway, Client=Client,
-        server=server, made=made, ledger=BindIntentLedger,
-        faultline=faultline)
+        server=server, scheduler=scheduler, made=made,
+        ledger=BindIntentLedger, APIBinder=APIBinder,
+        SharedInformer=SharedInformer, errors=errors, native=native,
+        wal=wal, faultline=faultline)
 
 
 class BindWatch:
@@ -4132,7 +4160,8 @@ def _outcome(client, watch, waves, errors, led) -> dict:
 
 def server_drain(api, n_nodes: int = None, n_pods: int = None,
                  transport: str = "local", barrier: bool = True, mark=None,
-                 after=None) -> dict:
+                 after=None, binary: bool = False,
+                 data_dir: str = None) -> dict:
     """11a (and 11d with transport="http"): a fresh APIServer holding
     make_nodes(n_nodes) and flagship_pods(n_pods), created through the
     client before the SchedulerServer starts, so that the informers' first
@@ -4142,16 +4171,19 @@ def server_drain(api, n_nodes: int = None, n_pods: int = None,
     bound count is still for SERVER_QUIET_S), each wave behind
     wave_barrier unless `barrier` is false (the timed run). `mark()` is
     called just before start(); `after(api_server, client, srv, watch,
-    out)` runs before the server stops (11b)."""
+    out)` runs before the server stops (11b). `binary` puts the HTTP client
+    on the binary codec, and `data_dir` makes the apiserver durable over
+    that directory with its default policy, batch (14b)."""
     n_nodes = SERVER_NODES if n_nodes is None else n_nodes
     n_pods = SERVER_PODS if n_pods is None else n_pods
-    srv_api = api.APIServer()
+    srv_api = api.APIServer(data_dir=data_dir) if data_dir \
+        else api.APIServer()
     gw = srv = watch = None
     try:
         admin = api.Client.local(srv_api)
         if transport == "http":
             gw = api.HTTPGateway(srv_api).start()
-            client = api.Client.http(gw.url)
+            client = api.Client.http(gw.url, binary=binary)
         else:
             client = admin
         W = api.workloads
@@ -4183,6 +4215,10 @@ def server_drain(api, n_nodes: int = None, n_pods: int = None,
                    wave_s=[w["t1"] - w["t0"] for w in log.waves],
                    watch_bind_p50_s=q[0.5], watch_bind_p99_s=q[0.99])
         out["pods_per_s"] = out["bound"] / max(out["drain_s"], 1e-9)
+        # the binder's order at wave granularity: each wave's (pod, node)
+        # pairs, the waves in order
+        out["waves_sha256"] = hashlib.sha256(json.dumps(
+            [w["bound"] for w in log.waves]).encode()).hexdigest()
         if after is not None:
             after(srv_api, admin, srv, watch, out)
         return out
@@ -5173,6 +5209,362 @@ def settle_fleet(api, phase: str) -> None:
             fail(f"phase {phase}: a fleet dispatch fell back")
 
 
+# --------------------------------------------------------------------------- #
+# phase 14: the durable control plane (shared with
+# scripts/flagship_reference.py, which runs it on the JAX package)
+# --------------------------------------------------------------------------- #
+
+DURABLE_NODES, DURABLE_PODS = 5000, SERVER_BATCH
+# the kill: the second WAL append after arming, during the first wave that
+# binds — the wave's intent is durable and its first Binding committed,
+# and the apiserver dies before answering it
+DURABLE_CRASH = "proc.crash@wal:post_append:2"
+DURABLE_MAX_WAVES = 24
+
+# 14a's reference: the same drill on the JAX package (durability batch, its
+# native store; JAX 0.9.0 on the CPU, KTPU_OVERLOAD=0, its prewarmer off):
+# the bound count, the per-wave scheduled counts of the killed scheduler
+# and of its successor, the successor's RecoveryReport, and the sha256 of
+# the whole (pod, node) map the rebooted apiserver holds. Reproduce with
+# `JAX_PLATFORMS=cpu python3 scripts/flagship_reference.py --package jax
+# --path durable` (28 s on the CPU; `--package port` on the CPU gives the
+# same).
+JAX_DURABLE = {
+    "bound": 4096,
+    "bound_sha256":
+        "05e8929a0bbd62713ada752ce5b03b69b13f939ecec398144e11764afa2f76f7",
+    "waves": [], "crashed_wave": 1, "successor_waves": [1311],
+    "report": {"replayed_intents": 1, "already_bound": 1, "completed": 2784,
+               "released": 0, "dropped": 0, "stale_skipped": 0},
+    "bound_at_death": 1}
+# 14b's reference: server_drain over HTTPTransport(binary=True) against a
+# durable APIServer (batch), 5,000 nodes x 2,000 pods behind the barrier:
+# `JAX_PLATFORMS=cpu python3 scripts/flagship_reference.py --package jax
+# --path server --transport http --pods 2000 --binary --durable` (54 s on
+# the CPU). Its count, per-wave counts, first wave and whole map equal
+# JAX_SERVER_HTTP's (the JSON, in-memory run), so those are reused; the
+# per-wave binder order (waves_sha256) is this run's.
+JAX_SERVER_BINARY = dict(
+    JAX_SERVER_HTTP, waves_sha256=(
+        "8ac7f43daca038be187899b3cb06684bd9e0eeef9af44ac320b853e726a93610"))
+
+
+class LoggedBinder:
+    """Wraps a binder (in this script only): every accepted Binding in
+    order, with the time it returned."""
+
+    def __init__(self, inner, log):
+        self.inner, self.log = inner, log
+
+    def bind(self, pod, node_name):
+        ok = self.inner.bind(pod, node_name)
+        if ok:
+            self.log.append((pod.key, node_name, time.monotonic()))
+        return ok
+
+
+def wal_counters(api) -> dict:
+    """The WAL's process-wide counters: records appended, fsyncs, and (the
+    port only) seconds spent in fsync."""
+    w = api.wal
+    secs = getattr(w, "WAL_FSYNC_SECONDS", None)
+    return {"records": w.WAL_APPENDS.total(), "fsyncs": w.WAL_FSYNCS.total(),
+            "fsync_s": secs.total() if secs is not None else 0.0}
+
+
+def dir_bytes(path: str) -> int:
+    import os
+
+    return sum(os.path.getsize(os.path.join(path, n))
+               for n in os.listdir(path))
+
+
+def durable_drill(api, data_dir: str, n_nodes: int = None,
+                  n_pods: int = None, mark=None) -> dict:
+    """14a, tests/test_durability.py's cold-restart drill at full width: an
+    APIServer(data_dir, durability="batch") holding make_nodes(n_nodes) and
+    flagship_pods(n_pods), created through Client.local; a SharedInformer
+    on the pods; a Scheduler (FakeClock, waves of SERVER_BATCH) with an
+    APIBinder and a BindIntentLedger over that storage. Between waves the
+    scheduler gets what its informer would deliver: every pod the apiserver
+    holds bound that it has not seen bound, then one node update (which
+    moves the unschedulable pods back to the active queue). DURABLE_CRASH
+    kills the apiserver mid-commit; the process is gone: the informer stops
+    (it keeps its resume token), the store's pump stops and its batch
+    flusher stops with no final fsync. A new APIServer boots from the data
+    dir; the informer resumes against it; a successor Scheduler over the
+    rebooted storage runs recover() against the apiserver's pods, then
+    run_until_idle(max_waves=1) wave after wave until its queue is empty.
+    `mark()` is called just before the first wave."""
+    n_nodes = DURABLE_NODES if n_nodes is None else n_nodes
+    n_pods = DURABLE_PODS if n_pods is None else n_pods
+    W = api.workloads
+    nodes = W.make_nodes(n_nodes)
+    wal0 = wal_counters(api)
+    srv1 = api.APIServer(data_dir=data_dir, durability="batch")
+    srv2 = informer = None
+    try:
+        client = api.Client.local(srv1)
+        backend = type(srv1.storage.kv._backend).__name__
+        create_s = _create(client, api, nodes, W.flagship_pods(n_pods))
+        informer = api.SharedInformer(client.pods, namespace="default")
+        informer.start()
+        if not informer.wait_for_sync(60):
+            fail("14a: the informer never synced")
+        relists0 = informer.relists
+        log = []
+        seen_bound = {}  # a scheduler -> the pods it has seen bound
+
+        def boot(storage):
+            s = api.scheduler(
+                binder=LoggedBinder(api.APIBinder(client), log),
+                ledger=api.ledger(storage), clock=FakeClock(),
+                base_dims=api.Dims(N=api.bucket(n_nodes), P=SERVER_BATCH,
+                                   E=api.bucket(n_pods + 256)),
+                batch_size=SERVER_BATCH)
+            seen = seen_bound[id(s)] = set()
+            for n in client.nodes.list()["items"]:
+                s.on_node_add(api.node_from_v1(n))
+            for p in client.pods.list("default")["items"]:
+                s.on_pod_add(api.pod_from_v1(p))
+                if (p.get("spec") or {}).get("nodeName"):
+                    seen.add(p["metadata"]["name"])
+            return s
+
+        def inform(s, w):
+            seen = seen_bound[id(s)]
+            for p in client.pods.list("default")["items"]:
+                name = p["metadata"]["name"]
+                if (p.get("spec") or {}).get("nodeName") and name not in seen:
+                    s.on_pod_add(api.pod_from_v1(p))
+                    seen.add(name)
+            s.on_node_update(nodes[w % n_nodes])
+
+        def lookup(key):
+            ns, name = key.split("/", 1)
+            try:
+                return api.pod_from_v1(client.pods.get(name, ns))
+            except api.errors.StatusError:
+                return None
+
+        s1 = boot(srv1.storage)
+        if mark is not None:
+            mark()
+        waves1 = []
+        api.faultline.install(DURABLE_CRASH)
+        try:
+            for w in range(DURABLE_MAX_WAVES):
+                st = s1.schedule_pending()
+                waves1.append(st.scheduled)
+                inform(s1, w)
+            fail("14a: the apiserver never died")
+        except api.faultline.InjectedCrash:
+            t_kill = time.monotonic()
+        finally:
+            api.faultline.uninstall()
+        crashed_wave = len(waves1) + 1
+        kv1 = srv1.storage.kv
+        rev_at_death = kv1.rev()
+        intents_at_death = len(api.ledger(srv1.storage).unretired())
+        # the Binding the kill interrupted is committed but was never
+        # answered: the apiserver holds it, no binder logged it
+        logged = {k for k, _, _ in log}
+        unacked = {f"default/{p['metadata']['name']}": p["spec"]["nodeName"]
+                   for p in client.pods.list("default")["items"]
+                   if (p.get("spec") or {}).get("nodeName")
+                   and f"default/{p['metadata']['name']}" not in logged}
+        bound_at_death = len(log) + len(unacked)
+        if len(unacked) != 1:
+            fail(f"14a: {len(unacked)} unanswered Bindings at the kill, "
+                 f"want 1")
+        if intents_at_death != 1:
+            fail(f"14a: {intents_at_death} unretired intents at the kill, "
+                 f"want 1")
+        # the process is gone: nothing flushes, nothing more is written
+        informer.stop()
+        srv1.storage._stop.set()
+        kv1._wal._stop.set()
+        if kv1._wal._flusher is not None:
+            kv1._wal._flusher.join(timeout=5)
+        wal1 = wal_counters(api)
+        wal_bytes = dir_bytes(data_dir)
+
+        # ---- reboot from disk ----------------------------------------- #
+        t0 = time.perf_counter()
+        srv2 = api.APIServer(data_dir=data_dir, durability="batch")
+        boot_s = time.perf_counter() - t0
+        kv2 = srv2.storage.kv
+        if not kv2.recovered:
+            fail("14a: the rebooted store recovered nothing")
+        if kv2.rev() != rev_at_death:
+            fail(f"14a: rev {kv2.rev()} after the reboot, {rev_at_death} at "
+                 f"the kill")
+        client.transport.api = srv2
+        informer.start()
+        if not informer.wait_for_sync(60):
+            fail("14a: the informer never resynced")
+        if informer.relists != relists0:
+            fail("14a: the informer relisted instead of resuming")
+        s2 = boot(srv2.storage)
+        n_before = len(log)
+        t0 = time.perf_counter()
+        report = s2.recover(lookup=lookup)
+        replay_s = time.perf_counter() - t0
+        if report.replayed_intents != 1:
+            fail(f"14a: the successor replayed {report.replayed_intents} "
+                 f"intents, want 1")
+        first_bind_s = (log[n_before][2] - t_kill) if len(log) > n_before \
+            else None
+        waves2 = []
+        for w in range(DURABLE_MAX_WAVES):
+            inform(s2, w)
+            if sum(s2.queue.lengths()) == 0:
+                break
+            st = s2.run_until_idle(max_waves=1)
+            waves2.append(st.scheduled)
+        deadline = time.monotonic() + 10
+        while informer.resumes < 1 and time.monotonic() < deadline:
+            time.sleep(0.02)
+        if informer.resumes < 1 or informer.relists != relists0:
+            fail(f"14a: informer resumes {informer.resumes}, relists "
+                 f"{informer.relists - relists0}")
+        items = client.pods.list("default")["items"]
+        pairs = [(f"default/{p['metadata']['name']}", p["spec"]["nodeName"])
+                 for p in items if (p.get("spec") or {}).get("nodeName")]
+        keys = [k for k, _, _ in log] + list(unacked)
+        if len(set(keys)) != len(keys):
+            fail("14a: a pod was bound twice")
+        if dict(pairs) != {**unacked, **{k: n for k, n, _ in log}}:
+            fail("14a: the apiserver's bindings and the binders' disagree")
+        if s2.ledger.unretired():
+            fail(f"14a: {len(s2.ledger.unretired())} unretired intents")
+        if len(pairs) != n_pods:
+            fail(f"14a: {n_pods - len(pairs)} pods left unbound")
+        if kv2.rev() <= rev_at_death:
+            fail("14a: the revision did not move on after the reboot")
+        rep = {k: getattr(report, k) for k in (
+            "replayed_intents", "already_bound", "completed", "released",
+            "dropped", "stale_skipped")}
+        return {
+            "backend": backend, "bound": len(pairs),
+            "bound_sha256": placement_sha256(pairs),
+            "waves": waves1, "crashed_wave": crashed_wave,
+            "successor_waves": waves2, "report": rep,
+            "bound_at_death": bound_at_death,
+            "create_s": create_s,
+            "creates_per_s": (n_nodes + n_pods) / create_s,
+            "rev_at_death": rev_at_death,
+            "wal_records": wal1["records"] - wal0["records"],
+            "wal_bytes": wal_bytes,
+            "wal_fsyncs": wal1["fsyncs"] - wal0["fsyncs"],
+            "wal_fsync_s": wal1["fsync_s"] - wal0["fsync_s"],
+            "recovery_s": kv2.recovery_seconds, "reboot_s": boot_s,
+            "kill_to_first_bind_s": first_bind_s, "replay_s": replay_s,
+            "informer_resumes": informer.resumes,
+            "informer_relists": informer.relists - relists0}
+    finally:
+        api.faultline.uninstall()
+        if informer is not None:
+            informer.stop()
+        if srv2 is not None:
+            srv2.close()
+
+
+def durable_reference(out) -> dict:
+    """What 14a holds the port to: the JAX package's run of the drill."""
+    return {k: out[k] for k in ("bound", "bound_sha256", "waves",
+                                "crashed_wave", "successor_waves",
+                                "report", "bound_at_death")}
+
+
+def durable_phase(device, card: str) -> dict:
+    """Phase 14 on the card: 14a the durable drill (durable_drill), 14b
+    11d's drain over the binary codec against a durable apiserver. The
+    data dirs live under the run's temporary directory. Launch counts per
+    subphase: set to 0 just before it, read just after; each subphase's
+    first K1, K2 and K3 launch held against the plain versions (K3 runs in
+    14b's what-if, as in 11d)."""
+    import os
+    import shutil
+    import tempfile
+
+    from kubernetes_tpu_torch.ops import kernels as K
+    from kubernetes_tpu_torch.ops import preempt as OP
+    from kubernetes_tpu_torch.ops import waves as W
+
+    api = port_server_api(device)
+    counts, cur, recs = {}, [], {}
+
+    def mark(name):
+        if cur:
+            counts[cur[-1]] = K.launch_counts()
+            for r in recs[cur[-1]]:
+                r.restore()
+        if name is None:
+            return
+        cur.append(name)
+        recs[name] = [Recorder(W, "contention_scan"),
+                      Recorder(W, "domain_rank"),
+                      Recorder(OP, "reprieve_scan")]
+        K.reset_launch_counts()
+
+    t0 = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="ktpu-durable-")
+    try:
+        a = durable_drill(api, os.path.join(root, "14a"),
+                          mark=lambda: mark("14a"))
+        b = server_drain(api, n_pods=SERVER_HTTP_PODS, transport="http",
+                         binary=True, data_dir=os.path.join(root, "14b"),
+                         mark=lambda: mark("14b"))
+    finally:
+        mark(None)
+        shutil.rmtree(root, ignore_errors=True)
+    # the backend this process selected at its first store, and 14a's
+    native = api.native
+    if native.BACKEND_INFO.value(backend="native", reason="preferred") != 1 \
+            or a["backend"] != "NativeKV":
+        fail(f"14a: the native kvstore does not serve this process: 14a ran "
+             f"on {a['backend']} ({native._build_error})")
+    got = durable_reference(a)
+    if got != JAX_DURABLE:
+        fail(f"14a differs from JAX_DURABLE: {got}")
+    check_server(b, JAX_SERVER_BINARY, "14b")
+    if b["waves_sha256"] != JAX_SERVER_BINARY["waves_sha256"]:
+        fail("14b: the per-wave binder order differs from the JAX package's")
+    if device.type == "cuda":
+        for sub in ("14a", "14b"):
+            if not all(counts[sub].get(n, 0) for n in WAVE_KERNELS):
+                fail(f"{sub}: K1/K2 not launched: {counts[sub]}")
+    errs = server_kernel_check(recs, counts, device)
+    settle(api, "14")
+    first = ("none" if a["kill_to_first_bind_s"] is None
+             else f"{a['kill_to_first_bind_s']:.3f} s")
+    print(f"  14a: {DURABLE_NODES} nodes + {DURABLE_PODS} pods created "
+          f"through the durable apiserver (batch, native store) in "
+          f"{a['create_s']:.3f} s ({a['creates_per_s']:.1f} creates/s); "
+          f"killed at {DURABLE_CRASH} in wave {a['crashed_wave']} (rev "
+          f"{a['rev_at_death']}, {a['bound_at_death']} bound, 1 intent "
+          f"left); WAL {a['wal_records']:.0f} records, {a['wal_bytes']} "
+          f"bytes, {a['wal_fsyncs']:.0f} fsyncs in {a['wal_fsync_s']:.4f} s")
+    print(f"    reboot {a['reboot_s']:.3f} s (DurableKV recovery "
+          f"{a['recovery_s']:.3f} s), rev continuous; informer resumed "
+          f"({a['informer_resumes']} resumes, 0 relists); replayed 1 intent "
+          f"in {a['replay_s']:.3f} s ({a['report']}); kill to the first "
+          f"successor bind {first}; successor waves {a['successor_waves']}; "
+          f"{a['bound']} bound exactly once, the whole map equal to "
+          f"JAX_DURABLE; launches {counts['14a']} ({card})")
+    print(f"  14b: HTTPTransport(binary=True) through an HTTPGateway to a "
+          f"durable apiserver: {SERVER_NODES} nodes + {SERVER_HTTP_PODS} "
+          f"pods created in {b['create_s']:.3f} s ({b['creates_per_s']:.1f}"
+          f"/s); {b['bound']} bound in waves of "
+          f"{[w['scheduled'] for w in b['waves']]} behind the barrier, "
+          f"{b['drain_s']:.3f} s; the whole map, the per-wave counts and "
+          f"order equal JAX_SERVER_BINARY; launches {counts['14b']}")
+    return dict(a=a, b=b, launches=counts, errs=errs,
+                wal_fsync_s=a["wal_fsync_s"],
+                wall_s=time.perf_counter() - t0)
+
+
 T_START = time.perf_counter()
 
 
@@ -5398,6 +5790,26 @@ def main() -> int:
                            "13a": a13["launches"]["assign_scan"],
                            "13b": scan["ports_volumes"]["launches"][
                                "assign_scan"]}))
+    t14 = time.perf_counter()
+    print(f"[14] the durable control plane: 14a an APIServer(data_dir, "
+          f"durability='batch') on the native store killed mid-commit at "
+          f"{DURABLE_CRASH} and rebooted from disk, {DURABLE_NODES} nodes x "
+          f"{DURABLE_PODS} pods, Scheduler(device='cuda') with a "
+          f"BindIntentLedger; 14b phase 11d over HTTPTransport(binary=True) "
+          f"against a durable apiserver, {SERVER_HTTP_PODS} pods")
+    dur = durable_phase(device, card)
+    print(f"    14b creates/s {dur['b']['creates_per_s']:.1f} (binary, "
+          f"durable) against 11d's {srvp['d']['creates_per_s']:.1f} (JSON, "
+          f"in memory) in this run; 11a's {srvp['a']['creates_per_s']:.1f} "
+          f"(local, in memory, native store)")
+    print(f"    phase 14 {time.perf_counter() - t14:.1f} s")
+    for r in rows:
+        name = r["name"]
+        r["durable"] = {sub: dict(launches=c.get(name, 0),
+                                  max_abs_err=dur["errs"][sub].get(name))
+                        for sub, c in dur["launches"].items()}
+        r["max_abs_err"] = max([r["max_abs_err"]] + [
+            e[name] for e in dur["errs"].values() if name in e])
     for r in rows:
         name = r["name"]
         r["fleet"] = dict(launches=fleet["launches"].get(name, 0),
@@ -5472,6 +5884,14 @@ def main() -> int:
                       "fleet": {k: v for k, v in fleet.items()
                                 if k not in ("errs", "launches")},
                       "scan": scan, "scan_wall_s": scan_wall,
+                      "durable": {
+                          "a": {k: v for k, v in dur["a"].items()
+                                if k != "bound_sha256"},
+                          "b": {k: v for k, v in dur["b"].items()
+                                if k not in ("bound_sha256",
+                                             "first_wave_sha256",
+                                             "waves_sha256")},
+                          "wall_s": dur["wall_s"]},
                       "wall_s": time.perf_counter() - T_START}))
     print(card)
     print(json.dumps({"ok": True, "device": {

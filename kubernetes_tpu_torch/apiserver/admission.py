@@ -18,7 +18,7 @@ resource surface exercises:
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 from ..machinery import errors, labels as mlabels, meta
 from ..machinery import quantity as mq
@@ -393,10 +393,9 @@ class EvictionPDBGate(AdmissionPlugin):
 
 def default_plugins() -> List[AdmissionPlugin]:
     """The default-enabled chain, in the reference's ordering
-    (options/plugins.go AllOrderedPlugins, reduced to our surface). The
-    JAX package's last plugin, ClusterIP/NodePort allocation
-    (apiserver/service_alloc.py), is not ported yet (ROADMAP A11b, second
-    half)."""
+    (options/plugins.go AllOrderedPlugins, reduced to our surface)."""
+    from ..apiserver.service_alloc import ServiceAllocatorPlugin
+
     return [
         NamespaceLifecycle(),
         LimitRanger(),
@@ -405,4 +404,7 @@ def default_plugins() -> List[AdmissionPlugin]:
         PriorityAdmission(),
         EvictionPDBGate(),
         ResourceQuotaAdmission(),
+        # ClusterIP/NodePort allocation (registry/core/service seat —
+        # docs/PARITY.md #17): last, so it sees the defaulted object
+        ServiceAllocatorPlugin(),
     ]

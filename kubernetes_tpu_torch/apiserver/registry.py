@@ -307,26 +307,36 @@ class Store:
 
     def patch(self, namespace: str, name: str, patch: Obj,
               subresource: str = "", patch_type: str = "merge") -> Obj:
-        """PATCH (apiserver/pkg/endpoints/handlers/patch.go) with an RFC 7386
-        JSON merge body ("merge"); of the reference's other two content
-        types, strategic merge and the RFC 6902 op list, neither is ported
-        yet."""
+        """PATCH with the three content types the reference serves
+        (apiserver/pkg/endpoints/handlers/patch.go): RFC 7386 JSON merge
+        ("merge"), strategic merge ("strategic" —
+        apimachinery/pkg/util/strategicpatch), RFC 6902 op list ("json")."""
 
-        if patch_type in ("strategic", "json"):
-            # apimachinery/pkg/util/strategicpatch (the JAX package's
-            # machinery/strategicpatch.py) is not ported yet
-            raise errors.StatusError(
-                415, "UnsupportedMediaType",
-                f"{patch_type} patch is not ported yet (ROADMAP A11b, "
-                f"second half); use a JSON merge patch")
-        if not isinstance(patch, dict):
+        if patch_type != "json" and not isinstance(patch, dict):
             raise errors.new_bad_request(
                 f"a {patch_type} patch body must be a JSON object")
+        if patch_type == "strategic" and self.info.custom:
+            # custom resources have no patchStrategy struct tags; the
+            # reference's CR handler rejects SMP with 415 (patch.go,
+            # apiextensions customresource_handler.go)
+            raise errors.StatusError(
+                415, "UnsupportedMediaType",
+                "strategic merge patch is not supported for custom "
+                "resources")
 
         def apply(cur: Obj) -> Obj:
             if not cur:
                 raise errors.new_not_found(self.info.resource, name)
-            new = _merge_patch(cur, patch)
+            if patch_type == "strategic":
+                from ..machinery.strategicpatch import (
+                    strategic_merge)
+                new = strategic_merge(cur, patch)
+            elif patch_type == "json":
+                from ..machinery.strategicpatch import (
+                    json_patch)
+                new = json_patch(cur, patch)  # type: ignore[arg-type]
+            else:
+                new = _merge_patch(cur, patch)
             nm = meta.ensure_meta(new)
             cm = cur.get("metadata", {})
             for f in ("uid", "creationTimestamp", "namespace", "name",

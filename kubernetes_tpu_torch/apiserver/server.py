@@ -1,6 +1,6 @@
-"""The API server: REST engine + HTTP front end with watch streaming (the
-subset of the JAX package's apiserver/server.py that the scheduler process
-reaches).
+"""The API server: REST engine + HTTP front end with watch streaming (a copy
+of the JAX package's apiserver/server.py; the engine holds no device state:
+it is host code wherever it runs).
 
 Analog of `cmd/kube-apiserver` + the generic apiserver library
 (`staging/src/k8s.io/apiserver/pkg/server/`): a delegation of
@@ -14,12 +14,6 @@ Request paths match the reference wire layout:
     /api/v1/namespaces/{ns}/{resource}[/{name}[/{sub}]]
     /apis/{group}/{version}/...
     /healthz /readyz /livez /version /metrics /api /apis
-
-Not ported yet (ROADMAP A11b, second half): admission webhooks and the
-audit log, CustomResourceDefinitions and their conversion, the aggregation
-layer, OpenAPI, authentication/authorization, the binary codec, service
-ClusterIP/NodePort allocation and the durable store. The engine holds no
-device state: it is host code wherever it runs.
 """
 
 from __future__ import annotations
@@ -30,7 +24,7 @@ import socketserver
 import threading
 import time
 from http.server import BaseHTTPRequestHandler
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 from urllib.parse import parse_qs, urlparse
 
 from ..machinery import errors, meta
@@ -129,7 +123,8 @@ class APIServer:
                  watch_buffer: Optional[int] = None,
                  data_dir: Optional[str] = None,
                  durability: Optional[str] = None):
-        from .admission import AdmissionChain
+        from ..apiserver.admission import AdmissionChain
+        from ..apiserver.crd import install_crd_hook
 
         # max-inflight request gate (maxinflight.go analog): explicit
         # ctor limits win; env KTPU_MAX_INFLIGHT / KTPU_MAX_MUTATING_
@@ -142,25 +137,33 @@ class APIServer:
         self.inflight = MaxInflightFilter(
             max_inflight, max_mutating_inflight) \
             if (max_inflight or max_mutating_inflight) else None
-        # watch_buffer bounds every watcher's delivery buffer (the cacher's
-        # per-watcher channel size; KTPU_WATCH_BUFFER env inside Storage
-        # otherwise): a consumer that stops draining is evicted with a
-        # too-old error, never allowed to balloon memory. A durable store
-        # (data_dir, durability, KTPU_STORE_DIR) is not ported yet: asking
-        # for one raises rather than serving from memory
+        # watch_buffer bounds every watcher's delivery buffer (the
+        # cacher's per-watcher channel size; KTPU_WATCH_BUFFER env
+        # inside Storage otherwise): a consumer that stops draining is
+        # evicted with a too-old error, never allowed to balloon memory
+        # data_dir (or KTPU_STORE_DIR) makes the control plane durable:
+        # boot-time recovery replays snapshot + WAL tail BEFORE the first
+        # request is served, so a rebooted apiserver answers with revisions
+        # that continue the pre-crash sequence
         if data_dir is None:
             data_dir = os.environ.get("KTPU_STORE_DIR") or None
-        if storage is None and (data_dir or durability):
-            from ..storage.store import unported_durability
-
-            raise unported_durability()
-        self.storage = storage or Storage(watch_buffer=watch_buffer)
+        self.storage = storage or Storage(watch_buffer=watch_buffer,
+                                          data_dir=data_dir,
+                                          durability=durability)
         self.scheme = scheme or build_scheme()
         if admission is None:
             admission = AdmissionChain()
         if hasattr(admission, "attach"):
             admission.attach(self)
         self.admission = admission
+        from ..apiserver.webhooks import AuditLog, WebhookDispatcher
+
+        self._webhooks = WebhookDispatcher(self)
+        # audit backend (apiserver/pkg/audit): ring + optional JSONL file via
+        # KTPU_AUDIT_LOG
+        import os as _os
+
+        self.audit = AuditLog(path=_os.environ.get("KTPU_AUDIT_LOG"))
         self._stores: Dict[Tuple[str, str], Store] = {}
         for info in self.scheme.resources():
             self._install(info)
@@ -176,6 +179,9 @@ class APIServer:
         ev_store = self._stores.get(("", "events"))
         if ev_store is not None and ttl > 0:
             ev_store.ttl_seconds = ttl
+        # multi-version CRD conversion wiring: (group, plural) → entry
+        # (apiextensions conversion/converter.go; see apiserver/crd.py)
+        self.crd_conversions: Dict[Tuple[str, str], Any] = {}
         # namespace bookkeeping: ensure default namespaces exist
         for ns in ("default", "kube-system", "kube-public", "kube-node-lease"):
             try:
@@ -184,6 +190,7 @@ class APIServer:
                     "metadata": {"name": ns}})
             except errors.StatusError:
                 pass
+        install_crd_hook(self)
 
     def _install(self, info: ResourceInfo) -> Store:
         st = Store(self.storage, self.scheme, info, admission=self._admit)
@@ -192,20 +199,32 @@ class APIServer:
 
     def _admit(self, op: str, info: ResourceInfo, obj: Optional[Obj],
                old: Optional[Obj]) -> Optional[Obj]:
-        # Reference ordering (options/plugins.go): built-in mutate, then
-        # built-in validate — validators see the mutated object. The
-        # webhook phases the JAX package dispatches between them are not
-        # ported yet (ROADMAP A11b, second half).
+        # Reference ordering (options/plugins.go: MutatingAdmissionWebhook
+        # sits after the built-in mutators, ValidatingAdmissionWebhook after
+        # the built-in validators): built-in mutate → mutating webhooks →
+        # built-in validate → validating webhooks. Validators therefore see
+        # the webhook-patched object — a mutating webhook cannot dodge quota
+        # or LimitRange maxima. Webhook-config mutations are not
+        # self-administered and instead invalidate the dispatcher's cache.
         adm = self.admission
-        if adm is None:
-            return obj
-        if hasattr(adm, "mutate") and hasattr(adm, "validate"):
-            obj = adm.mutate(op, info, obj, old)
-            adm.validate(op, info, obj, old)
-            return obj
-        return adm(op, info, obj, old)
+        phased = hasattr(adm, "mutate") and hasattr(adm, "validate")
+        if adm is not None:
+            obj = adm.mutate(op, info, obj, old) if phased \
+                else adm(op, info, obj, old)
+        if info.group != "admissionregistration.k8s.io":
+            obj = self._webhooks.dispatch(op, info, obj, old,
+                                          phase="mutating")
+            if phased:
+                adm.validate(op, info, obj, old)
+            self._webhooks.dispatch(op, info, obj, old, phase="validating")
+        else:
+            if phased:
+                adm.validate(op, info, obj, old)
+            self._webhooks.invalidate()
+        return obj
 
     def close(self) -> None:
+        self.audit.close()
         self.storage.close()
 
     # ------------------------------------------------------------------ #
@@ -222,6 +241,17 @@ class APIServer:
             if st is None:
                 raise errors.new_not_found(resource, "")
         return st
+
+    def register_resource(self, info: ResourceInfo) -> Store:
+        """Dynamic registration (the CRD install path)."""
+        self.scheme.register(info)
+        return self._install(info)
+
+    def unregister_resource(self, group: str, resource: str) -> None:
+        """Dynamic removal (CRD deletion). Stored CR objects remain in the
+        backend but are no longer served, matching apiextensions."""
+        self.scheme.unregister(group, resource)
+        self._stores.pop((group, resource), None)
 
     # ------------------------------------------------------------------ #
     # subresources (registry/core/pod/storage: BindingREST, StatusREST …)
@@ -319,7 +349,9 @@ class APIServer:
             return self.store("", "pods").delete(namespace, name)
         except errors.StatusError:
             if pod is not None:
-                from .admission import credit_pdb_disruption
+                from ..apiserver.admission import (
+                    credit_pdb_disruption,
+                )
 
                 credit_pdb_disruption(self, pod)
             raise
@@ -399,9 +431,13 @@ class APIServer:
         groups: Dict[str, List[str]] = {}
         for info in self.scheme.resources():
             if info.group:
-                vs = groups.setdefault(info.group, [])
-                if info.version not in vs:
-                    vs.append(info.version)
+                entry = self.crd_conversions.get((info.group, info.resource))
+                versions = list(entry.served) if entry is not None \
+                    else [info.version]
+                groups.setdefault(info.group, [])
+                for v in versions:
+                    if v not in groups[info.group]:
+                        groups[info.group].append(v)
         return {"kind": "APIGroupList", "apiVersion": "v1", "groups": [
             {"name": g, "versions": [
                 {"groupVersion": f"{g}/{v}", "version": v} for v in vs],
@@ -412,6 +448,23 @@ class APIServer:
     def discovery_resources(self, group: str, version: str) -> Obj:
         out = []
         for info in self.scheme.resources():
+            # a multi-version CRD is discoverable at every served version,
+            # not only the storage version its ResourceInfo registers
+            entry = self.crd_conversions.get((info.group, info.resource))
+            if entry is not None and info.group == group \
+                    and version in entry.served and version != info.version:
+                out.append({"name": info.resource, "kind": info.kind,
+                            "namespaced": info.namespaced,
+                            "shortNames": list(info.short_names),
+                            "verbs": ["create", "delete", "deletecollection",
+                                      "get", "list", "patch", "update",
+                                      "watch"]})
+                for sub in info.subresources:
+                    out.append({"name": f"{info.resource}/{sub}",
+                                "kind": info.kind,
+                                "namespaced": info.namespaced,
+                                "verbs": ["get", "update", "patch"]})
+                continue
             if info.group == group and info.version == version:
                 out.append({"name": info.resource, "kind": info.kind,
                             "namespaced": info.namespaced,
@@ -431,6 +484,70 @@ class APIServer:
 # --------------------------------------------------------------------------- #
 # request model shared by HTTP gateway and in-process clients
 # --------------------------------------------------------------------------- #
+
+
+_AUDIT_VERBS = {"POST": "create", "PUT": "update", "PATCH": "patch",
+                "DELETE": "delete"}
+
+
+def _is_csr_create_path(path: str) -> bool:
+    """True when a POST path resolves to the certificatesigningrequests
+    COLLECTION — the requester-identity stamp must key on what the server
+    will actually create (the resolved resource), not on body `kind`, which
+    the registry merely defaults."""
+    parts = [p for p in path.split("/") if p]
+    return bool(parts) and parts[-1] == "certificatesigningrequests"
+
+
+class _ConvertingWatch:
+    """Wraps a Watch, converting every event's object to the requested CRD
+    version on delivery — what makes `watch sees converted objects` true for
+    multi-version CRDs (conversion/converter.go applied to the watch path)."""
+
+    def __init__(self, w: mwatch.Watch, fn: Callable[[Obj], Obj]):
+        self._w = w
+        self._fn = fn
+
+    def next(self, timeout: Optional[float] = None):
+        ev = self._w.next(timeout=timeout)
+        if ev is None:
+            return None
+        if ev.type not in (mwatch.ADDED, mwatch.MODIFIED, mwatch.DELETED):
+            # ERROR (e.g. the 410 Gone relist signal) and BOOKMARK carry
+            # Status/bookmark payloads, not CR objects — never converted
+            return ev
+        try:
+            return mwatch.Event(ev.type, self._fn(ev.object))
+        except errors.StatusError as e:
+            # converter failure mid-stream: surface it as a watch ERROR
+            # (the reference's watch stream carries a Status event), then
+            # end the stream — a silent clean EOF would hide the fault in
+            # an indefinite relist loop
+            self._w.stop()
+            return mwatch.Event(mwatch.ERROR, e.status())
+
+    def stop(self) -> None:
+        self._w.stop()
+
+    @property
+    def stopped(self) -> bool:
+        return self._w.stopped
+
+
+def _conversion_for(api: APIServer, path: str):
+    """(entry, wanted_version) when `path` addresses a multi-version CRD at
+    a non-storage served version; (None, "") otherwise."""
+    parts = [p for p in path.split("/") if p]
+    if len(parts) < 4 or parts[0] != "apis":
+        return None, ""
+    group, want = parts[1], parts[2]
+    rest = parts[3:]
+    if rest[0] == "namespaces" and len(rest) >= 3:
+        rest = rest[2:]
+    entry = api.crd_conversions.get((group, rest[0]))
+    if entry is None or want == entry.storage or want not in entry.served:
+        return None, ""
+    return entry, want
 
 
 def handle_rest(api: APIServer, method: str, path: str,
@@ -458,9 +575,12 @@ def handle_rest(api: APIServer, method: str, path: str,
 def _handle_rest_admitted(api: APIServer, method: str, path: str,
                           query: Dict[str, str], body: Optional[Obj],
                           user: str = ""):
-    """The pre-gate handle_rest: the chaos seams, then the router. (The JAX
-    package's CRD conversion and audit stages sit here; not ported yet,
-    ROADMAP A11b second half.)"""
+    """The pre-gate handle_rest: CRD conversion chokepoint + audit +
+    router. Multi-version CRD requests convert here: bodies from the
+    requested version to the storage version, results back (lists per item,
+    watches per event). Mutations are audited here too (stage
+    ResponseComplete, both outcomes) — the reference's audit filter sits in
+    the same position in the handler chain."""
     from ..utils import faultline
 
     if faultline.should("apiserver.slow", "handle_rest"):
@@ -472,14 +592,139 @@ def _handle_rest_admitted(api: APIServer, method: str, path: str,
     if faultline.should("apiserver.restart", "handle_rest"):
         # chaos: the apiserver process dies and comes back between two
         # requests. Storage (etcd) survives; every open watch connection
-        # does not — each gets a terminal 503 Status first, so reflectors
-        # RESUME from their last resourceVersion instead of
+        # does not — each gets a terminal 503 Status first, so
+        # reflectors RESUME from their last resourceVersion instead of
         # blind-relisting — and THIS request is the one that hit the
         # connection-refused window.
         api.storage.drop_watchers()
         raise errors.new_service_unavailable(
             "apiserver restarting (chaos-injected)")
-    return _handle_rest_inner(api, method, path, query, body)
+    entry = None
+    if api.crd_conversions:
+        entry, want = _conversion_for(api, path)
+    if entry is not None and isinstance(body, dict) and \
+            method in ("POST", "PUT"):
+        try:
+            body = entry.convert([body], entry.storage)[0]
+        except errors.StatusError as e:
+            # a converter-down failure is still an audited outcome of the
+            # attempted mutation ("both outcomes" holds for conversion too)
+            if method in _AUDIT_VERBS:
+                _audit(api, method, path, e.code, user, meta.name(body))
+            raise
+    if entry is not None and method == "PATCH" and want != entry.storage:
+        # PATCH bodies are partial documents: they cannot convert wholesale.
+        # The reference applies the patch AT THE REQUEST VERSION
+        # (apiserver patch.go → conversion stack): read storage object,
+        # convert to the request version, apply the dialect there, convert
+        # the merged result back, CAS-write (PARITY #16 closed).
+        out = _patch_through_conversion(api, entry, want, path,
+                                        query, body, user)
+    else:
+        out = _handle_rest_audited(api, method, path, query, body, user)
+    if entry is None:
+        return out
+    tag, obj = out
+    if tag == "WATCH":
+        return "WATCH", _ConvertingWatch(
+            obj, lambda o: entry.convert([o], want)[0])
+    if isinstance(obj, dict):
+        if isinstance(obj.get("items"), list):
+            obj = {**obj, "apiVersion": f"{entry.group}/{want}",
+                   "items": entry.convert(obj["items"], want)}
+        elif obj.get("kind") != "Status" and "metadata" in obj:
+            obj = entry.convert([obj], want)[0]
+    return tag, obj
+
+
+def _patch_through_conversion(api: APIServer, entry, want: str,
+                              path: str, query: Dict[str, str],
+                              body, user: str):
+    """Apply a CR patch at the REQUEST version when it differs from the
+    storage version: GET (storage) → convert → merge/json-patch → convert
+    back → CAS PUT, retried on conflict. Strategic merge is rejected for
+    CRs (no struct tags), same as the reference."""
+    from ..machinery.strategicpatch import json_patch
+
+    ptype = query.get("__patchType", "merge")
+    if ptype == "strategic":
+        raise errors.StatusError(
+            415, "UnsupportedMediaType",
+            "strategic merge patch is not supported for custom resources")
+    from ..apiserver.registry import _merge_patch
+
+    def run():
+        # the internal GET/PUT legs use the UNaudited router: the client
+        # issued ONE patch, so the trail must show one patch — not a fan
+        # of internal update events (one per CAS retry)
+        last: Optional[errors.StatusError] = None
+        for _ in range(5):
+            _, cur = _handle_rest_inner(api, "GET", path, {}, None)
+            cur_req = entry.convert([cur], want)[0]
+            if ptype == "json":
+                new_req = json_patch(cur_req, body)
+            else:
+                new_req = _merge_patch(cur_req, body or {})
+            new_storage = entry.convert([new_req], entry.storage)[0]
+            # CAS on the version we read — a racing write re-runs the patch
+            meta.ensure_meta(new_storage)["resourceVersion"] = \
+                meta.resource_version(cur)
+            try:
+                return _handle_rest_inner(api, "PUT", path, query,
+                                          new_storage)
+            except errors.StatusError as e:
+                if not errors.is_conflict(e):
+                    raise
+                last = e
+        raise last if last is not None else errors.StatusError(
+            500, "InternalError", "patch retry limit")
+
+    try:
+        out = run()
+    except errors.StatusError as e:
+        _audit(api, "PATCH", path, e.code, user)
+        raise
+    _audit(api, "PATCH", path, out[0] if isinstance(out[0], int) else 200,
+           user)
+    return out
+
+
+def _handle_rest_audited(api: APIServer, method: str, path: str,
+                         query: Dict[str, str], body: Optional[Obj],
+                         user: str = ""):
+    if method not in _AUDIT_VERBS:
+        return _handle_rest_inner(api, method, path, query, body)
+    body_name = meta.name(body) if isinstance(body, dict) else ""
+    try:
+        out = _handle_rest_inner(api, method, path, query, body)
+    except errors.StatusError as e:
+        _audit(api, method, path, e.code, user, body_name)
+        raise
+    code = out[0] if isinstance(out[0], int) else 200
+    _audit(api, method, path, code, user, body_name)
+    return out
+
+
+def _audit(api: APIServer, method: str, path: str, code: int,
+           user: str, body_name: str = "") -> None:
+    # NB: mirrors _handle_rest_inner's path grammar (kept separate because
+    # the router may fail before resolving a store; any change to the
+    # namespaces-subresource exception below must update BOTH sites)
+    parts = [p for p in path.split("/") if p]
+    ns = name = resource = ""
+    try:
+        rest = parts[2:] if parts[0] == "api" else parts[3:]
+        # same namespaces-subresource exception as the router: finalize/
+        # status on a namespace addresses the namespace itself
+        if rest and rest[0] == "namespaces" and len(rest) >= 3 and not (
+                len(rest) == 3 and rest[2] in ("finalize", "status")):
+            ns, rest = rest[1], rest[2:]
+        resource = rest[0] if rest else ""
+        name = rest[1] if len(rest) > 1 else ""
+    except IndexError:
+        pass
+    api.audit.record(_AUDIT_VERBS[method], resource, ns, name or body_name,
+                     code, user)
 
 
 def _handle_rest_inner(api: APIServer, method: str, path: str,
@@ -487,11 +732,15 @@ def _handle_rest_inner(api: APIServer, method: str, path: str,
     parts = [p for p in path.split("/") if p]
     if not parts:
         return 200, {"paths": ["/api", "/apis", "/healthz", "/metrics",
-                               "/version"]}
+                               "/openapi/v2", "/version"]}
 
     # non-resource endpoints
     if parts[0] in ("healthz", "readyz", "livez"):
         return 200, "ok"
+    if parts[0] == "openapi":
+        from ..apiserver.openapi import build_openapi
+
+        return 200, build_openapi(api)
     if parts[0] == "metrics":
         from ..component.metrics import DEFAULT_REGISTRY
 
@@ -528,7 +777,18 @@ def _handle_rest_inner(api: APIServer, method: str, path: str,
     name = rest[1] if len(rest) > 1 else ""
     sub = rest[2] if len(rest) > 2 else ""
 
-    st = api.store(group, resource)
+    try:
+        st = api.store(group, resource)
+    except errors.StatusError:
+        # aggregation layer (kube-aggregator proxyHandler): a group/version
+        # no local registry serves may be claimed by an APIService
+        from ..apiserver import aggregator
+
+        version = parts[2] if parts[0] == "apis" and len(parts) > 2 else "v1"
+        svc = aggregator.find_apiservice(api, group, version)
+        if svc is None:
+            raise
+        return aggregator.proxy(api, svc, method, path, query, body)
     info = st.info
 
     lsel = query.get("labelSelector", "")
@@ -620,17 +880,26 @@ class _Handler(BaseHTTPRequestHandler):
         pass
 
     def _run(self, method: str) -> None:
+        from ..machinery import codec
+
         api: APIServer = self.server.api  # type: ignore[attr-defined]
+        auth_gate = getattr(self.server, "auth_gate", None)
         parsed = urlparse(self.path)
         query = {k: v[0] for k, v in parse_qs(parsed.query).items()}
+        # content negotiation (protobuf.go analog, machinery/codec.py):
+        # binary replies only when the client Accepts them; binary bodies
+        # recognized by Content-Type
+        self._binary_reply = codec.accepts_binary(
+            self.headers.get("Accept", ""))
         body: Optional[Obj] = None
         length = int(self.headers.get("Content-Length") or 0)
         if length:
             raw = self.rfile.read(length)
             ctype = (self.headers.get("Content-Type") or "").split(";")[0]
             try:
-                body = json.loads(raw)
-            except (json.JSONDecodeError, ValueError):
+                body = codec.decode(raw) \
+                    if ctype == codec.BINARY_MEDIA_TYPE else json.loads(raw)
+            except (json.JSONDecodeError, ValueError, IndexError):
                 self._reply(400, errors.new_bad_request(
                     "invalid request body").status())
                 return
@@ -642,7 +911,37 @@ class _Handler(BaseHTTPRequestHandler):
                     "application/json-patch+json": "json",
                 }.get(ctype, "merge")
         try:
-            result = handle_rest(api, method, parsed.path, query, body)
+            user = ""
+            try:
+                if auth_gate is not None:
+                    uinfo = auth_gate.check_info(method, parsed.path, query,
+                                                 dict(self.headers.items()))
+                    user = uinfo.name if uinfo is not None else ""
+                    if (uinfo is not None and method == "POST"
+                            and isinstance(body, dict)
+                            and _is_csr_create_path(parsed.path)):
+                        # the SERVER stamps the requester identity
+                        # (registry/certificates strategy
+                        # PrepareForCreate): client-claimed username/
+                        # groups are overwritten, or bootstrap-group
+                        # membership would be forgeable and the
+                        # auto-approver's trust in spec.groups unfounded.
+                        # Keyed on the RESOLVED RESOURCE PATH, never the
+                        # body's kind: Store.create defaults an omitted
+                        # kind AFTER this check, so a kind-less POST to
+                        # the CSR collection used to slip through with
+                        # forged spec.username/groups intact
+                        body.setdefault("spec", {})["username"] = uinfo.name
+                        body["spec"]["groups"] = list(uinfo.groups)
+            except errors.StatusError as e:
+                # denied requests are audited too (the reference's audit
+                # filter wraps the authorizer for exactly this)
+                if method in _AUDIT_VERBS:
+                    _audit(api, method, parsed.path, e.code, user,
+                           meta.name(body) if isinstance(body, dict) else "")
+                raise
+            result = handle_rest(api, method, parsed.path, query, body,
+                                 user=user)
         except errors.StatusError as e:
             self._reply(e.code, e.status())
             return
@@ -656,10 +955,17 @@ class _Handler(BaseHTTPRequestHandler):
             self._reply(result[0], result[1])
 
     def _reply(self, code: int, obj: Any) -> None:
-        data = json.dumps(obj).encode() if not isinstance(obj, str) \
-            else obj.encode()
+        from ..machinery import codec
+
+        if getattr(self, "_binary_reply", False) and not isinstance(obj, str):
+            data = codec.encode(obj)
+            ctype = codec.BINARY_MEDIA_TYPE
+        else:
+            data = json.dumps(obj).encode() if not isinstance(obj, str) \
+                else obj.encode()
+            ctype = "application/json"
         self.send_response(code)
-        self.send_header("Content-Type", "application/json")
+        self.send_header("Content-Type", ctype)
         self.send_header("Content-Length", str(len(data)))
         if code == 429 and isinstance(obj, dict):
             # the reference's max-inflight filter sets Retry-After: 1;
@@ -670,24 +976,35 @@ class _Handler(BaseHTTPRequestHandler):
         self.wfile.write(data)
 
     def _stream_watch(self, w: mwatch.Watch, query: Dict[str, str]) -> None:
-        """Chunked stream of watch events: {"type","object"} JSON lines
-        (apimachinery streaming serializer)."""
+        """Chunked stream of watch events: {"type","object"} JSON lines by
+        default (apimachinery streaming serializer), varint-length-delimited
+        binary frames when the client negotiated the binary codec (the
+        streaming-protobuf seat)."""
+        from ..machinery import codec
+
+        binary = getattr(self, "_binary_reply", False)
         timeout = float(query.get("timeoutSeconds", "3600"))
         self.send_response(200)
-        self.send_header("Content-Type", "application/json")
+        self.send_header("Content-Type", codec.BINARY_MEDIA_TYPE if binary
+                         else "application/json")
         self.send_header("Transfer-Encoding", "chunked")
         self.end_headers()
-        deadline = time.monotonic() + timeout
+        import time as _time
+        deadline = _time.monotonic() + timeout
         try:
-            while time.monotonic() < deadline:
-                ev = w.next(timeout=min(1.0, deadline - time.monotonic()))
+            while _time.monotonic() < deadline:
+                ev = w.next(timeout=min(1.0, deadline - _time.monotonic()))
                 if ev is None:
                     if w.stopped:
                         break
                     continue
-                chunk = (json.dumps(
-                    {"type": ev.type, "object": ev.object},
-                    separators=(",", ":")) + "\n").encode()
+                if binary:
+                    chunk = codec.encode_frame(
+                        {"type": ev.type, "object": ev.object})
+                else:
+                    chunk = (json.dumps(
+                        {"type": ev.type, "object": ev.object},
+                        separators=(",", ":")) + "\n").encode()
                 self.wfile.write(f"{len(chunk):x}\r\n".encode() + chunk + b"\r\n")
                 self.wfile.flush()
         except (BrokenPipeError, ConnectionResetError, OSError):
@@ -723,10 +1040,12 @@ class _ThreadingHTTPServer(socketserver.ThreadingMixIn, socketserver.TCPServer):
 class HTTPGateway:
     """Serve an APIServer over HTTP (the kube-apiserver process boundary)."""
 
-    def __init__(self, api: APIServer, host: str = "127.0.0.1", port: int = 0):
+    def __init__(self, api: APIServer, host: str = "127.0.0.1", port: int = 0,
+                 auth_gate=None):
         self.api = api
         self._httpd = _ThreadingHTTPServer((host, port), _Handler)
         self._httpd.api = api  # type: ignore[attr-defined]
+        self._httpd.auth_gate = auth_gate  # type: ignore[attr-defined]
         self.host, self.port = self._httpd.server_address
         self._thread = threading.Thread(target=self._httpd.serve_forever,
                                         name="apiserver-http", daemon=True)

@@ -1,7 +1,6 @@
-"""Client machinery: the typed client, informers, the watch multiplexer the
-fleet's watch plane rides, events, leader election (a copy of the JAX
-package's client/, less its workqueues, which the scheduler does not use:
-ROADMAP A11b, second half)."""
+"""Client machinery: the typed client, informers, workqueues, the watch
+multiplexer the fleet's watch plane rides, events, leader election (a copy
+of the JAX package's client/)."""
 
 from .events import EventRecorder
 from .informers import (
@@ -14,10 +13,12 @@ from .informers import (
 from .leaderelection import LeaderElectionConfig, LeaderElector
 from .rest import Client, HTTPTransport, LocalTransport, ResourceClient, RetryPolicy
 from .watchmux import TENANT_LABEL, MuxRoute, WatchMux
+from .workqueue import DelayingQueue, RateLimiter, RateLimitingQueue, WorkQueue
 
 __all__ = [
-    "Client", "EventRecorder", "HTTPTransport", "Indexer", "InformerFactory",
-    "LeaderElectionConfig", "LeaderElector", "Lister", "LocalTransport",
-    "MuxRoute", "ResourceClient", "RetryPolicy", "SharedInformer",
-    "TENANT_LABEL", "WatchMux", "pods_by_node_index",
+    "Client", "DelayingQueue", "EventRecorder", "HTTPTransport", "Indexer",
+    "InformerFactory", "LeaderElectionConfig", "LeaderElector", "Lister",
+    "LocalTransport", "MuxRoute", "RateLimiter", "RateLimitingQueue",
+    "ResourceClient", "RetryPolicy", "SharedInformer", "TENANT_LABEL",
+    "WatchMux", "WorkQueue", "pods_by_node_index",
 ]

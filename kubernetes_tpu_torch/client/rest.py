@@ -6,8 +6,8 @@ directly (the integration-test path), `HTTPTransport` crosses the real wire
 with chunked watch streams. Components depend only on `Client`.
 
 A copy of the JAX package's client/rest.py over the port's apiserver
-(apiserver/server.py), JSON only: the binary codec (machinery/codec.py) is
-not ported yet (ROADMAP A11b, second half).
+(apiserver/server.py): JSON by default, the binary codec
+(machinery/codec.py) with `binary=True`.
 """
 
 from __future__ import annotations
@@ -121,18 +121,18 @@ class LocalTransport:
 
 
 class HTTPTransport:
-    """The wire path: REST + chunked watch streams, JSON bodies."""
+    """The wire path: REST + chunked watch streams. `binary=True` opts the
+    client into the negotiated binary codec (machinery/codec.py — the
+    `application/vnd.kubernetes.protobuf` seat every internal reference
+    client takes, protobuf.go); JSON stays the default and the fallback."""
 
     def __init__(self, base_url: str, timeout: float = 30.0,
                  token: str = "", binary: bool = False,
                  retry: Optional[RetryPolicy] = None):
-        if binary:
-            raise NotImplementedError(
-                "the binary codec (machinery/codec.py) is not ported yet "
-                "(ROADMAP A11b, second half)")
         self.base_url = base_url.rstrip("/")
         self.timeout = timeout
         self.token = token
+        self.binary = binary
         self.retry = retry
 
     def _url(self, path: str, query: Dict[str, str]) -> str:
@@ -141,8 +141,11 @@ class HTTPTransport:
             url += "?" + urllib.parse.urlencode(query)
         return url
 
-    @staticmethod
-    def _decode_body(raw: bytes) -> Obj:
+    def _decode_body(self, raw: bytes, content_type: str) -> Obj:
+        from ..machinery import codec
+
+        if content_type.split(";")[0] == codec.BINARY_MEDIA_TYPE:
+            return codec.decode(raw)
         try:
             return json.loads(raw)
         except json.JSONDecodeError:
@@ -157,6 +160,8 @@ class HTTPTransport:
 
     def _request_once(self, method: str, path: str, query: Dict[str, str],
                       body: Optional[Obj]) -> Obj:
+        from ..machinery import codec
+
         # the patch dialect travels as a Content-Type on the wire (the
         # gateway maps it back; apiserver patch.go patchTypes) — pop the
         # local-transport query key and translate
@@ -166,20 +171,32 @@ class HTTPTransport:
         data = None
         if self.token:
             req.add_header("Authorization", f"Bearer {self.token}")
+        if self.binary:
+            req.add_header("Accept", codec.BINARY_MEDIA_TYPE)
         if body is not None:
-            data = json.dumps(body).encode()
-            req.add_header("Content-Type", {
-                "strategic": "application/strategic-merge-patch+json",
-                "json": "application/json-patch+json",
-                "merge": "application/merge-patch+json",
-            }.get(ptype, "application/json"))
+            if self.binary and method != "PATCH":
+                data = codec.encode(body)
+                req.add_header("Content-Type", codec.BINARY_MEDIA_TYPE)
+            else:
+                # PATCH always rides JSON: the dialect IS the Content-Type,
+                # and a binary body would make the server read the dialect
+                # as "merge" (patch bodies are partial docs/op lists — the
+                # typed binary codec has no frame for them anyway)
+                data = json.dumps(body).encode()
+                req.add_header("Content-Type", {
+                    "strategic": "application/strategic-merge-patch+json",
+                    "json": "application/json-patch+json",
+                    "merge": "application/merge-patch+json",
+                }.get(ptype, "application/json"))
         try:
             with urllib.request.urlopen(req, data=data,
                                         timeout=self.timeout) as r:
-                return self._decode_body(r.read())
+                return self._decode_body(
+                    r.read(), r.headers.get("Content-Type", ""))
         except urllib.error.HTTPError as e:
             try:
-                status = self._decode_body(e.read())
+                status = self._decode_body(
+                    e.read(), e.headers.get("Content-Type", ""))
             except Exception:  # noqa: BLE001
                 raise errors.StatusError(e.code, "Unknown", str(e))
             raise errors.from_status(status)
@@ -209,19 +226,41 @@ class HTTPTransport:
                 ev = json.loads(line)
                 w.send(mwatch.Event(ev["type"], ev["object"]))
 
+        def pump_binary(r) -> None:
+            from ..machinery import codec
+
+            buf = b""
+            while not w.stopped:
+                chunk = r.read1(65536)
+                if not chunk:
+                    return
+                buf += chunk
+                events, buf = codec.decode_frames(buf)
+                for ev in events:
+                    w.send(mwatch.Event(ev["type"], ev["object"]))
+
         def pump() -> None:
+            from ..machinery import codec
+
             try:
                 req = urllib.request.Request(self._url(path, q))
                 if self.token:
                     req.add_header("Authorization", f"Bearer {self.token}")
+                if self.binary:
+                    req.add_header("Accept", codec.BINARY_MEDIA_TYPE)
                 with urllib.request.urlopen(req, timeout=sock_timeout) as r:
-                    pump_json(r)
+                    ctype = (r.headers.get("Content-Type") or "").split(";")[0]
+                    if ctype == codec.BINARY_MEDIA_TYPE:
+                        pump_binary(r)
+                    else:
+                        pump_json(r)
             except urllib.error.HTTPError as e:
                 # a refused watch (410 Gone on a compacted resume RV) must
                 # surface as a watch ERROR, not masquerade as a clean
                 # stream end — the reflector's relist path keys on it
                 try:
-                    status = self._decode_body(e.read())
+                    status = self._decode_body(
+                        e.read(), e.headers.get("Content-Type", ""))
                 except Exception:  # noqa: BLE001
                     status = {"kind": "Status", "code": e.code,
                               "reason": "Unknown"}
@@ -428,8 +467,9 @@ class Client:
     @staticmethod
     def http(base_url: str, token: str = "", binary: bool = False,
              retry: Optional[RetryPolicy] = None) -> "Client":
-        """`retry` opts into the 429/503 pushback budget (RetryPolicy);
-        `binary=True` (the binary codec) raises: not ported yet."""
+        """`binary=True` negotiates the binary codec for every request and
+        watch stream — the internal-client configuration (protobuf.go).
+        `retry` opts into the 429/503 pushback budget (RetryPolicy)."""
         return Client(HTTPTransport(base_url, token=token, binary=binary,
                                     retry=retry))
 

@@ -1,6 +1,6 @@
-"""storage.Interface: versioned object storage over an in-memory MVCC
-key-value store, with the watch hub and the watch cache (a copy of the JAX
-package's storage/store.py and of its storage/native.py `PyKV`).
+"""storage.Interface: versioned object storage over the MVCC kvstore, with
+the watch hub and the watch cache (a copy of the JAX package's
+storage/store.py).
 
 Analog of `staging/src/k8s.io/apiserver/pkg/storage/etcd3/store.go`: objects
 are JSON-encoded under `/registry/<resource>/[<ns>/]<name>`; as in the
@@ -27,189 +27,37 @@ Watch-plane contract (the cacher's delivery discipline):
     Status BEFORE closing each stream — clients resume by resourceVersion
     rather than discovering death by socket EOF and blind-relisting.
 
-Not ported yet (ROADMAP A11b, second half): the write-ahead log and
-snapshots (the JAX package's storage/wal.py, its `data_dir`/`durability`)
-and the native C++ backend (storage/native.py). Asking for durability
-raises; it never quietly runs in memory.
 """
 
 from __future__ import annotations
 
-import bisect
 import json
 import os
 import threading
 import time
 from dataclasses import dataclass, field
-from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 from ..component.metrics import DEFAULT_REGISTRY as _REG
 from ..machinery import errors, meta
 from ..machinery import watch as mwatch
+from . import native
 from .cacher import CachedEvent, WatchCache
+# the records and PyKV are imported from this module too
+from .native import (  # noqa: F401
+    EVENT_CREATE,
+    EVENT_DELETE,
+    EVENT_PUT,
+    CompactedError,
+    KVEvent,
+    KVRecord,
+    PyKV,
+)
 from ..utils import faultline
 
 Obj = Dict[str, Any]
 Predicate = Optional[Callable[[Obj], bool]]
 
-
-EVENT_PUT = 0
-EVENT_DELETE = 1
-EVENT_CREATE = 2
-
-
-class KVRecord(NamedTuple):
-    key: str
-    value: bytes
-    create_rev: int
-    mod_rev: int
-
-
-class KVEvent(NamedTuple):
-    rev: int
-    type: int  # EVENT_PUT | EVENT_DELETE | EVENT_CREATE
-    key: str
-    value: bytes  # for DELETE: the previous value
-
-
-class CompactedError(Exception):
-    """Watch/list from a revision older than the compaction point."""
-
-
-class PyKV:
-    """The in-memory MVCC store: one revision counter, each record with its
-    create and last-modify revisions, and the event log the watch hub reads
-    (the JAX package's storage/native.py PyKV, with the native store's
-    costs: a range is O(log n + k) over a sorted key index, not a sort of
-    every key, and a read of the log starts at its revision — the
-    apiserver's admission chain ranges on every create, and the watch pump
-    reads the log on every write)."""
-
-    MAX_EVENTS = 1 << 20  # bound the log for the process lifetime even
-    # when nothing calls compact()
-
-    def __init__(self) -> None:
-        self._mu = threading.Condition()
-        self._data: dict = {}  # key -> (value, create_rev, mod_rev)
-        self._keys: List[str] = []  # the keys of _data, sorted
-        self._events: List[KVEvent] = []
-        self._rev = 0
-        self._compacted = 0
-
-    def _trim_locked(self) -> None:
-        if len(self._events) > self.MAX_EVENTS:
-            drop = len(self._events) - self.MAX_EVENTS
-            self._compacted = self._events[drop - 1].rev
-            del self._events[:drop]
-
-    def close(self) -> None:
-        pass
-
-    def rev(self) -> int:
-        with self._mu:
-            return self._rev
-
-    def compacted_rev(self) -> int:
-        with self._mu:
-            return self._compacted
-
-    def put(self, key: str, value: bytes) -> int:
-        return self.txn_put(key, -1, value)
-
-    def txn_put(self, key: str, expected_mod_rev: int, value: bytes) -> int:
-        """Write `value` if the record's mod revision is `expected_mod_rev`
-        (0: the key must not exist; -1: unconditional). Returns the new
-        revision, or -1 when the condition fails."""
-        with self._mu:
-            cur = self._data.get(key)
-            if expected_mod_rev == 0 and cur is not None:
-                return -1
-            if expected_mod_rev > 0 and (cur is None
-                                         or cur[2] != expected_mod_rev):
-                return -1
-            self._rev += 1
-            create = cur[1] if cur else self._rev
-            if cur is None:
-                bisect.insort(self._keys, key)
-            self._data[key] = (value, create, self._rev)
-            self._events.append(KVEvent(
-                self._rev, EVENT_PUT if cur else EVENT_CREATE, key, value))
-            self._trim_locked()
-            self._mu.notify_all()
-            return self._rev
-
-    def txn_delete(self, key: str, expected_mod_rev: int = -1) -> int:
-        """Delete if the record's mod revision is `expected_mod_rev` (-1:
-        unconditional). Returns the new revision, 0 when absent, -1 when the
-        condition fails."""
-        with self._mu:
-            cur = self._data.get(key)
-            if cur is None:
-                return 0
-            if expected_mod_rev > 0 and cur[2] != expected_mod_rev:
-                return -1
-            self._rev += 1
-            del self._data[key]
-            del self._keys[bisect.bisect_left(self._keys, key)]
-            self._events.append(KVEvent(self._rev, EVENT_DELETE, key, cur[0]))
-            self._trim_locked()
-            self._mu.notify_all()
-            return self._rev
-
-    def get(self, key: str) -> Optional[KVRecord]:
-        with self._mu:
-            cur = self._data.get(key)
-            return None if cur is None else KVRecord(key, *cur)
-
-    def _prefixed(self, prefix: str) -> List[str]:
-        """The keys under `prefix`, in key order (caller holds _mu)."""
-        lo = bisect.bisect_left(self._keys, prefix)
-        hi = bisect.bisect_left(self._keys, prefix + "\U0010ffff") \
-            if prefix else len(self._keys)
-        return self._keys[lo:hi]
-
-    def range(self, prefix: str) -> Tuple[List[KVRecord], int]:
-        """Every record under `prefix`, sorted by key (both JAX backends'
-        order), and the store revision of the read."""
-        with self._mu:
-            recs = [KVRecord(k, *self._data[k]) for k in self._prefixed(prefix)]
-            return recs, self._rev
-
-    def count(self, prefix: str) -> int:
-        with self._mu:
-            return len(self._prefixed(prefix))
-
-    def events_since(self, since_rev: int, prefix: str = "") -> List[KVEvent]:
-        with self._mu:
-            if since_rev < self._compacted:
-                raise CompactedError(f"revision {since_rev} already compacted")
-            # one event per revision, in order: the log from since_rev + 1
-            # starts at a known offset
-            start = 0
-            if self._events:
-                start = min(max(0, since_rev + 1 - self._events[0].rev),
-                            len(self._events))
-            return [e for e in self._events[start:]
-                    if e.rev > since_rev and e.key.startswith(prefix)]
-
-    def wait(self, rev: int, timeout: float) -> int:
-        with self._mu:
-            self._mu.wait_for(lambda: self._rev > rev, timeout=timeout)
-            return self._rev
-
-    def compact(self, at_rev: int) -> int:
-        with self._mu:
-            self._events = [e for e in self._events if e.rev > at_rev]
-            if at_rev > self._compacted:
-                self._compacted = at_rev
-            return self._compacted
-
-
-def unported_durability() -> NotImplementedError:
-    return NotImplementedError(
-        "a durable store (data_dir, durability, KTPU_STORE_DIR: the JAX "
-        "package's storage/wal.py over storage/native.py) is not ported yet "
-        "(ROADMAP A11b, second half)")
 
 # watch-plane delivery telemetry: the per-watcher buffer is the
 # backpressure boundary — its depth is the early-warning signal, and an
@@ -299,9 +147,13 @@ class Storage:
                  bookmark_interval: Optional[float] = None,
                  data_dir: Optional[str] = None,
                  durability: Optional[str] = None):
-        if data_dir or durability:
-            raise unported_durability()
-        self.kv = kv if kv is not None else PyKV()
+        # data_dir turns the store durable: the kv is wrapped in the
+        # WAL/snapshot layer (storage/wal.py) and recovery has ALREADY run
+        # by the time new_kv returns — self.kv.rev() below is the last
+        # durable revision, so the pump, the cacher horizon and every RV
+        # this process hands out continue the pre-crash sequence
+        self.kv = kv if kv is not None else native.new_kv(
+            data_dir=data_dir, durability=durability)
         self._watch_mu = threading.Lock()
         self._watchers: List[_Watcher] = []
         self._watch_buffer = _parse_watch_buffer(

@@ -53,6 +53,25 @@ Seams wired in this package (fault name → injection point):
                                               `except Exception` guard the
                                               way SIGKILL punches through a
                                               process (restart drills)
+    proc.crash@wal:{pre_fsync,                storage/wal.py append (pre/post
+      post_fsync,post_append}                 fsync) + storage/native.py
+                                              DurableKV commit (post_append):
+                                              the APISERVER dies mid-commit —
+                                              record appended / durable /
+                                              applied-to-memory. All three
+                                              leave the record in the WAL,
+                                              so a reboot replays it
+    wal.torn@tail                             storage/wal.py load_state:
+                                              bytes chopped off the FINAL
+                                              segment before replay (the
+                                              clean-truncate row of the
+                                              recovery decision table)
+    disk.full@wal                             storage/wal.py append: refused
+                                              (WalWriteError) BEFORE any
+                                              bytes land
+    native.dlopen                             storage/native.py new_kv(): the
+                                              C++ store fails to load; the
+                                              PyKV fallback carries the store
 
 The hot-path contract: when no spec is installed, ``should()`` is one global
 read and a ``None`` check — safe to call per storage CAS or per watch event.

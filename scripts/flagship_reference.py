@@ -21,7 +21,8 @@ many pods a package places, and a hash of where.
     JAX_PLATFORMS=cpu python3 scripts/flagship_reference.py --package jax \\
         --path framework|extender|cosched
     JAX_PLATFORMS=cpu python3 scripts/flagship_reference.py --package jax \\
-        --path server [--transport http --pods 2000]
+        --path server [--transport http --pods 2000 [--binary --durable]]
+        --path durable
     JAX_PLATFORMS=cpu python3 scripts/flagship_reference.py --package jax \\
         --path fleet [--tenants 24 --nodes 2000 --pods 2000]
         --path scan
@@ -80,6 +81,19 @@ JAX_SERVER constants); `--transport
 http` puts the client on HTTPTransport through an HTTPGateway (phase 11d,
 JAX_SERVER_HTTP, `--pods 2000`).
 
+`--binary` puts that client on the binary codec and `--durable` makes the
+apiserver durable (batch) over a temporary data dir: with `--transport http
+--pods 2000` that is phase 14b (JAX_SERVER_BINARY).
+
+`--path durable` runs chip_smoke.py's phase 14a (`durable_drill`): the
+package's APIServer over a temporary data dir (batch), 5,000 nodes and
+flagship_pods(`--pods`, default chip_smoke.DURABLE_PODS) created through
+Client.local, a Scheduler with an APIBinder and a BindIntentLedger killed
+by proc.crash@wal:post_append:2 mid-commit, the apiserver rebooted from
+disk and a successor's recover() and drain. It prints the bound count, the
+per-wave counts of both schedulers, the RecoveryReport and the sha256 of the
+whole (pod, node) map (JAX_DURABLE).
+
 `--path fleet` runs chip_smoke.py's phase 12a (`fleet_run`): the
 package's FleetServer with `--tenants` tenants (default
 chip_smoke.FLEET_TENANTS) of make_nodes(`--nodes`) and `--pods` pods each
@@ -119,7 +133,9 @@ import argparse
 import hashlib
 import json
 import os
+import shutil
 import sys
+import tempfile
 import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
@@ -178,10 +194,14 @@ def jax_server_api():
     from kubernetes_tpu.api import types, v1
     from kubernetes_tpu.apiserver import APIServer, HTTPGateway
     from kubernetes_tpu.client import Client
+    from kubernetes_tpu.client.informers import SharedInformer
+    from kubernetes_tpu.machinery import errors
     from kubernetes_tpu.models import workloads
     from kubernetes_tpu.sched.ledger import BindIntentLedger
-    from kubernetes_tpu.sched.server import SchedulerServer
+    from kubernetes_tpu.sched.scheduler import Scheduler
+    from kubernetes_tpu.sched.server import APIBinder, SchedulerServer
     from kubernetes_tpu.state.dims import Dims, bucket
+    from kubernetes_tpu.storage import native, wal
     from kubernetes_tpu.utils import faultline
 
     made = []
@@ -192,13 +212,21 @@ def jax_server_api():
         made.append(srv.scheduler)
         return srv
 
+    def scheduler(**kw):
+        s = Scheduler(**kw)
+        s.prewarmer.enabled = False  # compile-ahead only
+        made.append(s)
+        return s
+
     return pytypes.SimpleNamespace(
         types=types, workloads=workloads, Dims=Dims, bucket=bucket,
         node_to_v1=v1.node_to_v1, pod_to_v1=v1.pod_to_v1,
         node_from_v1=v1.node_from_v1, pod_from_v1=v1.pod_from_v1,
         APIServer=APIServer, HTTPGateway=HTTPGateway, Client=Client,
-        server=server, made=made, ledger=BindIntentLedger,
-        faultline=faultline)
+        server=server, scheduler=scheduler, made=made,
+        ledger=BindIntentLedger, APIBinder=APIBinder,
+        SharedInformer=SharedInformer, errors=errors, native=native,
+        wal=wal, faultline=faultline)
 
 
 def jax_fleet_api():
@@ -294,15 +322,47 @@ def server_path(args) -> dict:
 
         api = chip_smoke.port_server_api(torch.device(args.device))
     t0 = time.perf_counter()
-    out = chip_smoke.server_drain(api, args.nodes, args.pods,
-                                  transport=args.transport)
-    keep = ("pods", "bound", "bound_sha256", "first_wave_sha256")
+    data_dir = tempfile.mkdtemp(prefix="ktpu-ref-") if args.durable else None
+    try:
+        out = chip_smoke.server_drain(api, args.nodes, args.pods,
+                                      transport=args.transport,
+                                      binary=args.binary, data_dir=data_dir)
+    finally:
+        if data_dir:
+            shutil.rmtree(data_dir, ignore_errors=True)
+    keep = ("pods", "bound", "bound_sha256", "first_wave_sha256",
+            "waves_sha256")
     server = {k: out[k] for k in keep}
     server["waves"] = [w["scheduled"] for w in out["waves"]]
     return {"package": args.package, "path": "server",
-            "transport": args.transport, "nodes": args.nodes,
+            "transport": args.transport, "binary": args.binary,
+            "durable": args.durable, "nodes": args.nodes,
             "pods": args.pods, "server": server,
             "waves": out["waves"], "seconds": time.perf_counter() - t0}
+
+
+def durable_path(args) -> dict:
+    """Phase 14a (chip_smoke.durable_drill) on the chosen package."""
+    os.environ["KTPU_OVERLOAD"] = "0"
+    import chip_smoke
+
+    if args.package == "jax":
+        api = jax_server_api()
+    else:
+        import torch
+
+        api = chip_smoke.port_server_api(torch.device(args.device))
+    t0 = time.perf_counter()
+    data_dir = tempfile.mkdtemp(prefix="ktpu-ref-")
+    try:
+        out = chip_smoke.durable_drill(api, os.path.join(data_dir, "14a"),
+                                       args.nodes, args.pods)
+    finally:
+        shutil.rmtree(data_dir, ignore_errors=True)
+    return {"package": args.package, "path": "durable",
+            "nodes": args.nodes, "pods": args.pods,
+            "durable": chip_smoke.durable_reference(out),
+            "backend": out["backend"], "seconds": time.perf_counter() - t0}
 
 
 def restart(args) -> dict:
@@ -510,7 +570,7 @@ def main() -> int:
     ap.add_argument("--path",
                     choices=("batch", "serving", "preempt", "restart",
                              "framework", "extender", "cosched", "server",
-                             "fleet", "scan"),
+                             "fleet", "scan", "durable"),
                     default="batch")
     ap.add_argument("--nodes", type=int, default=None,
                     help="default 5,000 (chip_smoke.FLEET_NODES for "
@@ -531,6 +591,11 @@ def main() -> int:
     ap.add_argument("--transport", choices=("local", "http"),
                     default="local", help="--path server: the client's "
                     "transport")
+    ap.add_argument("--binary", action="store_true",
+                    help="--path server --transport http: the binary codec")
+    ap.add_argument("--durable", action="store_true",
+                    help="--path server: a durable apiserver (batch) over a "
+                    "temporary data dir")
     args = ap.parse_args()
     os.environ["KTPU_ASSIGN"] = args.engine
     if args.path == "fleet":
@@ -543,6 +608,11 @@ def main() -> int:
         args.nodes = 5000
     if args.path == "scan":
         print(json.dumps(scan_path(args)))
+        return 0
+    if args.path == "durable":
+        if args.pods is None:
+            args.pods = chip_smoke.DURABLE_PODS
+        print(json.dumps(durable_path(args)))
         return 0
     if args.path == "server":
         if args.pods is None:

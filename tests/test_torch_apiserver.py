@@ -373,15 +373,6 @@ def test_storage_event_script_matches_jax():
     assert ("gone", 404) in b and ("compacted", 410) in b
 
 
-def test_durable_storage_is_refused_not_faked(tmp_path):
-    """A durable store (the JAX package's WAL) is not ported yet: asking for
-    one raises rather than serving from memory."""
-    with pytest.raises(NotImplementedError, match="A11b"):
-        TStorage(data_dir=str(tmp_path))
-    with pytest.raises(NotImplementedError, match="A11b"):
-        TAPIServer(data_dir=str(tmp_path))
-
-
 def test_pykv_matches_jax_on_a_random_script():
     """The port's PyKV (a sorted key index, log reads from an offset)
     against the JAX package's on a seeded script of creates, updates,

@@ -2,8 +2,9 @@
 verbs, informers, leader election and events — tests/test_client.py's cases,
 each run unchanged on both packages: the JAX package's client over its own
 in-process apiserver and the port's over the port's (both transports).
-Its workqueue and controller-restart cases are not ported: the port has
-no workqueue (client/workqueue.py) and no controllers.
+Its workqueue cases (client/workqueue.py) run on both packages in
+tests/test_torch_workqueue.py; its controller-restart case waits for the
+port's controllers (ROADMAP item 15).
 """
 
 import importlib

@@ -7,11 +7,14 @@ Scheduler(device="cpu"): the kill matrix at pre_intent / post_intent /
 post_bind (each also run on the JAX package's Scheduler, the two
 RecoveryReports compared field by field, and the binders' logs equal), the
 crash during takeover, the apiserver-death matrix over the JAX package's
-WAL-backed Storage, release on no-fit, drop on delete, the skip of newer
+WAL-backed Storage and over the port's own (storage/wal.py, the crash on
+the port's switchboard), release on no-fit, drop on delete, the skip of newer
 tokens, the crash requeue landing in exactly one lane, and warm_standby
 being read-only; tests/test_microwave.py's crash in a micro commit; and a
 takeover across packages both ways — a JAX leader crashes at post_intent
-and the port recovers, and the other way round — over one shared store.
+and the port recovers, and the other way round — over one shared store; and
+a JAX leader killed at wal:post_append on a JAX WAL whose data dir the
+port's Storage reboots and replays exactly once.
 
 Each package has its own fault switchboard (utils/faultline.py): a crash is
 installed on the side that must die. The ledger takes its storage by
@@ -76,11 +79,14 @@ def open_store(kind, tmp_path=None):
         return TStorage()
     if kind == "jax":
         return JStorage(kv=JPyKV())
+    if kind == "port-wal":
+        return TStorage(data_dir=str(tmp_path / "etcd"), durability="always")
     return JStorage(data_dir=str(tmp_path / "etcd"), durability="always")
 
 
 def close_store(st):
-    if isinstance(st, JStorage):
+    if isinstance(st, JStorage) or (isinstance(st, TStorage)
+                                    and hasattr(st.kv, "data_dir")):
         st.close()
 
 
@@ -118,10 +124,12 @@ class Cluster:
         self.pod_specs = {f"default/p{i}": (f"p{i}", "100m", "64Mi", "")
                           for i in range(n_pods)}
 
-    def reboot_storage(self):
+    def reboot_storage(self, kind=None):
         """The apiserver process is dead: quiesce its pump and recover a
-        new store from the WAL on disk."""
+        new store from the WAL on disk (with `kind`, another package's
+        store over the same data dir)."""
         self.storage._stop.set()
+        self.kind = kind or self.kind
         self.storage = open_store(self.kind, self.tmp_path)
         return self.storage
 
@@ -261,15 +269,14 @@ def test_crash_during_takeover_second_successor_finishes():
 # --------------------------------------------------------------------- #
 
 
-@pytest.mark.durability
-@pytest.mark.parametrize("site", [
-    "wal:pre_fsync", "wal:post_fsync", "wal:post_append"])
-def test_apiserver_death_matrix_reboot_reconciles(site, tmp_path):
-    cluster = Cluster("wal", tmp_path=tmp_path)
+def apiserver_death(site, store, switchboard, tmp_path):
+    """A WAL-backed store of `store`'s package dies at `site` (its own
+    `switchboard` kills it) mid-commit of the port's intent; the reboot
+    replays the intent and a successor binds every pod exactly once."""
+    cluster = Cluster(store, tmp_path=tmp_path)
     try:
         s1 = cluster.boot()
-        # the WAL is the JAX package's code: its switchboard kills it
-        crash("jax", f"proc.crash@{site}:1", s1.schedule_pending)
+        crash(switchboard, f"proc.crash@{site}:1", s1.schedule_pending)
         assert len(cluster.binder.bound) == 0
         cluster.reboot_storage()
         assert cluster.storage.kv.recovered
@@ -283,12 +290,11 @@ def test_apiserver_death_matrix_reboot_reconciles(site, tmp_path):
         cluster.close()
 
 
-@pytest.mark.durability
-def test_double_kill_apiserver_then_takeover_crash(tmp_path):
-    cluster = Cluster("wal", tmp_path=tmp_path)
+def double_kill(store, switchboard, tmp_path):
+    cluster = Cluster(store, tmp_path=tmp_path)
     try:
         s1 = cluster.boot()
-        crash("jax", "proc.crash@wal:post_append:1", s1.schedule_pending)
+        crash(switchboard, "proc.crash@wal:post_append:1", s1.schedule_pending)
         cluster.reboot_storage()
         assert len(cluster.unretired()) == 1
         s2 = cluster.boot()
@@ -303,6 +309,61 @@ def test_double_kill_apiserver_then_takeover_crash(tmp_path):
         assert report.replayed_intents == 1
         s3.run_until_idle()
         cluster.assert_exactly_once(s3)
+    finally:
+        cluster.close()
+
+
+WAL_SITES = ["wal:pre_fsync", "wal:post_fsync", "wal:post_append"]
+
+
+@pytest.mark.durability
+@pytest.mark.parametrize("site", WAL_SITES)
+def test_apiserver_death_matrix_reboot_reconciles(site, tmp_path):
+    # the WAL is the JAX package's code: its switchboard kills it
+    apiserver_death(site, "wal", "jax", tmp_path)
+
+
+@pytest.mark.durability
+def test_double_kill_apiserver_then_takeover_crash(tmp_path):
+    double_kill("wal", "jax", tmp_path)
+
+
+@pytest.mark.durability
+@pytest.mark.parametrize("site", WAL_SITES)
+def test_apiserver_death_matrix_over_the_ports_wal(site, tmp_path):
+    # the port's own WAL (storage/wal.py), killed by the port's switchboard
+    apiserver_death(site, "port-wal", "port", tmp_path)
+
+
+@pytest.mark.durability
+def test_double_kill_over_the_ports_wal(tmp_path):
+    double_kill("port-wal", "port", tmp_path)
+
+
+@pytest.mark.durability
+def test_jax_wal_killed_port_reboots_and_replays_once(tmp_path):
+    """A JAX leader over a JAX WAL-backed store dies at wal:post_append
+    (its intent durable); the port's Storage reboots that data dir and the
+    port's successor replays the intent exactly once."""
+    cluster = Cluster("wal", tmp_path=tmp_path)
+    try:
+        s1 = cluster.boot("jax")
+        crash("jax", "proc.crash@wal:post_append:1", s1.schedule_pending)
+        rev_at_death = cluster.storage.kv.rev()
+        assert cluster.binder.bound == {}
+        cluster.reboot_storage("port-wal")
+        assert isinstance(cluster.storage, TStorage)
+        assert cluster.storage.kv.recovered
+        assert cluster.storage.kv.rev() == rev_at_death
+        intents = cluster.unretired()
+        assert len(intents) == 1 and len(intents[0].bindings) == 8
+        s2 = cluster.boot("port")
+        report = s2.recover(lookup=cluster.lookup("port"))
+        assert report.replayed_intents == 1
+        assert report.completed == 8 and report.released == 0
+        s2.run_until_idle()
+        cluster.assert_exactly_once(s2)
+        assert cluster.storage.kv.rev() > rev_at_death
     finally:
         cluster.close()
 

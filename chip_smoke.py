@@ -157,7 +157,23 @@ Phases, each fatal on failure (exit code != 0, no result line):
      11d's drain over HTTPTransport(binary=True) against a durable
      apiserver, its map, per-wave counts and per-wave binder order against
      JAX_SERVER_BINARY, its creates/s beside 11d's. K1/K2 launch in both,
-     their first launches equal to the plain versions.
+     their first launches equal to the plain versions;
+ 15. (run first, right after phase 1's build) the kubemark rollout, in an
+     interpreter of its own (`chip_smoke.py --phase 15` on the same card;
+     KTPU_OVERLOAD=0; kubemark_drive): an
+     APIServer, a HollowCluster of 500 hollow nodes (a Kubelet with a FakeCRI each,
+     ten zones), a ControllerManager with the deployment, replicaset,
+     daemonset and nodelifecycle controllers; the Deployment web (500
+     replicas of 100m/64Mi, maxSkew 1 over the zones, DoNotSchedule) until
+     its ReplicaSet has made every pod, then the DaemonSet agent (50m/32Mi)
+     until one pod targets each node; only then SchedulerServer(device=
+     "cuda"), each wave behind the wave barrier, until every pod is bound,
+     Running and Ready and both workloads report it. Gates: the bound map
+     and the waves against JAX_KUBEMARK; the workloads' statuses; each
+     daemon pod on its target node, one a node; the spread; no overcommit;
+     no unhealthy taint by the node lifecycle controller; no wave and no
+     thread raised (a threading.excepthook); K1/K2 launched, their first
+     launches equal to the plain versions; the phase within 150 s.
 
 Prints a `kernels` JSON line, the nvidia-smi name/power line, and last
 `{"ok": true, "device": {...}}`. Imports nothing of JAX.
@@ -3909,6 +3925,8 @@ def port_server_api(device):
     from kubernetes_tpu_torch.apiserver import APIServer, HTTPGateway
     from kubernetes_tpu_torch.client import Client
     from kubernetes_tpu_torch.client.informers import SharedInformer
+    from kubernetes_tpu_torch.controllers import ControllerManager
+    from kubernetes_tpu_torch.kubemark import HollowCluster
     from kubernetes_tpu_torch.machinery import errors
     from kubernetes_tpu_torch.models import workloads
     from kubernetes_tpu_torch.sched.ledger import BindIntentLedger
@@ -3937,7 +3955,8 @@ def port_server_api(device):
         server=server, scheduler=scheduler, made=made,
         ledger=BindIntentLedger, APIBinder=APIBinder,
         SharedInformer=SharedInformer, errors=errors, native=native,
-        wal=wal, faultline=faultline)
+        wal=wal, faultline=faultline, ControllerManager=ControllerManager,
+        HollowCluster=HollowCluster)
 
 
 class BindWatch:
@@ -5565,6 +5584,490 @@ def durable_phase(device, card: str) -> dict:
                 wall_s=time.perf_counter() - t0)
 
 
+# --------------------------------------------------------------------------- #
+# phase 15: the kubemark rollout (shared with scripts/flagship_reference.py
+# --path kubemark, which runs it on the JAX package)
+# --------------------------------------------------------------------------- #
+
+# 500 hollow nodes, not kubemark's 5,000: every hollow node is a Kubelet with
+# a field-selected pod informer and two threads, so every pod write fans out
+# to one watcher per node, and all of them share one interpreter lock with
+# the scheduler. 500 replicas, not 2,000, halved twice for the phase's
+# 150 s: at 2,000 a slow host's wave took 265 s for its Bindings and the
+# starved heartbeats let the node lifecycle controller taint 128 nodes; at
+# 1,000 three runs alone took 78.5, 87.8 and 140.7 s, the last with its
+# wave waiting 91.5 s for the interpreter lock beside the hollow nodes
+KUBEMARK_NODES, KUBEMARK_REPLICAS, KUBEMARK_ZONES = 500, 500, 10
+KUBEMARK_CONTROLLERS = ["deployment", "replicaset", "daemonset",
+                        "nodelifecycle"]
+KUBEMARK_TIMEOUT_S = 300.0  # the longest any one stage may wait
+KUBEMARK_BUDGET_S = 150.0   # the phase's whole time on the card
+ZONE_KEY = "topology.kubernetes.io/zone"
+UNHEALTHY_TAINTS = ("node.kubernetes.io/unreachable",
+                    "node.kubernetes.io/not-ready")
+
+# The JAX package's run of kubemark_drive (500 hollow nodes, Deployment web
+# of 500 replicas spread over 10 zones, DaemonSet agent; its
+# SchedulerServer at its defaults behind the wave barrier; JAX 0.9.0 on the
+# CPU). Reproduce with `JAX_PLATFORMS=cpu python3
+# scripts/flagship_reference.py --package jax --path kubemark`. The map keys
+# a Deployment pod by its name (its ReplicaSet's one worker creates the
+# replicas in order, so the apiserver's name sequence gives each the same
+# name) and a daemon pod by the node its metadata.name term targets (the
+# DaemonSet controller keeps no expectations, so a resync on a stale lister
+# may make a duplicate and delete it again, spending a name). Two runs of
+# the reference on 2026-10-18 gave these same values (two others on a
+# loaded CPU failed their taint gate: the hollow nodes' heartbeats starved).
+JAX_KUBEMARK = {
+    "bound": 1000, "waves": [1000],
+    "bound_sha256":
+        "37ef54957a8da4891b2806ceff88bc1346871ec84bd80328d66d151aeb754049"}
+
+
+def kubemark_labels(i: int) -> dict:
+    return {"kubernetes.io/hostname": f"hollow-node-{i}",
+            ZONE_KEY: f"zone-{i % KUBEMARK_ZONES}"}
+
+
+def web_deployment(replicas: int) -> dict:
+    return {"apiVersion": "apps/v1", "kind": "Deployment",
+            "metadata": {"name": "web", "namespace": "default"},
+            "spec": {"replicas": replicas,
+                     "selector": {"matchLabels": {"app": "web"}},
+                     "template": {
+                         "metadata": {"labels": {"app": "web"}},
+                         "spec": {
+                             "containers": [{
+                                 "name": "web", "image": "nginx",
+                                 "resources": {"requests": {
+                                     "cpu": "100m", "memory": "64Mi"}}}],
+                             "topologySpreadConstraints": [{
+                                 "maxSkew": 1, "topologyKey": ZONE_KEY,
+                                 "whenUnsatisfiable": "DoNotSchedule",
+                                 "labelSelector": {
+                                     "matchLabels": {"app": "web"}}}]}}}}
+
+
+def agent_daemonset() -> dict:
+    return {"apiVersion": "apps/v1", "kind": "DaemonSet",
+            "metadata": {"name": "agent", "namespace": "default"},
+            "spec": {"selector": {"matchLabels": {"app": "agent"}},
+                     "template": {
+                         "metadata": {"labels": {"app": "agent"}},
+                         "spec": {"containers": [{
+                             "name": "agent", "image": "agent",
+                             "resources": {"requests": {
+                                 "cpu": "50m", "memory": "32Mi"}}}]}}}}
+
+
+def daemon_target(pod: dict) -> str:
+    """The node a daemon pod's required metadata.name term names."""
+    terms = (((pod["spec"].get("affinity") or {}).get("nodeAffinity") or {})
+             .get("requiredDuringSchedulingIgnoredDuringExecution") or {}
+             ).get("nodeSelectorTerms") or []
+    for t in terms:
+        for f in t.get("matchFields") or []:
+            if f.get("key") == "metadata.name" and f.get("values"):
+                return f["values"][0]
+    return ""
+
+
+def kubemark_key(pod: dict) -> str:
+    """A pod's key in the bound map: a daemon pod by its target node, any
+    other pod by its name (see JAX_KUBEMARK)."""
+    md = pod["metadata"]
+    if (md.get("labels") or {}).get("app") == "agent":
+        return f"daemon@{daemon_target(pod)}"
+    return f"{md.get('namespace', 'default')}/{md['name']}"
+
+
+class ThreadErrors:
+    """A threading.excepthook that records every exception a thread dies
+    of (a controller, kubelet, informer or scheduler thread), then calls
+    the hook it replaced."""
+
+    def __init__(self):
+        import threading
+
+        self.errors, self._prev = [], threading.excepthook
+
+        def hook(args):
+            self.errors.append(f"{getattr(args.thread, 'name', '?')}: "
+                               f"{args.exc_type.__name__}: {args.exc_value}")
+            self._prev(args)
+
+        threading.excepthook = hook
+
+    def restore(self) -> None:
+        import threading
+
+        threading.excepthook = self._prev
+
+
+class TaintWatch:
+    """A watch pump over the nodes: every taint the node lifecycle
+    controller puts on a node (unreachable, not-ready), with the time it
+    was seen."""
+
+    def __init__(self, client):
+        import threading
+
+        self.tainted = {}  # node -> (taint key, monotonic time)
+        self._w = client.nodes.watch()
+        self._t = threading.Thread(target=self._pump, daemon=True,
+                                   name="taint-watch")
+        self._t.start()
+
+    def _pump(self) -> None:
+        while True:
+            ev = self._w.next(timeout=0.5)
+            if ev is None:
+                if self._w.stopped:
+                    return
+                continue
+            if ev.type == "ERROR":
+                self.tainted["<watch>"] = (str(ev.object), time.monotonic())
+                return
+            for t in (ev.object.get("spec") or {}).get("taints") or []:
+                if t.get("key") in UNHEALTHY_TAINTS:
+                    self.tainted.setdefault(ev.object["metadata"]["name"],
+                                            (t["key"], time.monotonic()))
+
+    def stop(self) -> None:
+        self._w.stop()
+        self._t.join(timeout=5)
+
+
+def _kubemark_wait(cond, what: str, timeout: float = KUBEMARK_TIMEOUT_S,
+                   step: float = 0.25) -> float:
+    t0 = time.perf_counter()
+    deadline = time.monotonic() + timeout
+    while not cond():
+        if time.monotonic() > deadline:
+            fail(f"phase 15: timed out after {timeout:.0f} s waiting for "
+                 f"{what}")
+        time.sleep(step)
+    return time.perf_counter() - t0
+
+
+def kubemark_drive(api, n_nodes: int = None, replicas: int = None,
+                   mark=None) -> dict:
+    """Phase 15's drive on one package: an APIServer and a Client.local; a
+    HollowCluster of `n_nodes` (hostname and zone-{i % 10} labels, the
+    reference's default 8 CPU, 16Gi and 110 pods, heartbeat 5 s,
+    housekeeping 1 s); a ControllerManager with KUBEMARK_CONTROLLERS; the
+    Deployment web (`replicas` of 100m/64Mi, spread with maxSkew 1 over the
+    zones, DoNotSchedule) until its ReplicaSet has created every pod, then
+    the DaemonSet agent (50m/32Mi) until it has one pod per node and no
+    duplicate; only then `mark()` and a SchedulerServer at its defaults,
+    each wave behind wave_barrier, until every pod is bound, Running and
+    Ready and both workloads report it. Every thread exception, every
+    wave that raised and every unhealthy taint is recorded, and every
+    gate of the phase that needs no reference is checked here."""
+    import threading
+
+    n_nodes = KUBEMARK_NODES if n_nodes is None else n_nodes
+    replicas = KUBEMARK_REPLICAS if replicas is None else replicas
+    total = replicas + n_nodes
+    errs = ThreadErrors()
+    srv_api = api.APIServer()
+    hollow = cm = srv = watch = taints = None
+    out = {"nodes": n_nodes, "replicas": replicas}
+    t_phase = time.perf_counter()
+    try:
+        client = api.Client.local(srv_api)
+        t0 = time.perf_counter()
+        hollow = api.HollowCluster(client, n_nodes,
+                                   labels_fn=kubemark_labels,
+                                   heartbeat_interval=5.0,
+                                   housekeeping_interval=1.0).start()
+        out["hollow_start_s"] = time.perf_counter() - t0
+        out["threads"] = threading.active_count()
+        taints = TaintWatch(client)
+        cm = api.ControllerManager(client,
+                                   controllers=KUBEMARK_CONTROLLERS).start()
+
+        def pods(sel: str) -> list:
+            return client.pods.list("default", label_selector=sel)["items"]
+
+        t0 = time.perf_counter()
+        client.deployments.create(web_deployment(replicas))
+        _kubemark_wait(lambda: len(pods("app=web")) >= replicas,
+                       f"the ReplicaSet's {replicas} pods")
+        out["web_create_s"] = time.perf_counter() - t0
+
+        def daemons_settled() -> bool:
+            ds = pods("app=agent")
+            return len(ds) == n_nodes and len(
+                {daemon_target(p) for p in ds}) == n_nodes
+        t1 = time.perf_counter()
+        client.daemonsets.create(agent_daemonset())
+        _kubemark_wait(daemons_settled, f"the DaemonSet's {n_nodes} pods")
+        time.sleep(1.0)  # a duplicate made on a stale lister is deleted
+        _kubemark_wait(daemons_settled, "the DaemonSet to drop duplicates")
+        out["agent_create_s"] = time.perf_counter() - t1
+        out["create_s"] = time.perf_counter() - t0
+        out["creates_per_s"] = total / out["create_s"]
+        if len(pods("app=web")) != replicas:
+            fail(f"phase 15: the ReplicaSet made {len(pods('app=web'))} "
+                 f"pods, not {replicas}")
+
+        watch = BindWatch(client)
+        srv = api.server(client)
+        log = WaveLog(srv.scheduler)
+        wave_barrier(srv, log)
+        if mark is not None:
+            mark()
+        srv.start()
+        _kubemark_wait(lambda: watch.count() >= total,
+                       f"{total} pods bound", step=0.05)
+        srv.wait_until_idle(30)
+        t_bound = max(watch.at.values())
+        out["sched_s"] = t_bound - log.waves[0]["t0"]
+        out["waves"] = [w["scheduled"] for w in log.waves]
+        out["wave_s"] = [w["t1"] - w["t0"] for w in log.waves]
+        # each wave's flight record: readback is the device cycle waited
+        # for, bind-commit the Bindings through the client
+        out["wave_split_s"] = [
+            {p: dt for p, dt in r["phases"]}
+            for r in srv.scheduler.telemetry.recorder.records()
+            if r.get("stats", {}).get("attempted")]
+
+        def all_running() -> bool:
+            items = client.pods.list("default")["items"]
+            return len(items) == total and all(
+                (p.get("status") or {}).get("phase") == "Running" and any(
+                    c.get("type") == "Ready" and c.get("status") == "True"
+                    for c in (p.get("status") or {}).get("conditions") or [])
+                for p in items)
+        _kubemark_wait(all_running, "every pod Running and Ready")
+        out["bind_to_running_s"] = time.monotonic() - t_bound
+
+        def statuses() -> tuple:
+            d = client.deployments.get("web", "default").get("status") or {}
+            a = client.daemonsets.get("agent", "default").get("status") or {}
+            return (d.get("readyReplicas"), d.get("availableReplicas"),
+                    a.get("numberReady"), a.get("desiredNumberScheduled"))
+        want = (replicas, replicas, n_nodes, n_nodes)
+        _kubemark_wait(lambda: statuses() == want,
+                       f"the workloads' statuses {want}")
+        out["statuses"] = statuses()
+        out["phase_s"] = time.perf_counter() - t_phase
+
+        items = client.pods.list("default")["items"]
+        nodes = {n["metadata"]["name"]: n
+                 for n in client.nodes.list("")["items"]}
+        out["bound"] = sum(1 for p in items if p["spec"].get("nodeName"))
+        out["bound_sha256"] = placement_sha256(
+            (kubemark_key(p), p["spec"]["nodeName"]) for p in items)
+        # DaemonSet placement: each on its target, one per node
+        daemons = [p for p in items
+                   if p["metadata"]["labels"].get("app") == "agent"]
+        off = [p["metadata"]["name"] for p in daemons
+               if p["spec"]["nodeName"] != daemon_target(p)]
+        per_node = {}
+        for p in daemons:
+            per_node[p["spec"]["nodeName"]] = \
+                per_node.get(p["spec"]["nodeName"], 0) + 1
+        if off or sorted(per_node) != sorted(nodes) or \
+                set(per_node.values()) != {1}:
+            fail(f"phase 15: DaemonSet placement: {len(off)} daemon pods "
+                 f"off their target node, {len(per_node)} nodes hold one, "
+                 f"counts {sorted(set(per_node.values()))}")
+        # topology spread of the Deployment
+        zones = {}
+        for p in items:
+            if p["metadata"]["labels"].get("app") == "web":
+                z = nodes[p["spec"]["nodeName"]]["metadata"]["labels"][
+                    ZONE_KEY]
+                zones[z] = zones.get(z, 0) + 1
+        out["zone_counts"] = dict(sorted(zones.items()))
+        if len(zones) != min(n_nodes, KUBEMARK_ZONES) or \
+                max(zones.values()) - min(zones.values()) > 1:
+            fail(f"phase 15: the Deployment's zone counts differ by more "
+                 f"than maxSkew 1: {out['zone_counts']}")
+        # no overcommit (the package's own quantity parsers)
+        milli, kib = api.types.parse_cpu_milli, api.types.parse_mem_kib
+        used = {}
+        for p in items:
+            u = used.setdefault(p["spec"]["nodeName"], [0, 0, 0])
+            for c in p["spec"].get("containers") or []:
+                r = (c.get("resources") or {}).get("requests") or {}
+                u[0] += milli(r.get("cpu", 0))
+                u[1] += kib(r.get("memory", 0))
+            u[2] += 1
+        over = []
+        for name, (cpu, mem, n) in used.items():
+            alloc = nodes[name]["status"]["allocatable"]
+            if cpu > milli(alloc["cpu"]) or mem > kib(alloc["memory"]) \
+                    or n > int(alloc["pods"]):
+                over.append((name, cpu, mem, n))
+        if over:
+            fail(f"phase 15: {len(over)} nodes overcommitted: {over[:3]}")
+        out["max_node_pods"] = max(u[2] for u in used.values())
+        if watch.doubles:
+            fail(f"phase 15: double binds {watch.doubles[:5]}")
+        if log.errors:
+            fail(f"phase 15: {len(log.errors)} waves raised: "
+                 f"{log.errors[:3]}")
+        if taints.tainted:
+            renew = {}
+            for name in list(taints.tainted)[:5]:
+                try:
+                    renew[name] = client.leases.get(
+                        name, "kube-node-lease")["spec"].get("renewTime")
+                except Exception as e:  # noqa: BLE001 - reported
+                    renew[name] = repr(e)
+            fail(f"phase 15: the node lifecycle controller tainted "
+                 f"{len(taints.tainted)} hollow nodes: "
+                 f"{dict(list(taints.tainted.items())[:5])}; their last "
+                 f"lease renewals {renew}")
+        out["sync_errors"] = {n: len(c.sync_errors)
+                              for n, c in cm.controllers.items()}
+        return out
+    finally:
+        for x in (srv, cm, hollow, watch, taints):
+            if x is not None:
+                x.stop()
+        srv_api.close()
+        errs.restore()
+        if errs.errors:
+            fail(f"phase 15: {len(errs.errors)} threads raised: "
+                 f"{errs.errors[:3]}")
+
+
+def kubemark_reference(out) -> dict:
+    """What phase 15 holds the port to: the JAX package's run."""
+    return {k: out[k] for k in ("bound", "bound_sha256", "waves")}
+
+
+KUBEMARK_CHILD_TIMEOUT_S = 480.0
+KUBEMARK_RESULT = "kubemark-result: "
+
+
+def kubemark_child() -> int:
+    """`chip_smoke.py --phase 15`: phase 15 alone in this interpreter (the
+    kernels built from the checkout, loaded from build/ where the parent
+    built them), its result on one line after KUBEMARK_RESULT.
+
+    The interpreter ends with os._exit once its output is flushed, not by
+    finalising: threads of the drive that stop() did not join (kubelets,
+    informers) may still run then, and a finalising interpreter under them
+    aborted ("terminate called without an active exception") or crashed
+    after the phase's result was out, which the parent reads as a failed
+    phase."""
+    import os
+    import traceback
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke --phase 15: no CUDA device", file=sys.stderr)
+        return 2
+    from kubernetes_tpu_torch.ops import kernels as K
+
+    os.environ["KTPU_OVERLOAD"] = "0"
+    code = 1
+    try:
+        K.build()
+        km = kubemark_phase(torch.device("cuda", 0), card_line())
+        print(KUBEMARK_RESULT + json.dumps(km))
+        code = 0
+    except SystemExit as e:
+        print(e, file=sys.stderr)
+    except BaseException:  # noqa: BLE001 - printed, then a failed exit
+        traceback.print_exc()
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os._exit(code)
+
+
+def kubemark_subprocess() -> dict:
+    """Phase 15 in an interpreter of its own (`--phase 15`), on the same
+    card, before phases 2-14. Its 1,500 threads share one interpreter lock
+    with everything in their process, and the cores with every process:
+    in this interpreter after phases 1-14 the same drive could not create
+    its pods in 300 s on the card's host, and in a child after them its
+    starved heartbeats let nodes be tainted on a slow host. The child's
+    lines are printed here; its result comes back as JSON."""
+    import os
+
+    r = subprocess.run([sys.executable, os.path.abspath(__file__),
+                        "--phase", "15"], capture_output=True, text=True,
+                       timeout=KUBEMARK_CHILD_TIMEOUT_S)
+    result = None
+    for line in r.stdout.splitlines():
+        if line.startswith(KUBEMARK_RESULT):
+            result = json.loads(line[len(KUBEMARK_RESULT):])
+        else:
+            print(line)
+    if r.returncode != 0 or result is None:
+        sys.stderr.write(r.stderr[-4000:])
+        fail(f"phase 15's interpreter exited {r.returncode}: "
+             f"{r.stderr.strip().splitlines()[-1:] or 'no result'}")
+    return result
+
+
+def kubemark_phase(device, card: str) -> dict:
+    """Phase 15 on the card: kubemark_drive with the port's SchedulerServer
+    on `device`, its map and waves against JAX_KUBEMARK, K1 and K2 launched
+    in its waves and their first launches held against the plain versions.
+    Launch counts set to 0 just before the server starts, read just after
+    the drive."""
+    from kubernetes_tpu_torch.ops import kernels as K
+    from kubernetes_tpu_torch.ops import preempt as OP
+    from kubernetes_tpu_torch.ops import waves as W
+
+    api = port_server_api(device)
+    recs = {}
+
+    def mark():
+        recs["15"] = [Recorder(W, "contention_scan"),
+                      Recorder(W, "domain_rank"),
+                      Recorder(OP, "reprieve_scan")]
+        K.reset_launch_counts()
+
+    try:
+        out = kubemark_drive(api, mark=mark)
+    finally:
+        counts = {"15": K.launch_counts()}
+        for r in recs.get("15", []):
+            r.restore()
+    got = kubemark_reference(out)
+    if got != JAX_KUBEMARK:
+        fail(f"phase 15 differs from JAX_KUBEMARK: {got} != {JAX_KUBEMARK}")
+    if device.type == "cuda" and not all(
+            counts["15"].get(n, 0) for n in WAVE_KERNELS):
+        fail(f"phase 15: K1/K2 not launched: {counts['15']}")
+    errs = server_kernel_check(recs, counts, device)
+    settle(api, "15")
+    if out["phase_s"] > KUBEMARK_BUDGET_S:
+        fail(f"phase 15 took {out['phase_s']:.1f} s, over its "
+             f"{KUBEMARK_BUDGET_S:.0f} s")
+    print(f"  15: {out['nodes']} hollow nodes started in "
+          f"{out['hollow_start_s']:.3f} s ({out['threads']} threads); the "
+          f"controllers created {out['replicas']} + {out['nodes']} pods in "
+          f"{out['create_s']:.3f} s ({out['creates_per_s']:.1f} pods/s; web "
+          f"{out['web_create_s']:.3f} s, agent {out['agent_create_s']:.3f} "
+          f"s) ({card})")
+    split = "; ".join(f"readback {w.get('readback', 0):.3f} s, "
+                      f"bind-commit {w.get('bind-commit', 0):.3f} s"
+                      for w in out["wave_split_s"])
+    print(f"    {out['bound']} bound in waves of {out['waves']} behind the "
+          f"wave barrier ({split}), first wave to last bind "
+          f"{out['sched_s']:.3f} s; "
+          f"last bind to all Running and Ready {out['bind_to_running_s']:.3f}"
+          f" s; phase {out['phase_s']:.3f} s; launches {counts['15']} "
+          f"({card})")
+    print(f"    the map and the waves equal JAX_KUBEMARK; web ready/"
+          f"available and agent ready/desired {out['statuses']}; zones "
+          f"{list(out['zone_counts'].values())}; each daemon pod on its "
+          f"node; no overcommit (at most {out['max_node_pods']} pods a "
+          f"node); no taint, no thread raised; controller sync errors "
+          f"{out['sync_errors']}")
+    return dict(out=out, launches=counts, errs=errs)
+
+
 T_START = time.perf_counter()
 
 
@@ -5592,6 +6095,16 @@ def main() -> int:
             if "registers" in line or "error" in line.lower():
                 print(f"    {name}: {line.strip()}")
 
+    t15 = time.perf_counter()
+    print(f"[15] the kubemark rollout: {KUBEMARK_NODES} hollow nodes "
+          f"(HollowCluster), ControllerManager({KUBEMARK_CONTROLLERS}), "
+          f"Deployment web of {KUBEMARK_REPLICAS} replicas spread over "
+          f"{KUBEMARK_ZONES} zones and DaemonSet agent, placed by "
+          f"SchedulerServer(device='cuda') behind the wave barrier")
+    km = kubemark_subprocess()
+    print(f"    phase 15 {time.perf_counter() - t15:.1f} s (its own "
+          f"interpreter); the script so "
+          f"far {time.perf_counter() - T_START:.1f} s ({card})")
     print("[2] kernels against their plain versions on the card")
     errs = check_kernels(device, *edge_cases(device))
     k3_cases = dict(k3_edge_cases(device))
@@ -5812,6 +6325,12 @@ def main() -> int:
             e[name] for e in dur["errs"].values() if name in e])
     for r in rows:
         name = r["name"]
+        r["kubemark"] = dict(launches=km["launches"]["15"].get(name, 0),
+                             max_abs_err=km["errs"]["15"].get(name))
+        if name in km["errs"]["15"]:
+            r["max_abs_err"] = max(r["max_abs_err"], km["errs"]["15"][name])
+    for r in rows:
+        name = r["name"]
         r["fleet"] = dict(launches=fleet["launches"].get(name, 0),
                           launches_per_tick=[t.get(name, 0) for t in
                                              fleet["launches_per_tick"]],
@@ -5892,6 +6411,7 @@ def main() -> int:
                                              "first_wave_sha256",
                                              "waves_sha256")},
                           "wall_s": dur["wall_s"]},
+                      "kubemark": km["out"],
                       "wall_s": time.perf_counter() - T_START}))
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -5902,4 +6422,5 @@ def main() -> int:
 
 if __name__ == "__main__":
     pin_hash_seed()
-    sys.exit(main())
+    sys.exit(kubemark_child() if sys.argv[1:] == ["--phase", "15"]
+             else main())

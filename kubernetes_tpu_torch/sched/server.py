@@ -42,9 +42,10 @@ Obj = Dict[str, Any]
 
 
 class APIBinder:
-    """Binder over POST pods/{name}/binding (scheduler.go:565). (The JAX
-    package's binder runs BindPodVolumes first when a volume binder is
-    wired; the port has no volume binder yet.)
+    """Binder over POST pods/{name}/binding (scheduler.go:565). When volume
+    binding is wired (`volume_binder`, volume/binder.py, with `pod_lookup`
+    giving the pod's object), BindPodVolumes runs first (scheduler.go:660,
+    517) and a volume failure aborts the pod bind → assume rollback.
 
     Fenced: with a `fence_source` attached (leader election), every Binding
     is stamped with the current lease generation so the apiserver can
@@ -62,7 +63,8 @@ class APIBinder:
     past the budget is the commit breaker's job (sched/overload.py),
     not the binder's."""
 
-    def __init__(self, client, fence_source=None,
+    def __init__(self, client, volume_binder=None, pod_lookup=None,
+                 fence_source=None,
                  fence_lease: str = "",
                  retry_budget: int = 3,
                  retry_base_s: float = 0.05,
@@ -72,6 +74,8 @@ class APIBinder:
         from ..client.rest import RetryPolicy
 
         self.client = client
+        self.volume_binder = volume_binder
+        self.pod_lookup = pod_lookup  # (ns, name) -> dict pod or None
         self.fence_source = fence_source  # () -> int lease generation
         self.fence_lease = fence_lease or DEFAULT_FENCING_LEASE
         self.stale_rejects = 0  # fenced-off binds (the mechanism working)
@@ -90,6 +94,10 @@ class APIBinder:
                                               FENCING_LEASE_ANNOTATION,
                                               FENCING_TOKEN_ANNOTATION)
 
+        if self.volume_binder is not None and self.pod_lookup is not None:
+            obj = self.pod_lookup(pod.namespace, pod.name)
+            if obj is not None and not self.volume_binder.bind(obj, node_name):
+                return False
         annotations = None
         if self.fence_source is not None:
             annotations = {

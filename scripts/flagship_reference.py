@@ -26,6 +26,7 @@ many pods a package places, and a hash of where.
     JAX_PLATFORMS=cpu python3 scripts/flagship_reference.py --package jax \\
         --path fleet [--tenants 24 --nodes 2000 --pods 2000]
         --path scan
+        --path kubemark [--nodes 500 --pods 500]
 
 `--path batch` (the default) runs `BatchScheduler.schedule` of the JAX
 package (`kubernetes_tpu`) or of the PyTorch port (`kubernetes_tpu_torch`)
@@ -109,6 +110,16 @@ hundredth pod pinned by spec.nodeName (the nodeName route to the
 sequential scan), and 13b, port_volume_workload(5000, 5000) under
 KTPU_ASSIGN=scan. It prints each one's scheduled count and the sha256 over
 its assignments — the JAX_SCAN constant.
+
+`--path kubemark` runs chip_smoke.py's phase 15 (`kubemark_drive`): the
+package's APIServer, a HollowCluster of `--nodes` hollow nodes (default
+chip_smoke.KUBEMARK_NODES, labelled with ten zones), a ControllerManager
+with the deployment, replicaset, daemonset and nodelifecycle controllers,
+a Deployment of `--pods` replicas (default chip_smoke.KUBEMARK_REPLICAS)
+spread over the zones and a DaemonSet, created before the package's
+SchedulerServer starts and drains them behind chip_smoke.wave_barrier
+until every pod runs. It prints the bound count, the per-wave counts and
+the sha256 of the bound map (JAX_KUBEMARK) beside the drive's timings.
 
 `--workload gang` is BASELINE config 5 on the batch path: gang_workload_pods
 (jobs of 8 to 64 all-or-nothing members, 2% of them larger than any node);
@@ -195,6 +206,8 @@ def jax_server_api():
     from kubernetes_tpu.apiserver import APIServer, HTTPGateway
     from kubernetes_tpu.client import Client
     from kubernetes_tpu.client.informers import SharedInformer
+    from kubernetes_tpu.controllers import ControllerManager
+    from kubernetes_tpu.kubemark import HollowCluster
     from kubernetes_tpu.machinery import errors
     from kubernetes_tpu.models import workloads
     from kubernetes_tpu.sched.ledger import BindIntentLedger
@@ -226,7 +239,8 @@ def jax_server_api():
         server=server, scheduler=scheduler, made=made,
         ledger=BindIntentLedger, APIBinder=APIBinder,
         SharedInformer=SharedInformer, errors=errors, native=native,
-        wal=wal, faultline=faultline)
+        wal=wal, faultline=faultline, ControllerManager=ControllerManager,
+        HollowCluster=HollowCluster)
 
 
 def jax_fleet_api():
@@ -339,6 +353,26 @@ def server_path(args) -> dict:
             "durable": args.durable, "nodes": args.nodes,
             "pods": args.pods, "server": server,
             "waves": out["waves"], "seconds": time.perf_counter() - t0}
+
+
+def kubemark_path(args) -> dict:
+    """Phase 15 (chip_smoke.kubemark_drive) on the chosen package."""
+    os.environ["KTPU_OVERLOAD"] = "0"
+    import chip_smoke
+
+    if args.package == "jax":
+        api = jax_server_api()
+    else:
+        import torch
+
+        api = chip_smoke.port_server_api(torch.device(args.device))
+    t0 = time.perf_counter()
+    out = chip_smoke.kubemark_drive(api, args.nodes, args.pods)
+    return {"package": args.package, "path": "kubemark",
+            "nodes": args.nodes, "replicas": args.pods,
+            "kubemark": chip_smoke.kubemark_reference(out),
+            "drive": {k: v for k, v in out.items() if k != "bound_sha256"},
+            "seconds": time.perf_counter() - t0}
 
 
 def durable_path(args) -> dict:
@@ -570,7 +604,7 @@ def main() -> int:
     ap.add_argument("--path",
                     choices=("batch", "serving", "preempt", "restart",
                              "framework", "extender", "cosched", "server",
-                             "fleet", "scan", "durable"),
+                             "fleet", "scan", "durable", "kubemark"),
                     default="batch")
     ap.add_argument("--nodes", type=int, default=None,
                     help="default 5,000 (chip_smoke.FLEET_NODES for "
@@ -603,6 +637,11 @@ def main() -> int:
         args.nodes = args.nodes or chip_smoke.FLEET_NODES
         args.pods = args.pods or chip_smoke.FLEET_PODS
         print(json.dumps(fleet_path(args)))
+        return 0
+    if args.path == "kubemark":
+        args.nodes = args.nodes or chip_smoke.KUBEMARK_NODES
+        args.pods = args.pods or chip_smoke.KUBEMARK_REPLICAS
+        print(json.dumps(kubemark_path(args)))
         return 0
     if args.nodes is None:
         args.nodes = 5000

@@ -21,7 +21,15 @@ cleared between the two), and holds the two runs to one outcome:
     fields, other objects into their class name, less the fields that differ
     from run to run (uids, timestamps; VOLATILE);
   * with `files=True`, the files each run left under its tmp_path are
-    equal byte for byte (the WAL segments and snapshots).
+    equal byte for byte (the WAL segments and snapshots);
+  * with `writes=True`, the set of writes the apiserver accepted through
+    a client is equal: every create and Binding of every thread (the
+    case's, the controllers', the kubelets', the scheduler's) and every
+    delete the case made, each as its verb and its path (a create with the
+    name or generateName it asked for), the registry's generated name
+    suffixes and the `scrub` patterns applied (WriteLog). A set, not a
+    sequence: which of two threads writes first, and how often, follows the
+    host's timing in either package.
 
 Everything compared is host code, so no tolerance applies anywhere. The
 tests below hold the helpers themselves to that contract.
@@ -81,20 +89,25 @@ def port_twin(name: str, subs: Sequence[Tuple[str, str]] = ()
 # --------------------------------------------------------------------- #
 
 
-def norm(x, tmp: str = "", scrub: Sequence[Tuple[str, str]] = ()):
+def norm(x, tmp: str = "", scrub: Sequence[Tuple[str, str]] = (),
+         drop: frozenset = frozenset()):
     """`x` as plain data, comparable across the two packages; `tmp` (a run's
     own tmp_path) reads as "<tmp>" inside strings, and each (pattern,
-    replacement) of `scrub` is applied to them (names with a random part)."""
+    replacement) of `scrub` is applied to them (names with a random part).
+    `drop` names more keys and dataclass fields to leave out (clock
+    readings)."""
     def n(v):
-        return norm(v, tmp, scrub)
+        return norm(v, tmp, scrub, drop)
 
     if isinstance(x, dict):
-        return {str(k): n(v) for k, v in x.items() if k not in VOLATILE}
+        return {str(k): n(v) for k, v in x.items()
+                if k not in VOLATILE and k not in drop}
     if isinstance(x, tuple) and hasattr(x, "_fields"):
         return (type(x).__name__, {f: n(getattr(x, f)) for f in x._fields})
     if dataclasses.is_dataclass(x) and not isinstance(x, type):
         return (type(x).__name__, {f.name: n(getattr(x, f.name))
-                                   for f in dataclasses.fields(x)})
+                                   for f in dataclasses.fields(x)
+                                   if f.name not in drop})
     if isinstance(x, (list, tuple)):
         return [n(v) for v in x]
     if isinstance(x, (set, frozenset)):
@@ -139,9 +152,11 @@ class Recorder:
     each outermost call made on the installing thread."""
 
     def __init__(self, pkg: str, paths: Iterable[str], tmp: str = "",
-                 scrub: Sequence[Tuple[str, str]] = ()):
+                 scrub: Sequence[Tuple[str, str]] = (),
+                 drop: Iterable[str] = ()):
         self.pkg, self.paths, self.tmp = pkg, list(paths), tmp
         self.scrub = PORT_SCRUB + list(scrub)
+        self.drop = frozenset(drop)
         self.calls: List[tuple] = []
         self._tid = threading.get_ident()
         self._depth = 0
@@ -169,7 +184,7 @@ class Recorder:
         return wrapper
 
     def norm(self, x):
-        return norm(x, self.tmp, self.scrub)
+        return norm(x, self.tmp, self.scrub, self.drop)
 
     def __enter__(self) -> "Recorder":
         for path in self.paths:
@@ -183,6 +198,75 @@ class Recorder:
     def __exit__(self, *exc) -> None:
         for owner, attr, orig in reversed(self._saved):
             setattr(owner, attr, orig)
+        self._saved.clear()
+
+
+# the apiserver's generated names: generateName + a 5-hex-digit sequence
+# (apiserver/registry.py Store.create)
+GENERATED = [(r"(?<=-)[0-9a-f]{5}(?=/|$)", "<seq>")]
+EVENTS = re.compile(r"/events(/|$)")
+class WriteLog:
+    """Wraps both transports' `request` of one package for one run; keeps
+    the set of writes the apiserver accepted as (verb, path[, name]) keys:
+    every create (POST: objects, Bindings, evictions) of every thread and
+    every delete the installing thread — the case itself — made, less every
+    write to events (event recording is best-effort and its names are
+    random). Updates are not
+    kept, nor the deletes of the controllers', kubelets' and scheduler's
+    threads: whether a status is rewritten once more, a node's heartbeat or
+    lease renewal lands, a case's polling loop marks one more pod Running,
+    or a controller trims a pod it made (a surplus replica, a duplicate
+    daemon pod made on a stale lister, an old revision's pods) before the
+    case ends follows the host's timing in either package (the mirrored
+    files' cases, run repeatedly on the JAX package alone and under load,
+    showed such writes in some runs and not in others, and no create). A
+    refused write (a conflict, a delete of what is gone) changed nothing and
+    is not kept."""
+
+    def __init__(self, pkg: str, scrub: Sequence[Tuple[str, str]] = ()):
+        self.pkg = pkg
+        self.scrub = GENERATED + PORT_SCRUB + list(scrub)
+        self.keys: set = set()
+        self._tid = threading.get_ident()
+        self._saved: List[tuple] = []
+
+    def key(self, method: str, path: str, body) -> Optional[tuple]:
+        own = threading.get_ident() == self._tid
+        if EVENTS.search(path) or not (
+                method == "POST" or (method == "DELETE" and own)):
+            return None
+        if method == "POST" and isinstance(body, dict):
+            md = body.get("metadata") or {}
+            path += "/" + (md.get("name") or
+                           f"{md.get('generateName', '')}<generated>")
+        for pattern, repl in self.scrub:
+            path = re.sub(pattern, repl, path)
+        return method, path
+
+    def _wrap(self, orig):
+        log = self
+
+        def request(transport, method, path, query, body=None, *a, **kw):
+            out = orig(transport, method, path, query, body, *a, **kw)
+            k = log.key(method, path, body)
+            if k is not None:
+                log.keys.add(k)
+            return out
+
+        request.__wrapped__ = orig
+        return request
+
+    def __enter__(self) -> "WriteLog":
+        rest = importlib.import_module(f"{self.pkg}.client.rest")
+        for cls in (rest.LocalTransport, rest.HTTPTransport):
+            orig = cls.__dict__["request"]
+            self._saved.append((cls, orig))
+            cls.request = self._wrap(orig)
+        return self
+
+    def __exit__(self, *exc) -> None:
+        for cls, orig in reversed(self._saved):
+            cls.request = orig
         self._saved.clear()
 
 
@@ -282,9 +366,10 @@ def _cleanup() -> None:
         importlib.import_module(f"{pkg}.utils.faultline").uninstall()
 
 
-def _make_test(ref, twin, cls_name, name, argnames, record, files, scrub):
+def _make_test(ref, twin, cls_name, name, argnames, record, files, scrub,
+               writes=False, drop=()):
     def test(*_self, **kw):
-        calls, trees = {}, {}
+        calls, trees, written = {}, {}, {}
         values = {k: v for k, v in kw.items() if k not in BUILTINS}
         for side, mod in (("jax", ref), ("port", twin)):
             builtins = dict(kw)
@@ -293,15 +378,22 @@ def _make_test(ref, twin, cls_name, name, argnames, record, files, scrub):
                 builtins["tmp_path"].mkdir()
             if "caplog" in kw:
                 kw["caplog"].clear()
+            wlog = WriteLog(PACKAGES[side], scrub)
             try:
                 tmp = str(builtins.get("tmp_path", ""))
-                with Recorder(PACKAGES[side], record, tmp, scrub) as rec:
-                    _run_side(mod, cls_name, name, values, builtins)
+                with Recorder(PACKAGES[side], record, tmp, scrub,
+                              drop) as rec:
+                    if writes:
+                        with wlog:
+                            _run_side(mod, cls_name, name, values, builtins)
+                    else:
+                        _run_side(mod, cls_name, name, values, builtins)
             finally:
                 _cleanup()
                 if "monkeypatch" in kw:
                     kw["monkeypatch"].undo()
             calls[side] = rec.calls
+            written[side] = wlog.keys
             if files:
                 trees[side] = tree_bytes(builtins["tmp_path"])
         assert calls["port"] == calls["jax"], first_difference(
@@ -309,6 +401,11 @@ def _make_test(ref, twin, cls_name, name, argnames, record, files, scrub):
         if files:
             assert trees["port"] == trees["jax"], (
                 sorted(trees["jax"]), sorted(trees["port"]))
+        if writes:
+            assert written["port"] == written["jax"], (
+                "writes only by the JAX package: "
+                f"{sorted(written['jax'] - written['port'])[:8]}; only by "
+                f"the port: {sorted(written['port'] - written['jax'])[:8]}")
 
     params = [inspect.Parameter("self", inspect.Parameter.POSITIONAL_OR_KEYWORD)
               ] if cls_name is not None else []
@@ -322,11 +419,14 @@ def _make_test(ref, twin, cls_name, name, argnames, record, files, scrub):
 
 def mirror(namespace: dict, ref_name: str, record: Sequence[str] = (),
            select=None, subs: Sequence[Tuple[str, str]] = (),
-           files=False, scrub: Sequence[Tuple[str, str]] = ()) -> List[str]:
+           files=False, scrub: Sequence[Tuple[str, str]] = (),
+           writes: bool = False, drop: Sequence[str] = ()) -> List[str]:
     """Put into `namespace` (a test file's globals) one mirrored test for
     each test case of tests/<ref_name>.py that `select(cls_name, name)`
     keeps (all by default). `files` is a bool or a predicate (cls_name,
-    name) -> bool. Returns the node names mirrored."""
+    name) -> bool; `writes` compares the two runs' WriteLog sets; `drop`
+    names keys and dataclass fields the recorded values leave out. Returns
+    the node names mirrored."""
     ref = importlib.import_module(ref_name)
     twin = port_twin(ref_name, subs)
     fx = _fixtures(ref)
@@ -377,7 +477,7 @@ def mirror(namespace: dict, ref_name: str, record: Sequence[str] = (),
             if b not in need:
                 need.append(b)
         test = _make_test(ref, twin, cls_name, name, need, record,
-                          cmp_files, scrub)
+                          cmp_files, scrub, writes, drop)
         test.pytestmark = marks
         if cls_name is None:
             namespace[name] = test

@@ -173,7 +173,28 @@ Phases, each fatal on failure (exit code != 0, no result line):
      daemon pod on its target node, one a node; the spread; no overcommit;
      no unhealthy taint by the node lifecycle controller; no wave and no
      thread raised (a threading.excepthook); K1/K2 launched, their first
-     launches equal to the plain versions; the phase within 150 s.
+     launches equal to the plain versions; the phase within 150 s;
+ 16. (run second, after phase 15) the cluster and the CLI, in an
+     interpreter of its own (`chip_smoke.py --phase 16`; cluster_drive),
+     everything through the port's Cluster and kubectl over the gateway
+     (Client.http): 16a Cluster(ClusterConfig(hollow_nodes=100,
+     device="cuda", controllers=[deployment, replicaset, endpoints,
+     nodelifecycle])) up; 16b kubectl apply of two JSON manifests, the
+     Deployment web (300 replicas of 100m/64Mi, maxSkew 1 over the
+     hostnames, DoNotSchedule) and its ClusterIP Service on port 80, then
+     rollout status: every pod Running and Ready, exactly 3 on each node,
+     no overcommit; 16c the port's Proxier on the cluster's client, synced
+     once: the rule for the Service's (clusterIP, 80) holds exactly the
+     300 pods' ip:port, its /healthz 200; 16d a MetricsServer over the
+     hollow kubelets: kubectl top nodes and pods give 100 and 300 rows;
+     16e upgrade plan and apply to v1.18.0, the restarted SchedulerServer
+     on the card; 16f join 2 nodes (token-only) and kubectl scale to 306:
+     the restarted scheduler binds the 6, exactly 3 on each joined node.
+     Gates: the placements, the rule's size, the top rows, the upgrade
+     phases and the Deployment's status against JAX_CLUSTER; no unhealthy
+     taint, no thread raised; K1/K2 launched, their first launches equal
+     to the plain versions; the phase within 150 s. It prints whether
+     PyYAML and cryptography import on the card's machine.
 
 Prints a `kernels` JSON line, the nvidia-smi name/power line, and last
 `{"ok": true, "device": {...}}`. Imports nothing of JAX.
@@ -3923,12 +3944,18 @@ def port_server_api(device):
     import kubernetes_tpu_torch as ktt
     from kubernetes_tpu_torch.api import types, v1
     from kubernetes_tpu_torch.apiserver import APIServer, HTTPGateway
+    from kubernetes_tpu_torch.cli import Cluster, ClusterConfig
+    from kubernetes_tpu_torch.cli.kubectl import main as kubectl
     from kubernetes_tpu_torch.client import Client
-    from kubernetes_tpu_torch.client.informers import SharedInformer
+    from kubernetes_tpu_torch.client.informers import (InformerFactory,
+                                                       SharedInformer)
+    from kubernetes_tpu_torch.component.metrics_server import MetricsServer
     from kubernetes_tpu_torch.controllers import ControllerManager
     from kubernetes_tpu_torch.kubemark import HollowCluster
     from kubernetes_tpu_torch.machinery import errors
     from kubernetes_tpu_torch.models import workloads
+    from kubernetes_tpu_torch.proxy import Proxier
+    from kubernetes_tpu_torch.proxy.healthcheck import ProxierHealthServer
     from kubernetes_tpu_torch.sched.ledger import BindIntentLedger
     from kubernetes_tpu_torch.sched.server import APIBinder, SchedulerServer
     from kubernetes_tpu_torch.state.dims import Dims, bucket
@@ -3936,6 +3963,9 @@ def port_server_api(device):
     from kubernetes_tpu_torch.utils import faultline
 
     made = []
+
+    def cluster_config(**kw):
+        return ClusterConfig(device=device.type, **kw)
 
     def server(client, **kw):
         srv = SchedulerServer(client, device=device, **kw)
@@ -3956,7 +3986,10 @@ def port_server_api(device):
         ledger=BindIntentLedger, APIBinder=APIBinder,
         SharedInformer=SharedInformer, errors=errors, native=native,
         wal=wal, faultline=faultline, ControllerManager=ControllerManager,
-        HollowCluster=HollowCluster)
+        HollowCluster=HollowCluster, Cluster=Cluster,
+        cluster_config=cluster_config, kubectl=kubectl, Proxier=Proxier,
+        ProxierHealthServer=ProxierHealthServer,
+        InformerFactory=InformerFactory, MetricsServer=MetricsServer)
 
 
 class BindWatch:
@@ -5886,25 +5919,10 @@ def kubemark_drive(api, n_nodes: int = None, replicas: int = None,
                 max(zones.values()) - min(zones.values()) > 1:
             fail(f"phase 15: the Deployment's zone counts differ by more "
                  f"than maxSkew 1: {out['zone_counts']}")
-        # no overcommit (the package's own quantity parsers)
-        milli, kib = api.types.parse_cpu_milli, api.types.parse_mem_kib
-        used = {}
-        for p in items:
-            u = used.setdefault(p["spec"]["nodeName"], [0, 0, 0])
-            for c in p["spec"].get("containers") or []:
-                r = (c.get("resources") or {}).get("requests") or {}
-                u[0] += milli(r.get("cpu", 0))
-                u[1] += kib(r.get("memory", 0))
-            u[2] += 1
-        over = []
-        for name, (cpu, mem, n) in used.items():
-            alloc = nodes[name]["status"]["allocatable"]
-            if cpu > milli(alloc["cpu"]) or mem > kib(alloc["memory"]) \
-                    or n > int(alloc["pods"]):
-                over.append((name, cpu, mem, n))
+        over, held = overcommitted(api, items, nodes)
         if over:
             fail(f"phase 15: {len(over)} nodes overcommitted: {over[:3]}")
-        out["max_node_pods"] = max(u[2] for u in used.values())
+        out["max_node_pods"] = max(held.values())
         if watch.doubles:
             fail(f"phase 15: double binds {watch.doubles[:5]}")
         if log.errors:
@@ -5941,14 +5959,14 @@ def kubemark_reference(out) -> dict:
     return {k: out[k] for k in ("bound", "bound_sha256", "waves")}
 
 
-KUBEMARK_CHILD_TIMEOUT_S = 480.0
-KUBEMARK_RESULT = "kubemark-result: "
+PHASE_CHILD_TIMEOUT_S = {"15": 480.0, "16": 420.0}
+PHASE_RESULT = "phase-result: "
 
 
-def kubemark_child() -> int:
-    """`chip_smoke.py --phase 15`: phase 15 alone in this interpreter (the
-    kernels built from the checkout, loaded from build/ where the parent
-    built them), its result on one line after KUBEMARK_RESULT.
+def phase_child(phase: str) -> int:
+    """`chip_smoke.py --phase 15|16`: that phase alone in this interpreter
+    (the kernels built from the checkout, loaded from build/ where the
+    parent built them), its result on one line after PHASE_RESULT.
 
     The interpreter ends with os._exit once its output is flushed, not by
     finalising: threads of the drive that stop() did not join (kubelets,
@@ -5962,16 +5980,17 @@ def kubemark_child() -> int:
     import torch
 
     if not torch.cuda.is_available():
-        print("chip_smoke --phase 15: no CUDA device", file=sys.stderr)
+        print(f"chip_smoke --phase {phase}: no CUDA device", file=sys.stderr)
         return 2
     from kubernetes_tpu_torch.ops import kernels as K
 
     os.environ["KTPU_OVERLOAD"] = "0"
+    run = {"15": kubemark_phase, "16": cluster_phase}[phase]
     code = 1
     try:
         K.build()
-        km = kubemark_phase(torch.device("cuda", 0), card_line())
-        print(KUBEMARK_RESULT + json.dumps(km))
+        out = run(torch.device("cuda", 0), card_line())
+        print(PHASE_RESULT + json.dumps(out))
         code = 0
     except SystemExit as e:
         print(e, file=sys.stderr)
@@ -5982,28 +6001,28 @@ def kubemark_child() -> int:
     os._exit(code)
 
 
-def kubemark_subprocess() -> dict:
-    """Phase 15 in an interpreter of its own (`--phase 15`), on the same
-    card, before phases 2-14. Its 1,500 threads share one interpreter lock
-    with everything in their process, and the cores with every process:
-    in this interpreter after phases 1-14 the same drive could not create
-    its pods in 300 s on the card's host, and in a child after them its
-    starved heartbeats let nodes be tainted on a slow host. The child's
-    lines are printed here; its result comes back as JSON."""
+def phase_subprocess(phase: str) -> dict:
+    """Phase 15 or 16 in an interpreter of its own (`--phase N`), on the
+    same card, before phases 2-14. Their hundreds of threads share one
+    interpreter lock with everything in their process, and the cores with
+    every process: in this interpreter after phases 1-14 phase 15's drive
+    could not create its pods in 300 s on the card's host, and in a child
+    after them its starved heartbeats let nodes be tainted on a slow host.
+    The child's lines are printed here; its result comes back as JSON."""
     import os
 
     r = subprocess.run([sys.executable, os.path.abspath(__file__),
-                        "--phase", "15"], capture_output=True, text=True,
-                       timeout=KUBEMARK_CHILD_TIMEOUT_S)
+                        "--phase", phase], capture_output=True, text=True,
+                       timeout=PHASE_CHILD_TIMEOUT_S[phase])
     result = None
     for line in r.stdout.splitlines():
-        if line.startswith(KUBEMARK_RESULT):
-            result = json.loads(line[len(KUBEMARK_RESULT):])
+        if line.startswith(PHASE_RESULT):
+            result = json.loads(line[len(PHASE_RESULT):])
         else:
             print(line)
     if r.returncode != 0 or result is None:
         sys.stderr.write(r.stderr[-4000:])
-        fail(f"phase 15's interpreter exited {r.returncode}: "
+        fail(f"phase {phase}'s interpreter exited {r.returncode}: "
              f"{r.stderr.strip().splitlines()[-1:] or 'no result'}")
     return result
 
@@ -6068,6 +6087,435 @@ def kubemark_phase(device, card: str) -> dict:
     return dict(out=out, launches=counts, errs=errs)
 
 
+# --------------------------------------------------------------------------- #
+# phase 16: a cluster stood up by Cluster and driven by kubectl
+# --------------------------------------------------------------------------- #
+
+CLUSTER_NODES, CLUSTER_REPLICAS, CLUSTER_JOIN = 100, 300, 2
+CLUSTER_CONTROLLERS = ["deployment", "replicaset", "endpoints",
+                       "nodelifecycle"]
+CLUSTER_TIMEOUT_S = 120.0  # the longest any one stage may wait
+CLUSTER_BUDGET_S = 150.0   # the phase's whole time on the card
+CLUSTER_UPGRADE_TO = "v1.18.0"
+HOSTNAME_KEY = "kubernetes.io/hostname"
+
+# The JAX package's run of cluster_drive (Cluster with 100 hollow nodes and
+# CLUSTER_CONTROLLERS, kubectl apply of web and its Service, the proxier,
+# the metrics server and kubectl top, upgrade plan/apply to v1.18.0, join 2
+# and kubectl scale to 306; JAX 0.9.0 on the CPU): everything in it is
+# timing-free. Reproduce with `JAX_PLATFORMS=cpu python3
+# scripts/flagship_reference.py --package jax --path cluster`. Three runs
+# on 2026-10-18 gave these values; a fourth lost a hollow kubelet's
+# heartbeat thread to a connection reset (ROADMAP §C, C6).
+JAX_CLUSTER = {
+    "per_node_16b": {
+        "nodes_by_count": {"3": 100},
+        "sha256":
+            "d485885aabe58c4c813eac22fc25dfe49cd818a339367dd005a540e38c1e1961"},
+    "per_node_16f": {
+        "nodes_by_count": {"3": 102},
+        "sha256":
+            "fabf20aaab9c0b74230fdde007ef4d34bfc064dd1868694d8f9ba910cac33db6"},
+    "joined": {"joined-node-b0-0": 3, "joined-node-b0-1": 3},
+    "endpoints": 300, "top_rows": {"nodes": 100, "pods": 300},
+    "upgrade_phases": ["preflight", "config", "control-plane/scheduler",
+                       "control-plane/controller-manager", "upload-config",
+                       "health"],
+    "apply": ["deployment/web created", "service/web created"],
+    "status_16b": {"availableReplicas": 300, "observedGeneration": 1,
+                   "readyReplicas": 300, "replicas": 300,
+                   "updatedReplicas": 300, "conditions": []},
+    "status_16f": {"availableReplicas": 306, "observedGeneration": 1,
+                   "readyReplicas": 306, "replicas": 306,
+                   "updatedReplicas": 306, "conditions": []}}
+
+
+def cluster_manifests(replicas: int) -> dict:
+    """Phase 16's two JSON manifests: the Deployment web (100m/64Mi, spread
+    with maxSkew 1 over the nodes' hostnames, DoNotSchedule) and its
+    ClusterIP Service on port 80."""
+    deploy = {
+        "apiVersion": "apps/v1", "kind": "Deployment",
+        "metadata": {"name": "web", "namespace": "default"},
+        "spec": {"replicas": replicas,
+                 "selector": {"matchLabels": {"app": "web"}},
+                 "template": {
+                     "metadata": {"labels": {"app": "web"}},
+                     "spec": {
+                         "containers": [{
+                             "name": "web", "image": "nginx",
+                             "ports": [{"containerPort": 80}],
+                             "resources": {"requests": {
+                                 "cpu": "100m", "memory": "64Mi"}}}],
+                         "topologySpreadConstraints": [{
+                             "maxSkew": 1, "topologyKey": HOSTNAME_KEY,
+                             "whenUnsatisfiable": "DoNotSchedule",
+                             "labelSelector": {
+                                 "matchLabels": {"app": "web"}}}]}}}}
+    service = {
+        "apiVersion": "v1", "kind": "Service",
+        "metadata": {"name": "web", "namespace": "default"},
+        "spec": {"type": "ClusterIP", "selector": {"app": "web"},
+                 "ports": [{"name": "http", "port": 80}]}}
+    return {"deploy.json": deploy, "service.json": service}
+
+
+def overcommitted(api, items, nodes) -> list:
+    """The nodes whose bound pods request more CPU, memory or pods than the
+    node allocates (the package's own quantity parsers), and per node the
+    pods it holds."""
+    milli, kib = api.types.parse_cpu_milli, api.types.parse_mem_kib
+    used = {}
+    for p in items:
+        u = used.setdefault(p["spec"]["nodeName"], [0, 0, 0])
+        for c in p["spec"].get("containers") or []:
+            r = (c.get("resources") or {}).get("requests") or {}
+            u[0] += milli(r.get("cpu", 0))
+            u[1] += kib(r.get("memory", 0))
+        u[2] += 1
+    over = []
+    for name, (cpu, mem, n) in used.items():
+        alloc = nodes[name]["status"]["allocatable"]
+        if cpu > milli(alloc["cpu"]) or mem > kib(alloc["memory"]) \
+                or n > int(alloc["pods"]):
+            over.append((name, cpu, mem, n))
+    return over, {name: u[2] for name, u in used.items()}
+
+
+def deployment_status(client) -> dict:
+    """The Deployment web's status less what follows the clock: its
+    conditions as (type, status, reason)."""
+    st = dict(client.deployments.get("web", "default").get("status") or {})
+    st["conditions"] = sorted([c.get("type"), c.get("status"), c.get("reason")]
+                              for c in st.get("conditions") or [])
+    return st
+
+
+def _cluster_wait(cond, what: str, timeout: float = CLUSTER_TIMEOUT_S,
+                  step: float = 0.1) -> float:
+    t0 = time.perf_counter()
+    deadline = time.monotonic() + timeout
+    while not cond():
+        if time.monotonic() > deadline:
+            fail(f"phase 16: timed out after {timeout:.0f} s waiting for "
+                 f"{what}")
+        time.sleep(step)
+    return time.perf_counter() - t0
+
+
+def cluster_drive(api, workdir: str, n_nodes: int = None,
+                  replicas: int = None, mark=None) -> dict:
+    """Phase 16's drive on one package, through its Cluster and kubectl
+    over the gateway (Client.http): 16a Cluster(hollow_nodes=n_nodes,
+    controllers=CLUSTER_CONTROLLERS) up; 16b kubectl apply of the two JSON
+    manifests (written under `workdir`) and rollout status, until every
+    pod runs, exactly replicas/n_nodes on each node; 16c a Proxier on the
+    cluster's client, synced once, its rule for the Service against the
+    pods' ip:port, and its /healthz; 16d a MetricsServer over the hollow
+    kubelets and kubectl top nodes and pods; 16e upgrade plan and apply to
+    CLUSTER_UPGRADE_TO; 16f join CLUSTER_JOIN nodes (token-only: no CSR
+    controller) and kubectl scale by 3 a joined node, placed by the
+    restarted scheduler. `mark()` runs just before the cluster comes up.
+    Every thread exception and every unhealthy taint fails the phase, as
+    does any gate that needs no reference."""
+    import io
+    import os
+    import threading
+    import urllib.request
+
+    n_nodes = CLUSTER_NODES if n_nodes is None else n_nodes
+    replicas = CLUSTER_REPLICAS if replicas is None else replicas
+    per_node = replicas // n_nodes
+    scaled = replicas + per_node * CLUSTER_JOIN
+    errs = ThreadErrors()
+    cluster = taints = factory = hz = ms = None
+    out = {"nodes": n_nodes, "replicas": replicas, "join": CLUSTER_JOIN}
+    t_phase = time.perf_counter()
+    try:
+        if mark is not None:
+            mark()
+        t0 = time.perf_counter()
+        cluster = api.Cluster(api.cluster_config(
+            hollow_nodes=n_nodes, controllers=list(CLUSTER_CONTROLLERS))).up()
+        out["up_s"] = time.perf_counter() - t0
+        out["threads"] = threading.active_count()
+        api.made.append(cluster.scheduler.scheduler)
+        client = cluster.client
+        taints = TaintWatch(client)
+
+        def kubectl(*argv) -> str:
+            o, e = io.StringIO(), io.StringIO()
+            rc = api.kubectl(["-s", cluster.url, *argv], out=o, err=e)
+            if rc != 0:
+                fail(f"phase 16: kubectl {' '.join(argv)} exited {rc}: "
+                     f"{e.getvalue().strip()}")
+            return o.getvalue()
+
+        def ready_nodes() -> set:
+            return {n["metadata"]["name"]
+                    for n in client.nodes.list("")["items"]
+                    if any(c.get("type") == "Ready" and c.get("status") ==
+                           "True" for c in (n.get("status") or {}).get(
+                               "conditions") or [])}
+
+        out["nodes_ready_s"] = _cluster_wait(
+            lambda: len(ready_nodes()) >= n_nodes, f"{n_nodes} nodes Ready")
+
+        def web_pods() -> list:
+            return client.pods.list("default",
+                                    label_selector="app=web")["items"]
+
+        def all_running(want: int) -> bool:
+            items = web_pods()
+            return len(items) == want and all(
+                (p.get("status") or {}).get("phase") == "Running" and any(
+                    c.get("type") == "Ready" and c.get("status") == "True"
+                    for c in (p.get("status") or {}).get("conditions") or [])
+                for p in items)
+
+        def placement(want: int, nodes_want: int, what: str) -> dict:
+            items = web_pods()
+            nodes = {n["metadata"]["name"]: n
+                     for n in client.nodes.list("")["items"]}
+            over, held = overcommitted(api, items, nodes)
+            if over:
+                fail(f"phase 16: {len(over)} nodes overcommitted {what}: "
+                     f"{over[:3]}")
+            if len(items) != want or len(nodes) != nodes_want or \
+                    sorted(held) != sorted(nodes) or \
+                    set(held.values()) != {per_node}:
+                fail(f"phase 16: {what}, {len(items)} pods on "
+                     f"{len(held)} of {len(nodes)} nodes, per node "
+                     f"{sorted(set(held.values()))}, not exactly "
+                     f"{per_node} on each (nodes tainted unhealthy: "
+                     f"{dict(list(taints.tainted.items())[:5])}; threads "
+                     f"raised: {errs.errors[:3]})")
+            return dict(sorted(held.items()))
+
+        # 16b: kubectl apply of the JSON manifests, then rollout status
+        paths = []
+        for name, obj in cluster_manifests(replicas).items():
+            path = os.path.join(workdir, name)
+            with open(path, "w") as f:
+                json.dump(obj, f)
+            paths.append(path)
+        t0 = time.perf_counter()
+        out["apply"] = [kubectl("apply", "-f", path).strip()
+                        for path in paths]
+        kubectl("rollout", "status", "deployment/web", "--timeout",
+                f"{CLUSTER_TIMEOUT_S:g}")
+        out["rollout_s"] = time.perf_counter() - t0
+        _cluster_wait(lambda: all_running(replicas),
+                      f"{replicas} pods Running and Ready")
+        out["running_s"] = time.perf_counter() - t0
+        out["per_node_16b"] = placement(replicas, n_nodes, "after 16b")
+        out["status_16b"] = deployment_status(client)
+
+        # 16c: the proxier's rule for the Service, synced once
+        t0 = time.perf_counter()
+
+        def endpoints_ready() -> int:
+            try:
+                ep = client.endpoints.get("web", "default")
+            except api.errors.StatusError:
+                return 0
+            return sum(len(ss.get("addresses") or [])
+                       for ss in ep.get("subsets") or [])
+        _cluster_wait(lambda: endpoints_ready() == replicas,
+                      f"the Endpoints of web to list {replicas} addresses")
+        factory = api.InformerFactory(client)
+        hz = api.ProxierHealthServer().start()
+        proxier = api.Proxier(client, factory, healthz=hz)
+        factory.start()
+        factory.wait_for_sync()
+        out["synced_services"] = proxier.sync()
+        vip = client.services.get("web", "default")["spec"]["clusterIP"]
+        key = proxier.table.by_vip.get((vip, 80))
+        rule = sorted(proxier.table.by_port[key].endpoints) if key else []
+        want = sorted(f"{p['status']['podIP']}:80" for p in web_pods())
+        if rule != want:
+            fail(f"phase 16: the rule for {vip}:80 holds {len(rule)} "
+                 f"endpoints, not the {len(want)} pods' ip:port")
+        out["endpoints"] = len(rule)
+        out["distinct_pod_ips"] = len(set(rule))
+        with urllib.request.urlopen(
+                f"http://127.0.0.1:{hz.port}/healthz", timeout=10) as r:
+            out["healthz"] = r.status
+        if out["healthz"] != 200:
+            fail(f"phase 16: the proxier's /healthz answered {r.status}")
+        out["proxy_s"] = time.perf_counter() - t0
+
+        # 16d: the metrics server over the hollow kubelets, kubectl top
+        t0 = time.perf_counter()
+        ms = api.MetricsServer(client, kubelets=cluster.hollow.kubelets)
+        ms.install()
+        ms.scrape_once()
+        out["top_rows"] = {
+            kind: len(kubectl("top", kind).splitlines()) - 1
+            for kind in ("nodes", "pods")}
+        if out["top_rows"] != {"nodes": n_nodes, "pods": replicas}:
+            fail(f"phase 16: kubectl top rows {out['top_rows']}")
+        out["top_s"] = time.perf_counter() - t0
+
+        # 16e: upgrade plan and apply; the scheduler restarts
+        t0 = time.perf_counter()
+        plan = cluster.upgrade_plan(CLUSTER_UPGRADE_TO)
+        if not plan["canUpgrade"]:
+            fail(f"phase 16: upgrade plan refused: {plan['reason']}")
+        first = cluster.scheduler
+        out["upgrade_phases"] = cluster.upgrade_apply(
+            CLUSTER_UPGRADE_TO)["phases"]
+        if cluster.scheduler is first:
+            fail("phase 16: upgrade_apply kept the old scheduler")
+        api.made.append(cluster.scheduler.scheduler)
+        out["restarted_device"] = str(getattr(
+            cluster.scheduler.scheduler, "device", "jax"))
+        out["version"] = cluster.current_version()
+        out["upgrade_s"] = time.perf_counter() - t0
+
+        # 16f: join, then kubectl scale; the restarted scheduler places
+        t0 = time.perf_counter()
+        joined = cluster.join(CLUSTER_JOIN)
+        names = [k.node_name for k in joined.kubelets]
+        _cluster_wait(lambda: set(names) <= ready_nodes(),
+                      f"the joined nodes {names} Ready")
+        kubectl("scale", "deployment/web", "--replicas", str(scaled))
+        kubectl("rollout", "status", "deployment/web", "--timeout",
+                f"{CLUSTER_TIMEOUT_S:g}")
+        _cluster_wait(lambda: all_running(scaled),
+                      f"{scaled} pods Running and Ready")
+        out["scale_s"] = time.perf_counter() - t0
+        out["per_node_16f"] = placement(scaled, n_nodes + CLUSTER_JOIN,
+                                        "after 16f")
+        out["joined"] = {n: out["per_node_16f"][n] for n in names}
+        out["restarted_scheduled"] = sum(
+            (r.get("stats") or {}).get("scheduled", 0) for r in
+            cluster.scheduler.scheduler.telemetry.recorder.records())
+        if out["restarted_scheduled"] != scaled - replicas:
+            fail(f"phase 16: the restarted scheduler bound "
+                 f"{out['restarted_scheduled']} pods, not "
+                 f"{scaled - replicas}")
+        out["status_16f"] = deployment_status(client)
+        out["phase_s"] = time.perf_counter() - t_phase
+        if taints.tainted:
+            fail(f"phase 16: the node lifecycle controller tainted "
+                 f"{len(taints.tainted)} hollow nodes: "
+                 f"{dict(list(taints.tainted.items())[:5])}")
+        out["sync_errors"] = {n: len(c.sync_errors)
+                              for n, c in cluster.manager.controllers.items()}
+        return out
+    finally:
+        for x in (ms, hz, taints):
+            if x is not None:
+                x.stop()
+        if factory is not None:
+            factory.stop()
+        if cluster is not None:
+            cluster.down()
+        errs.restore()
+        if errs.errors:
+            fail(f"phase 16: {len(errs.errors)} threads raised: "
+                 f"{errs.errors[:3]}")
+
+
+def cluster_reference(out) -> dict:
+    """What phase 16 holds the port to: the JAX package's run, all of it
+    timing-free."""
+    def counts(held):
+        hist = {}
+        for n in held.values():
+            hist[str(n)] = hist.get(str(n), 0) + 1
+        return {"nodes_by_count": dict(sorted(hist.items())),
+                "sha256": placement_sha256(
+                    (k, str(v)) for k, v in held.items())}
+    return json.loads(json.dumps({
+        "per_node_16b": counts(out["per_node_16b"]),
+        "per_node_16f": counts(out["per_node_16f"]),
+        "joined": out["joined"], "endpoints": out["endpoints"],
+        "top_rows": out["top_rows"], "upgrade_phases": out["upgrade_phases"],
+        "apply": out["apply"], "status_16b": out["status_16b"],
+        "status_16f": out["status_16f"]}))
+
+
+def cluster_phase(device, card: str) -> dict:
+    """Phase 16 on the card: cluster_drive with the port's Cluster on
+    `device` (its scheduler, and the one upgrade_apply restarts), held
+    against JAX_CLUSTER; K1 and K2 launched in its waves, their first
+    launches held against the plain versions. Launch counts set to 0 just
+    before the cluster comes up, read just after the drive."""
+    import tempfile
+
+    from kubernetes_tpu_torch.ops import kernels as K
+    from kubernetes_tpu_torch.ops import preempt as OP
+    from kubernetes_tpu_torch.ops import waves as W
+
+    have = {}
+    for mod in ("yaml", "cryptography"):
+        try:
+            __import__(mod)
+            have[mod] = "yes"
+        except ImportError:
+            have[mod] = "no"
+    print(f"  16: import yaml: {have['yaml']}; import cryptography: "
+          f"{have['cryptography']} (joins are token-only: no CSR "
+          f"controller runs)")
+    api = port_server_api(device)
+    recs = {}
+
+    def mark():
+        recs["16"] = [Recorder(W, "contention_scan"),
+                      Recorder(W, "domain_rank"),
+                      Recorder(OP, "reprieve_scan")]
+        K.reset_launch_counts()
+
+    try:
+        with tempfile.TemporaryDirectory() as workdir:
+            out = cluster_drive(api, workdir, mark=mark)
+    finally:
+        counts = {"16": K.launch_counts()}
+        for r in recs.get("16", []):
+            r.restore()
+    got = cluster_reference(out)
+    if got != JAX_CLUSTER:
+        fail(f"phase 16 differs from JAX_CLUSTER: {got} != {JAX_CLUSTER}")
+    if out["restarted_device"] != str(device.type):
+        fail(f"phase 16: the restarted scheduler runs on "
+             f"{out['restarted_device']}, not {device.type}")
+    if device.type == "cuda" and not all(
+            counts["16"].get(n, 0) for n in WAVE_KERNELS):
+        fail(f"phase 16: K1/K2 not launched: {counts['16']}")
+    errs = server_kernel_check(recs, counts, device)
+    settle(api, "16")
+    if out["phase_s"] > CLUSTER_BUDGET_S:
+        fail(f"phase 16 took {out['phase_s']:.1f} s, over its "
+             f"{CLUSTER_BUDGET_S:.0f} s")
+    print(f"  16a: Cluster up in {out['up_s']:.3f} s ({out['threads']} "
+          f"threads), {out['nodes']} hollow nodes Ready "
+          f"{out['nodes_ready_s']:.3f} s later ({card})")
+    print(f"  16b: kubectl apply {out['apply']}; rollout status "
+          f"{out['rollout_s']:.3f} s, all {out['replicas']} Running and "
+          f"Ready {out['running_s']:.3f} s after the apply; "
+          f"{out['replicas'] // out['nodes']} on every node; no overcommit")
+    print(f"  16c: the rule for web's VIP:80 holds the {out['endpoints']} "
+          f"pods' ip:port ({out['distinct_pod_ips']} distinct: each hollow "
+          f"node's FakeCRI numbers its own sandboxes); /healthz "
+          f"{out['healthz']}; {out['proxy_s']:.3f} s")
+    print(f"  16d: kubectl top rows {out['top_rows']} in "
+          f"{out['top_s']:.3f} s")
+    print(f"  16e: upgrade to {out['version']}: {out['upgrade_phases']}; "
+          f"the restarted scheduler on {out['restarted_device']}; "
+          f"{out['upgrade_s']:.3f} s")
+    print(f"  16f: joined {out['joined']} (pods each), scaled to "
+          f"{sum(out['per_node_16f'].values())}, the restarted scheduler "
+          f"bound {out['restarted_scheduled']}; {out['scale_s']:.3f} s; "
+          f"phase {out['phase_s']:.3f} s; launches {counts['16']}; no taint, "
+          f"no thread raised; controller sync errors {out['sync_errors']} "
+          f"({card})")
+    print("    the placements, the rule, the top rows, the upgrade phases "
+          "and the Deployment's status equal JAX_CLUSTER")
+    return dict(out=out, launches=counts, errs=errs)
+
+
 T_START = time.perf_counter()
 
 
@@ -6101,8 +6549,20 @@ def main() -> int:
           f"Deployment web of {KUBEMARK_REPLICAS} replicas spread over "
           f"{KUBEMARK_ZONES} zones and DaemonSet agent, placed by "
           f"SchedulerServer(device='cuda') behind the wave barrier")
-    km = kubemark_subprocess()
+    km = phase_subprocess("15")
     print(f"    phase 15 {time.perf_counter() - t15:.1f} s (its own "
+          f"interpreter); the script so "
+          f"far {time.perf_counter() - T_START:.1f} s ({card})")
+    t16 = time.perf_counter()
+    print(f"[16] the cluster and the CLI: Cluster(ClusterConfig("
+          f"hollow_nodes={CLUSTER_NODES}, device='cuda', controllers="
+          f"{CLUSTER_CONTROLLERS})), kubectl apply of the Deployment web "
+          f"({CLUSTER_REPLICAS} replicas spread with maxSkew 1 over the "
+          f"hostnames) and its Service as JSON manifests, the proxier, the "
+          f"metrics server and kubectl top, upgrade to "
+          f"{CLUSTER_UPGRADE_TO}, join {CLUSTER_JOIN} and kubectl scale")
+    cl = phase_subprocess("16")
+    print(f"    phase 16 {time.perf_counter() - t16:.1f} s (its own "
           f"interpreter); the script so "
           f"far {time.perf_counter() - T_START:.1f} s ({card})")
     print("[2] kernels against their plain versions on the card")
@@ -6325,10 +6785,12 @@ def main() -> int:
             e[name] for e in dur["errs"].values() if name in e])
     for r in rows:
         name = r["name"]
-        r["kubemark"] = dict(launches=km["launches"]["15"].get(name, 0),
-                             max_abs_err=km["errs"]["15"].get(name))
-        if name in km["errs"]["15"]:
-            r["max_abs_err"] = max(r["max_abs_err"], km["errs"]["15"][name])
+        for key, ph, res in (("kubemark", "15", km), ("cluster", "16", cl)):
+            r[key] = dict(launches=res["launches"][ph].get(name, 0),
+                          max_abs_err=res["errs"][ph].get(name))
+            if name in res["errs"][ph]:
+                r["max_abs_err"] = max(r["max_abs_err"],
+                                       res["errs"][ph][name])
     for r in rows:
         name = r["name"]
         r["fleet"] = dict(launches=fleet["launches"].get(name, 0),
@@ -6412,6 +6874,8 @@ def main() -> int:
                                              "waves_sha256")},
                           "wall_s": dur["wall_s"]},
                       "kubemark": km["out"],
+                      "cluster": {k: v for k, v in cl["out"].items()
+                                  if not k.startswith("per_node")},
                       "wall_s": time.perf_counter() - T_START}))
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -6422,5 +6886,6 @@ def main() -> int:
 
 if __name__ == "__main__":
     pin_hash_seed()
-    sys.exit(kubemark_child() if sys.argv[1:] == ["--phase", "15"]
-             else main())
+    if sys.argv[1:2] == ["--phase"] and sys.argv[2:] in (["15"], ["16"]):
+        sys.exit(phase_child(sys.argv[2]))
+    sys.exit(main())

@@ -1035,6 +1035,10 @@ class _Handler(BaseHTTPRequestHandler):
 class _ThreadingHTTPServer(socketserver.ThreadingMixIn, socketserver.TCPServer):
     daemon_threads = True
     allow_reuse_address = True
+    # the listen backlog: socketserver's 5 overflowed under a hundred hollow
+    # kubelets' heartbeats and watches, and a client saw its connection
+    # reset (ROADMAP §C, C6; the JAX package's gateway keeps 5)
+    request_queue_size = 1024
 
 
 class HTTPGateway:

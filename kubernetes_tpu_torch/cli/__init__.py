@@ -1,4 +1,13 @@
-"""The CLI's parts the apiserver serves from (a copy of the JAX package's
-cli/explain.py: the field-documentation tree /openapi/v2 is built from).
-The JAX package's cli/cluster.py (the cluster bootstrap), cli/kubectl.py
-and cli/__main__.py are not ported yet (ROADMAP A17)."""
+"""CLI + cluster bootstrap.
+
+The port's copy of the JAX package's cli/: analog of SURVEY.md layer 10
+(`staging/src/k8s.io/kubectl`, `cmd/kubeadm`). `Cluster` stands the
+control plane up in one process; its scheduler runs on the card unless
+`ClusterConfig(device="cpu")` names the CPU. explain.py holds the
+field-documentation tree /openapi/v2 is built from.
+"""
+
+from ..cli.cluster import Cluster, ClusterConfig
+from ..cli.kubectl import Kubectl, main
+
+__all__ = ["Cluster", "ClusterConfig", "Kubectl", "main"]

@@ -250,9 +250,19 @@ class Kubelet:
             t.join(timeout=2)
 
     def _heartbeat_loop(self) -> None:
-        self._heartbeat()
-        while not self._stop.wait(self.heartbeat_interval):
-            self._heartbeat()
+        """One heartbeat a tick. A transport failure (a reset or refused
+        connection, a timeout: OSError) skips that tick and the next one
+        tries again, as the reference kubelet logs a failed node status
+        update and retries (kubelet_node_status.go): the loop must not die
+        with one request, or the node goes NotReady while its kubelet
+        runs. (The JAX package's loop dies; ROADMAP §C, C6.)"""
+        while True:
+            try:
+                self._heartbeat()
+            except OSError:
+                pass
+            if self._stop.wait(self.heartbeat_interval):
+                return
 
     def _housekeeping_loop(self) -> None:
         """PLEG relist + pod reconciliation (syncLoopIteration's 1 s/2 s

@@ -27,6 +27,7 @@ many pods a package places, and a hash of where.
         --path fleet [--tenants 24 --nodes 2000 --pods 2000]
         --path scan
         --path kubemark [--nodes 500 --pods 500]
+        --path cluster [--nodes 100 --pods 300]
 
 `--path batch` (the default) runs `BatchScheduler.schedule` of the JAX
 package (`kubernetes_tpu`) or of the PyTorch port (`kubernetes_tpu_torch`)
@@ -121,6 +122,18 @@ SchedulerServer starts and drains them behind chip_smoke.wave_barrier
 until every pod runs. It prints the bound count, the per-wave counts and
 the sha256 of the bound map (JAX_KUBEMARK) beside the drive's timings.
 
+`--path cluster` runs chip_smoke.py's phase 16 (`cluster_drive`): the
+package's Cluster with `--nodes` hollow nodes (default
+chip_smoke.CLUSTER_NODES) and the deployment, replicaset, endpoints and
+nodelifecycle controllers; kubectl apply of the Deployment web (`--pods`
+replicas, default chip_smoke.CLUSTER_REPLICAS, spread with maxSkew 1 over
+the hostnames) and its Service as JSON manifests, rollout status; the
+proxier's rule for the Service; the metrics server and kubectl top; upgrade
+plan and apply to v1.18.0; join 2 nodes and kubectl scale by 3 a node. It
+prints the JAX_CLUSTER constant (the per-node counts, the rule's endpoint
+count, the top rows, the upgrade phases, the Deployment's status, all
+timing-free) beside the drive's timings.
+
 `--workload gang` is BASELINE config 5 on the batch path: gang_workload_pods
 (jobs of 8 to 64 all-or-nothing members, 2% of them larger than any node);
 besides the placements it prints the dead groups (count and sha256) and the
@@ -204,12 +217,18 @@ def jax_server_api():
 
     from kubernetes_tpu.api import types, v1
     from kubernetes_tpu.apiserver import APIServer, HTTPGateway
+    from kubernetes_tpu.cli import Cluster, ClusterConfig
+    from kubernetes_tpu.cli.kubectl import main as kubectl
     from kubernetes_tpu.client import Client
-    from kubernetes_tpu.client.informers import SharedInformer
+    from kubernetes_tpu.client.informers import (InformerFactory,
+                                                 SharedInformer)
+    from kubernetes_tpu.component.metrics_server import MetricsServer
     from kubernetes_tpu.controllers import ControllerManager
     from kubernetes_tpu.kubemark import HollowCluster
     from kubernetes_tpu.machinery import errors
     from kubernetes_tpu.models import workloads
+    from kubernetes_tpu.proxy import Proxier
+    from kubernetes_tpu.proxy.healthcheck import ProxierHealthServer
     from kubernetes_tpu.sched.ledger import BindIntentLedger
     from kubernetes_tpu.sched.scheduler import Scheduler
     from kubernetes_tpu.sched.server import APIBinder, SchedulerServer
@@ -240,7 +259,10 @@ def jax_server_api():
         ledger=BindIntentLedger, APIBinder=APIBinder,
         SharedInformer=SharedInformer, errors=errors, native=native,
         wal=wal, faultline=faultline, ControllerManager=ControllerManager,
-        HollowCluster=HollowCluster)
+        HollowCluster=HollowCluster, Cluster=Cluster,
+        cluster_config=ClusterConfig, kubectl=kubectl, Proxier=Proxier,
+        ProxierHealthServer=ProxierHealthServer,
+        InformerFactory=InformerFactory, MetricsServer=MetricsServer)
 
 
 def jax_fleet_api():
@@ -372,6 +394,28 @@ def kubemark_path(args) -> dict:
             "nodes": args.nodes, "replicas": args.pods,
             "kubemark": chip_smoke.kubemark_reference(out),
             "drive": {k: v for k, v in out.items() if k != "bound_sha256"},
+            "seconds": time.perf_counter() - t0}
+
+
+def cluster_path(args) -> dict:
+    """Phase 16 (chip_smoke.cluster_drive) on the chosen package."""
+    os.environ["KTPU_OVERLOAD"] = "0"
+    import chip_smoke
+
+    if args.package == "jax":
+        api = jax_server_api()
+    else:
+        import torch
+
+        api = chip_smoke.port_server_api(torch.device(args.device))
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as workdir:
+        out = chip_smoke.cluster_drive(api, workdir, args.nodes, args.pods)
+    return {"package": args.package, "path": "cluster",
+            "nodes": args.nodes, "replicas": args.pods,
+            "cluster": chip_smoke.cluster_reference(out),
+            "drive": {k: v for k, v in out.items()
+                      if not k.startswith("per_node")},
             "seconds": time.perf_counter() - t0}
 
 
@@ -604,7 +648,8 @@ def main() -> int:
     ap.add_argument("--path",
                     choices=("batch", "serving", "preempt", "restart",
                              "framework", "extender", "cosched", "server",
-                             "fleet", "scan", "durable", "kubemark"),
+                             "fleet", "scan", "durable", "kubemark",
+                             "cluster"),
                     default="batch")
     ap.add_argument("--nodes", type=int, default=None,
                     help="default 5,000 (chip_smoke.FLEET_NODES for "
@@ -642,6 +687,11 @@ def main() -> int:
         args.nodes = args.nodes or chip_smoke.KUBEMARK_NODES
         args.pods = args.pods or chip_smoke.KUBEMARK_REPLICAS
         print(json.dumps(kubemark_path(args)))
+        return 0
+    if args.path == "cluster":
+        args.nodes = args.nodes or chip_smoke.CLUSTER_NODES
+        args.pods = args.pods or chip_smoke.CLUSTER_REPLICAS
+        print(json.dumps(cluster_path(args)))
         return 0
     if args.nodes is None:
         args.nodes = 5000

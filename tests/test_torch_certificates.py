@@ -10,17 +10,16 @@ with the deletes the case made, is the same on both
 (tests/test_torch_twin.py WriteLog), as is every answer of the
 bootstrap-token authenticator (a token's random id and secret scrubbed).
 The X.509 cases skip, on both, where `cryptography` is missing, as the
-reference's do.
-
-Left out: TestKubeadmJoinTLSBootstrap's two cases, which drive
-`kubernetes_tpu.cli.cluster.Cluster`; the port's cluster bootstrap comes
-with the CLI (ROADMAP A17).
+reference's do. TestKubeadmJoinTLSBootstrap's two cases stand a Cluster up
+(cli/cluster.py), its scheduler on the CPU (`device='cpu'`), and join
+nodes through TLS bootstrap.
 """
 
 from test_torch_twin import mirror
 
 mirror(globals(), "test_certificates",
-       select=lambda cls, name: cls != "TestKubeadmJoinTLSBootstrap",
+       subs=[("Cluster(ClusterConfig(\n",
+              "Cluster(ClusterConfig(device='cpu',\n")],
        writes=True,
        scrub=[(r"\b[0-9a-z]{6}\.[0-9a-z]{16}\b", "<token>"),
               (r"(bootstrap-token-|bootstrap:)[0-9a-z]{6}\b", r"\1<id>")],

@@ -10,7 +10,11 @@ parts) within torch_parity.F32_ATOL (both packages evaluate the same f32
 expression tree op for op; the tolerance leaves room for a reduction-order
 rounding). Also mask_components/_diagnose against the JAX package's. The
 cases that need the apiserver's event store, the debug HTTP endpoint or
-fleet tenants wait for ROADMAP items 11 and 12.
+fleet tenants wait for ROADMAP items 11 and 12. TestDocDrift runs on both
+packages through tests/test_torch_twin.py `mirror`: every scheduler_* and
+apiserver_* series on each package's shared registry is in
+docs/OBSERVABILITY.md's catalogue, and every one the catalogue names is
+registered.
 """
 
 import dataclasses
@@ -42,7 +46,15 @@ from kubernetes_tpu_torch.sched.scheduler import RecordingBinder as TBinder
 from kubernetes_tpu_torch.sched.scheduler import Scheduler as TScheduler
 from kubernetes_tpu_torch.sched.telemetry import SchedulerTelemetry
 from test_golden import rand_node, rand_pod
+from test_torch_twin import mirror
 from torch_parity import as_np, assert_same, encode
+
+# the metric catalogue's drift gate on each package's shared registry (the
+# port's sched.cycle has no _schedule_batch: the import is dropped, and
+# only this class of the file is mirrored)
+mirror(globals(), "test_explain",
+       select=lambda cls, name: cls == "TestDocDrift",
+       subs=[("    _schedule_batch,\n", "")])
 
 INT_FIELDS = ("reasons", "valid_nodes", "feasible_nodes", "rejected_any",
               "top_nodes", "part_node")

@@ -425,8 +425,10 @@ def mirror(namespace: dict, ref_name: str, record: Sequence[str] = (),
     each test case of tests/<ref_name>.py that `select(cls_name, name)`
     keeps (all by default). `files` is a bool or a predicate (cls_name,
     name) -> bool; `writes` compares the two runs' WriteLog sets; `drop`
-    names keys and dataclass fields the recorded values leave out. Returns
-    the node names mirrored."""
+    names keys and dataclass fields the recorded values leave out. Two
+    mirrors of one file into one namespace (with other settings for some
+    cases) put their cases of one class into one class. Returns the node
+    names mirrored."""
     ref = importlib.import_module(ref_name)
     twin = port_twin(ref_name, subs)
     fx = _fixtures(ref)
@@ -486,7 +488,11 @@ def mirror(namespace: dict, ref_name: str, record: Sequence[str] = (),
             classes.setdefault(cls_name, {})[name] = test
             made.append(f"{cls_name}::{name}")
     for cls_name, meths in classes.items():
-        namespace[cls_name] = type(cls_name, (), meths)
+        # a class an earlier mirror of the same file made keeps its cases
+        prior = namespace.get(cls_name)
+        kept = ({k: v for k, v in vars(prior).items() if k.startswith("test")}
+                if isinstance(prior, type) else {})
+        namespace[cls_name] = type(cls_name, (), {**kept, **meths})
     for k, v in vars(ref).items():
         if k == "pytestmark":
             namespace.setdefault("pytestmark", v)

@@ -5985,20 +5985,41 @@ def phase_child(phase: str) -> int:
     from kubernetes_tpu_torch.ops import kernels as K
 
     os.environ["KTPU_OVERLOAD"] = "0"
-    run = {"15": kubemark_phase, "16": cluster_phase}[phase]
+    run = {"15": kubemark_phase, "16": cluster_phase,
+           "17": mesh_phase}[phase]
     code = 1
     try:
         K.build()
         out = run(torch.device("cuda", 0), card_line())
-        print(PHASE_RESULT + json.dumps(out))
+        print(PHASE_RESULT + json.dumps(out, default=str))
         code = 0
     except SystemExit as e:
         print(e, file=sys.stderr)
     except BaseException:  # noqa: BLE001 - printed, then a failed exit
         traceback.print_exc()
+    # ROADMAP C7: what still runs when the interpreter would finalise
+    print(f"phase {phase} threads alive before os._exit: "
+          + json.dumps(live_threads()))
     sys.stdout.flush()
     sys.stderr.flush()
     os._exit(code)
+
+
+def live_threads() -> dict:
+    """The threads alive now but the caller's: non-daemon and daemon
+    names (a kubelet's threads collapsed to one count per name pattern)."""
+    import re
+    import threading
+
+    me = threading.current_thread()
+    alive = [t for t in threading.enumerate() if t is not me]
+    daemon = {}
+    for t in alive:
+        if t.daemon:
+            key = re.sub(r"\d+", "N", t.name)
+            daemon[key] = daemon.get(key, 0) + 1
+    return {"non_daemon": sorted(t.name for t in alive if not t.daemon),
+            "daemon": daemon}
 
 
 def phase_subprocess(phase: str) -> dict:
@@ -6516,7 +6537,433 @@ def cluster_phase(device, card: str) -> dict:
     return dict(out=out, launches=counts, errs=errs)
 
 
+# ---------------------------------------------------------------------- #
+# phase 17: node-axis sharding of the single cluster (parallel/mesh.py)
+# ---------------------------------------------------------------------- #
+
+def node_sha256(node) -> str:
+    """sha256 of a node map (int32, little-endian): a torch tensor or an
+    array of either package."""
+    import numpy as np
+
+    a = node.cpu().numpy() if hasattr(node, "cpu") else np.asarray(node)
+    return hashlib.sha256(a.astype("<i4").tobytes()).hexdigest()
+
+
+def mesh_reference(report: dict) -> dict:
+    """The port's dryrun report (parallel/dryrun.py run_dryrun) in the
+    shape of JAX_MESH: per rung the engine, sizes, scheduled count,
+    rejected gang groups and node-map sha256."""
+    out = {}
+    for row in report["rungs"]:
+        key = (f"spec_{row['engine']}" if row["rung"] == "spec"
+               else row["rung"])
+        out[key] = {k: row[k] for k in ("engine", "nodes", "pods",
+                                        "scheduled", "rejected_gangs",
+                                        "sha256") if k in row}
+    return out
+
+
+# the mesh of phase 17: 4 shards on the one card (a virtual mesh)
+MESH_SHARDS = 4
+# 17a's production and bench rungs (the JAX package's dryrun shapes)
+MESH_PRODUCTION = (4096, 8192)
+MESH_BENCH_PODS = 50000
+# 17b: the serving drain on the mesh (5b's cluster, waves of 4,096): 8 full
+# waves and a micro wave; the drill's faults by dispatch of the "cycle"
+# kind (a loss at the 2nd, the first reform forced narrow, a loss at the
+# 5th, whose reform the full-width probe lets back to 4)
+MESH_PODS, MESH_BATCH = 32768, SERVING_BATCH
+MESH_FAULTS = ("device.error@cycle:2,mesh.degrade@probe:1,"
+               "device.error@cycle:5")
+# 17c: one preemption burst of PREEMPT_BURST whole-node vips on 17b's
+# resident mesh
+MESH_VIP_CPU = "32"  # a whole node: every candidate needs victims
+MESH_KERNELS = ("contention_scan", "domain_rank", "reprieve_scan",
+                "assign_scan")
+# the JAX package's mesh runs at these shapes, on a 4-device virtual CPU
+# mesh, each bit-equal to its unsharded run: JAX_PLATFORMS=cpu python3
+# scripts/flagship_reference.py --package jax --path mesh
+JAX_MESH = {
+    "spec_waves": {"nodes": 32, "pods": 64, "scheduled": 43,
+                   "sha256": "8659ab61214486dce0c25ad01e616f8e"
+                             "92929df7c386b8833dd91d16bd1a5ac0"},
+    "spec_scan": {"nodes": 32, "pods": 64, "scheduled": 43,
+                  "sha256": "48ed7643ddcc582d92b12050c63d30e0"
+                            "9cc7b4ad7860527fc3f649a9a4c5f881"},
+    "production": {"nodes": 4096, "pods": 8192, "scheduled": 6739,
+                   "rejected_gangs": 3,
+                   "sha256": "ef84ce82d55f71d94aa924e785598907"
+                             "a9c8757e08bcf7d4628f3846688471a3"},
+    "bench": {"nodes": 5120, "pods": 50000, "scheduled": 33334,
+              "sha256": "22514eb6c485fc81c4ebb4edcd0b2618"
+                        "e14356f0b0a2b9c7522c57995ebea909"},
+}
+
+
+class MeshKernelSpy:
+    """Keeps, for each kernel, the inputs and output of its FIRST launch
+    inside a sharded run (a shard's launch, or the lead shard's in a lead
+    step: parallel/axis.py `in_mesh`), and counts those launches. Installed
+    by patching the names the engines call (ops/waves.py K1/K2,
+    ops/preempt.py K3, ops/assign.py K4); the wrappers' own counters stay
+    the phase's launch counts."""
+
+    def __init__(self):
+        from kubernetes_tpu_torch.ops import assign as A
+        from kubernetes_tpu_torch.ops import preempt as Pr
+        from kubernetes_tpu_torch.ops import waves as W
+        from kubernetes_tpu_torch.parallel import axis
+
+        self.sites = [(W, "contention_scan"), (W, "domain_rank"),
+                      (Pr, "reprieve_scan"), (A, "assign_scan")]
+        self.saved = [(m, n, getattr(m, n)) for m, n in self.sites]
+        self.first, self.mesh_launches = {}, {n: 0 for n in MESH_KERNELS}
+
+        def spy(name, fn):
+            def run(*args):
+                out = fn(*args)
+                if axis.current().in_mesh:
+                    self.mesh_launches[name] += 1
+                    if name not in self.first:
+                        self.first[name] = (own(args), own(out))
+                return out
+            return run
+
+        for m, n, fn in self.saved:
+            setattr(m, n, spy(n, fn))
+
+    def restore(self):
+        for m, n, fn in self.saved:
+            setattr(m, n, fn)
+
+    def check(self, device) -> dict:
+        """Each first mesh launch against its plain version on the same
+        inputs, exactly; returns the max abs error by kernel (None where
+        the kernel did not launch on the mesh)."""
+        from kubernetes_tpu_torch.ops import kernels as K
+        from kubernetes_tpu_torch.ops.assign import assign_scan_plain
+
+        plain = {"contention_scan": (K.contention_scan_plain, k1_diff),
+                 "domain_rank": (K.domain_rank_plain, k2_diff),
+                 "reprieve_scan": (K.reprieve_scan_plain, k3_diff),
+                 "assign_scan": (assign_scan_plain, k4_diff)}
+        errs = {}
+        for name in MESH_KERNELS:
+            if name not in self.first:
+                errs[name] = None
+                continue
+            args, out = self.first[name]
+            fn, diff = plain[name]
+            errs[name] = diff(out, fn(*args))
+            sync(device)
+            if errs[name] != 0:
+                fail(f"phase 17: {name}'s first mesh launch disagrees with "
+                     f"its plain version (max_abs_err={errs[name]})")
+        return errs
+
+
+def mesh_drill_hooks(widths):
+    """17b's drill: after every wave, wait for the prober's re-admission
+    (the reform happens there) and note the mesh width."""
+    def after(w, s):
+        if not s.supervisor.healthy and not s.supervisor.wait_recovered(60):
+            fail("17b: the prober did not re-admit the card")
+        widths.append(s.mesh_state.n_devices)
+    return after
+
+
+def mesh_events(api, base_dims=None):
+    """17b's Scheduler setup: every wave's dispatch is followed, while the
+    device runs it, by an informer update of one node with unchanged
+    content (the deltas a live cluster streams in mid-wave) — so the mesh
+    prestage has rows to patch while the dispatch holds the resident
+    planes; and, given, `base_dims` as the capacity floor."""
+    nodes = api.workloads.make_nodes(SERVING_NODES)
+
+    def setup(s):
+        if base_dims is not None:
+            s.base_dims = base_dims
+        submit, n = s.supervisor.submit, [0]
+
+        def during(kind, key, fn, fallback=None):
+            h = submit(kind, key, fn, fallback)
+            if kind == "cycle":
+                s.on_node_update(nodes[(7 * n[0]) % len(nodes)])
+                n[0] += 1
+            return h
+        s.supervisor.submit = during
+    return setup
+
+
+def mesh_serving(device, card: str) -> dict:
+    """17b: phase 5b's drain (make_nodes(5000), waves of 4,096,
+    MESH_PODS flagship pods, informer confirmations and a node update
+    between waves and one during each, a 3-pod micro wave) three times on
+    the card: with mesh=None; on a MeshState over MESH_SHARDS × the card
+    (every wave sharded, the node planes resident per shard) with the
+    capacities the first run ended at as its floor, so the one full upload
+    is the cold one; and on the mesh again under MESH_FAULTS with
+    fallback_device='cpu' (a loss → the wave on the CPU → a reform at half
+    width; a second loss → a reform at full width). All three bind the
+    same pods to the same nodes."""
+    import os
+
+    import torch
+
+    from kubernetes_tpu_torch.parallel.mesh import MeshState
+
+    api = port_serving_api(device)
+    pool = [device] * MESH_SHARDS
+    out = {}
+    keep = []
+    t0 = time.perf_counter()
+    ref = serving_drain(api, SERVING_NODES, MESH_PODS, MESH_BATCH, keep=keep,
+                        setup=mesh_events(api))
+    out["single_s"] = time.perf_counter() - t0
+    single = keep[0]
+    top = single.cache._snapshot.dims
+    keep = []
+    t0 = time.perf_counter()
+    got = serving_drain(api, SERVING_NODES, MESH_PODS, MESH_BATCH, keep=keep,
+                        setup=mesh_events(api, top),
+                        sched_kw={"mesh": MeshState(MESH_SHARDS,
+                                                    devices=pool)})
+    out["mesh_s"] = time.perf_counter() - t0
+    s = keep[0]
+    if (got["bound"], got["bound_sha256"]) != (ref["bound"],
+                                               ref["bound_sha256"]):
+        fail("17b: the mesh drain's placements differ from mesh=None's")
+    if [w["scheduled"] for w in got["waves"]] != \
+            [w["scheduled"] for w in ref["waves"]]:
+        fail("17b: the mesh drain's waves differ from mesh=None's")
+    c = s.cache
+    out["resident"] = dict(full_uploads=c.resident_full_uploads,
+                           in_place_patches=c.resident_donated_patches,
+                           copy_patches=c.resident_copy_patches)
+    if c.resident_full_uploads != 1 or c.resident_donated_patches < 3 \
+            or c.resident_copy_patches < 1 or c._dispatch_inflight:
+        fail(f"17b: resident counters {out['resident']}")
+    print(f"  mesh=None {out['single_s']:.1f} s, mesh of {MESH_SHARDS} "
+          f"{out['mesh_s']:.1f} s: {got['bound']} bound, placements and "
+          f"per-wave counts equal; resident {out['resident']}")
+    out["waves"] = [dict(w) for w in got["waves"]]
+    # per wave, the snapshot (the resident patches) and the dispatch to its
+    # readback, with mesh=None and on the mesh
+    out["split"] = {k: {"snapshot_s": _phase_durations(x, "snapshot"),
+                        "dispatch_s": _phase_durations(x, "dispatch"),
+                        "readback_s": _phase_durations(x, "readback")}
+                    for k, x in (("single", single), ("mesh", s))}
+
+    # the drill, under 9b's supervisor knobs
+    fl = api.faultline
+    saved = {k: os.environ.get(k) for k in SUPERVISOR_ENV}
+    os.environ.update(SUPERVISOR_ENV)
+    widths, keep = [], []
+    ms = MeshState(MESH_SHARDS, devices=pool)
+    fl.install(MESH_FAULTS)
+    t0 = time.perf_counter()
+    try:
+        drill = serving_drain(
+            api, SERVING_NODES, MESH_PODS, MESH_BATCH, keep=keep,
+            setup=mesh_events(api, top), after_wave=mesh_drill_hooks(widths),
+            sched_kw={"mesh": ms, "fallback_device": torch.device("cpu")})
+    finally:
+        fl.uninstall()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    out["drill_s"] = time.perf_counter() - t0
+    st = keep[0].supervisor.stats
+    out["drill"] = dict(widths=widths, demotions=ms.demotions,
+                        reforms=ms.reforms,
+                        degraded_cycles=st.degraded_cycles,
+                        degraded_cycle_seconds=st.degraded_cycle_seconds,
+                        recoveries=st.recoveries,
+                        full_uploads=keep[0].cache.resident_full_uploads)
+    if (drill["bound"], drill["bound_sha256"]) != (ref["bound"],
+                                                   ref["bound_sha256"]):
+        fail("17b: the drill's placements differ from mesh=None's")
+    if ms.demotions != 2 or ms.reforms != 2 or 2 not in widths \
+            or widths[-1] != MESH_SHARDS or st.degraded_cycles < 2:
+        fail(f"17b: the drill's mesh ladder {out['drill']}")
+    print(f"  drill ({MESH_FAULTS}): widths by wave {widths}, "
+          f"{st.degraded_cycles} waves on the CPU "
+          f"({', '.join(f'{x:.2f}' for x in st.degraded_cycle_seconds)} s), "
+          f"every pod bound once, placements equal to mesh=None's "
+          f"({out['drill_s']:.1f} s)")
+    settle(api, "17b", fallback_ok=True)
+    return dict(out, sched=s)
+
+
+def mesh_preempt(device, s) -> dict:
+    """17c: one preemption burst (PREEMPT_BURST vips of MESH_VIP_CPU cpu,
+    priority 1000) on 17b's scheduler: its snapshot resident on the mesh,
+    the burst sharded (K3 on each shard's nodes, the node choice on the
+    lead) against the same burst on the gathered tables."""
+    import numpy as np
+    import torch
+
+    from kubernetes_tpu_torch.api import types as T
+    from kubernetes_tpu_torch.sched.cycle import UNSCHEDULABLE_TAINT_KEY
+    from kubernetes_tpu_torch.sched.preemption import PREEMPT_BURST, _preempt
+
+    # a priority-0 filler bound on every node, so no node is empty and
+    # every candidate needs victims
+    for i, name in enumerate(s.cache._node_names):
+        if name:
+            s.on_pod_add(T.Pod(name=f"mesh-filler{i}", node_name=name,
+                               requests=T.Resources.make(cpu="100m"),
+                               creation_index=9_000_000 + i))
+    vips = [T.Pod(name=f"mesh-vip{i}", priority=1000,
+                  requests=T.Resources.make(cpu=MESH_VIP_CPU, memory="1Gi"),
+                  creation_index=10_000_000 + i)
+            for i in range(PREEMPT_BURST)]
+    snap = s._preempt_snapshot(vips)
+    if snap.mesh is None:
+        fail("17c: the scheduler's snapshot is not on the mesh")
+    keys = (s.encoder.vocabs.label_keys.get(UNSCHEDULABLE_TAINT_KEY),
+            s.encoder.vocabs.label_vals.get(""))
+    lane = torch.arange(PREEMPT_BURST, device=device)
+    args = (snap.pending.cls[lane].contiguous(),
+            snap.pending.node_name_req[lane].contiguous(),
+            torch.full((PREEMPT_BURST,), 1000, dtype=torch.int32,
+                       device=device), snap.dims.D, keys,
+            torch.zeros(snap.existing.valid.shape, dtype=torch.bool,
+                        device=device))
+    t0 = time.perf_counter()
+    got = _preempt(snap.tables, snap.existing, *args)
+    sync(device)
+    mesh_s = time.perf_counter() - t0
+    ref = _preempt(snap.tables.gather(), snap.existing, *args)
+    sync(device)
+    for f in ref._fields:
+        if not torch.equal(getattr(ref, f), getattr(got, f)):
+            fail(f"17c: the sharded burst's {f} differs from the gathered")
+    nodes = got.node.cpu().numpy()
+    print(f"  burst of {PREEMPT_BURST}: nodes {nodes.tolist()}, "
+          f"{int(got.victims.sum())} victims, equal to the burst on the "
+          f"gathered tables ({mesh_s * 1e3:.1f} ms sharded)")
+    if not (nodes >= 0).any() or not bool(got.victims.any()):
+        fail("17c: no vip found a node with victims")
+    return dict(nodes=nodes.tolist(), victims=int(got.victims.sum()),
+                sharded_ms=mesh_s * 1e3)
+
+
+def mesh_phase(device, card: str) -> dict:
+    """Phase 17 on the card: 17a the dryrun's three rungs on a mesh of
+    MESH_SHARDS × the card, each bit-equal to the unsharded run and equal
+    to JAX_MESH; 17b the serving Scheduler on the mesh (mesh_serving); 17c a
+    preemption burst on it (mesh_preempt). K1–K4's launches are counted
+    over the phase, each kernel's first mesh launch held against its plain
+    version."""
+    from kubernetes_tpu_torch.ops import kernels as K
+    from kubernetes_tpu_torch.parallel.dryrun import run_dryrun
+
+    spy = MeshKernelSpy()
+    launches = {}
+    try:
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        rep = run_dryrun(devices=[device] * MESH_SHARDS, device=device,
+                         production=MESH_PRODUCTION,
+                         bench_pods=MESH_BENCH_PODS,
+                         log=lambda line: print("  " + line))
+        a_s = time.perf_counter() - t0
+        launches["17a"] = K.launch_counts()
+        for row in rep["rungs"]:
+            key = (f"spec_{row['engine']}" if row["rung"] == "spec"
+                   else row["rung"])
+            want = JAX_MESH[key]
+            for f in ("nodes", "pods", "scheduled", "rejected_gangs",
+                      "sha256"):
+                if f in want and row.get(f) != want[f]:
+                    fail(f"17a: {key}'s {f} {row.get(f)} differs from "
+                         f"JAX_MESH's {want[f]}")
+            c = row["collectives"]
+            print(f"    {key}: equal to JAX_MESH; sharded launches "
+                  f"{row['sharded_launches']}; collectives "
+                  f"{c['all_reduce']} all-reduce ({c['all_reduce_bytes']} B), "
+                  f"{c['gather']} gathers ({c['gather_bytes']} B), "
+                  f"{c['lead']} lead steps ({c['lead_bytes']} B out); the "
+                  f"lead shard waited {c['wait_s']:.3f} s in them and ran "
+                  f"lead steps {c['lead_s']:.3f} s")
+        print(f"    17a {a_s:.1f} s ({card})")
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        print(f"[17b] Scheduler(mesh=MeshState({MESH_SHARDS}, devices="
+              f"[{device}] * {MESH_SHARDS})) on make_nodes({SERVING_NODES}), "
+              f"{MESH_PODS} flagship pods in waves of {MESH_BATCH}, "
+              f"against mesh=None; then the loss → reform drill")
+        serving = mesh_serving(device, card)
+        launches["17b"] = K.launch_counts()
+        K.reset_launch_counts()
+        print(f"[17c] a preemption burst on 17b's mesh-resident snapshot")
+        pre = mesh_preempt(device, serving.pop("sched"))
+        launches["17c"] = K.launch_counts()
+        b_s = time.perf_counter() - t0
+    finally:
+        spy.restore()
+    errs = spy.check(device)
+    for name in MESH_KERNELS:
+        if spy.mesh_launches[name] == 0:
+            fail(f"phase 17: {name} never launched on the mesh")
+    total = {n: sum(v[n] for v in launches.values()) for n in MESH_KERNELS}
+    print(f"    launches 17a {launches['17a']}, 17b {launches['17b']}, 17c "
+          f"{launches['17c']}; on the mesh {spy.mesh_launches}; first mesh "
+          f"launches equal to the plain versions {errs}; 17b+c {b_s:.1f} s")
+    return dict(rungs=rep["rungs"], memory=rep["memory"], dryrun_s=a_s,
+                serving=serving, preempt=pre, launches=launches,
+                total=total, mesh_launches=spy.mesh_launches, errs=errs)
+
+
 T_START = time.perf_counter()
+LINES_PATH = "build/chip_smoke_lines.jsonl"
+
+
+class LineLog:
+    """Standard output that also writes each complete line, as one JSON
+    object {"t": seconds since the script started, "line": ...}, to
+    LINES_PATH — a remote run's captured output may keep only its tail. A line
+    opening with "[<phase>]" starts that phase; `summary()` gives each
+    phase's seconds."""
+
+    def __init__(self, out, path: str):
+        import os
+
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        self.out, self.file = out, open(path, "w")
+        self.buf, self.starts = "", []
+
+    def write(self, s: str) -> int:
+        import re
+
+        self.out.write(s)
+        self.buf += s
+        while "\n" in self.buf:
+            line, self.buf = self.buf.split("\n", 1)
+            t = time.perf_counter() - T_START
+            m = re.match(r"\[(\w+)\]", line)
+            if m:
+                self.starts.append((m.group(1), t))
+            self.file.write(json.dumps({"t": round(t, 3), "line": line})
+                            + "\n")
+            self.file.flush()
+        return len(s)
+
+    def flush(self) -> None:
+        self.out.flush()
+        self.file.flush()
+
+    def summary(self) -> str:
+        now = time.perf_counter() - T_START
+        ends = [t for _, t in self.starts[1:]] + [now]
+        parts = [f"[{p}] {e - t:.1f} s" for (p, t), e in
+                 zip(self.starts, ends)]
+        return (f"phase summary ({LINES_PATH}): " + ", ".join(parts)
+                + f"; total {now:.1f} s")
 
 
 def main() -> int:
@@ -6529,6 +6976,9 @@ def main() -> int:
               "false); nothing to measure", file=sys.stderr)
         return 2
     from kubernetes_tpu_torch.ops import kernels as K
+
+    line_log = LineLog(sys.stdout, LINES_PATH)
+    sys.stdout = line_log
 
     device = torch.device("cuda", 0)
     card = card_line()
@@ -6776,6 +7226,24 @@ def main() -> int:
           f"in memory) in this run; 11a's {srvp['a']['creates_per_s']:.1f} "
           f"(local, in memory, native store)")
     print(f"    phase 14 {time.perf_counter() - t14:.1f} s")
+    t17 = time.perf_counter()
+    print(f"[17a] node-axis sharding: the dryrun's three rungs on a mesh of "
+          f"{MESH_SHARDS} x cuda:0 (parallel/dryrun.py run_dryrun): spec "
+          f"(waves and scan, {max(8 * MESH_SHARDS, 16)} x 64), production "
+          f"(waves in the gang rounds, {MESH_PRODUCTION[0]} x "
+          f"{MESH_PRODUCTION[1]}), bench (waves, 5120 x {MESH_BENCH_PODS}), "
+          f"each against the unsharded run and JAX_MESH")
+    mesh = mesh_phase(device, card)
+    print(f"    phase 17 {time.perf_counter() - t17:.1f} s")
+    for r in rows:
+        name = r["name"]
+        r["mesh"] = dict(launches=mesh["total"][name],
+                         launches_by_subphase={k: v[name] for k, v in
+                                               mesh["launches"].items()},
+                         launches_on_mesh=mesh["mesh_launches"][name],
+                         max_abs_err=mesh["errs"][name])
+        if mesh["errs"][name] is not None:
+            r["max_abs_err"] = max(r["max_abs_err"], mesh["errs"][name])
     for r in rows:
         name = r["name"]
         r["durable"] = {sub: dict(launches=c.get(name, 0),
@@ -6876,8 +7344,19 @@ def main() -> int:
                       "kubemark": km["out"],
                       "cluster": {k: v for k, v in cl["out"].items()
                                   if not k.startswith("per_node")},
+                      "mesh": {
+                          "rungs": [{k: v for k, v in row.items()
+                                     if k != "sha256"}
+                                    for row in mesh["rungs"]],
+                          "memory": mesh["memory"],
+                          "dryrun_s": mesh["dryrun_s"],
+                          "serving": {k: v for k, v in
+                                      mesh["serving"].items()
+                                      if k != "waves"},
+                          "preempt": mesh["preempt"]},
                       "wall_s": time.perf_counter() - T_START}))
     print(card)
+    print(line_log.summary())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
@@ -6886,6 +7365,7 @@ def main() -> int:
 
 if __name__ == "__main__":
     pin_hash_seed()
-    if sys.argv[1:2] == ["--phase"] and sys.argv[2:] in (["15"], ["16"]):
+    if sys.argv[1:2] == ["--phase"] and sys.argv[2:] in (["15"], ["16"],
+                                                          ["17"]):
         sys.exit(phase_child(sys.argv[2]))
     sys.exit(main())

@@ -8,7 +8,7 @@ engine group per tick runs every tenant's cycle on its view of the stack
 (`cycle.py`), dominant-resource-fairness quotas clamp admission as tensor
 ops over the stacked batch (`quota.py`), and `server.py` owns the
 per-tenant caches, queues and ledgers, the commit loop and the watch plane.
-The fleet mesh is not ported (ROADMAP A13).
+The fleet mesh is not ported (ROADMAP A13b).
 """
 
 from .server import (FleetServer, FleetTenant, FleetTickStats,

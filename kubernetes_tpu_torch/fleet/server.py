@@ -32,8 +32,9 @@ assume → fenced bind → retire, through each tenant's own Scheduler.
 The server runs on the CUDA device unless `device="cpu"` is asked for; with
 no GPU and no explicit CPU device it raises. A failed or hung dispatch is
 abandoned and every popped pod requeued, unless the constructor names a
-`fallback_device` (sched/supervisor.py). The fleet mesh is not ported
-(ROADMAP A13).
+`fallback_device` (sched/supervisor.py). The fleet mesh — the tenant axis
+and the tenant × node-shard grid over the single cluster's sharded cycle —
+is not ported (ROADMAP A13b).
 
 Chaos: the `tenant.storm@<tenant>` seam (utils/faultline.py) simulates a
 per-tenant watch storm — that tenant's snapshot is invalidated (full
@@ -385,7 +386,8 @@ class FleetServer:
         if node_shards is None:
             node_shards = env_int("KTPU_FLEET_NODE_SHARDS", 1, 1, 64)
         if mesh is not None or int(node_shards) > 1:
-            raise _unported("fleet mesh (parallel/mesh.py)", "A13")
+            raise _unported("fleet mesh (parallel/mesh.py make_fleet_mesh, "
+                            "node_shards)", "A13b")
         self.device = resolve_device(device)
         self.fallback_device = fallback_device
         self.batch_size = batch_size

@@ -14,7 +14,7 @@ whose snapshot object changed since the last tick has its row written IN
 PLACE into every resident leaf (`index_copy_` at the changed tenants'
 rows: the JAX package's donated patch, fleet/tables.py:294-298, on one
 device), unchanged tenants cost nothing, and a shape change restacks. Not
-ported: the fleet mesh (ROADMAP A13).
+ported: the fleet mesh (ROADMAP A13b).
 """
 
 from __future__ import annotations

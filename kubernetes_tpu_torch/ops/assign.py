@@ -21,6 +21,7 @@ from typing import NamedTuple, Sequence
 
 import torch
 
+from ..parallel import axis
 from ..state.arrays import Array, ClusterTables, PodArrays
 from .fit import fit_row, resource_scores, resource_scores_row
 from .interpod import affinity_rows, soft_affinity_row
@@ -262,13 +263,34 @@ def assign_scan_plain(tables, cyc, pods: PodArrays, rows: Array,
 assign_scan_plain.calls = 0
 
 
+def scan_rows(tables: ClusterTables, cyc: CycleArrays, pods: PodArrays,
+              rows: Array, init: AssignState, scan=None):
+    """`scan` (kernels.assign_scan unless the caller passes the name it
+    calls it by) over the pods `rows`. K4 keeps each step's node state
+    inside one thread-block cluster and cannot reduce across devices within
+    a launch, so on a sharded node axis the scan is REPLICATED, not
+    sharded: the node planes and the state are gathered on the lead device,
+    K4 runs there once, and each shard takes its rows of the final state
+    back."""
+    scan = scan or assign_scan
+    ax = axis.current()
+    if not ax.sharded:
+        return scan(tables, cyc, pods, rows, init)
+    from ..parallel.mesh import (gather_cycle, gather_state, gather_tables,
+                                 split_state)
+
+    ft, fc, fs = gather_tables(tables), gather_cycle(cyc), gather_state(init)
+    node, full = ax.lead(lambda: scan(ft, fc, pods, rows, fs))
+    return node, split_state(full, init)
+
+
 def assign_batch(tables: ClusterTables, cyc: CycleArrays, pods: PodArrays,
                  init: AssignState) -> AssignResult:
     """The sequential-assume scan (the spec): pods in queue order, each
     against the state every earlier placement left — one launch of K4 on a
     CUDA device, assign_scan_plain on the CPU. `init` is never written."""
-    node, state = assign_scan(tables, cyc, pods,
-                              queue_order(pods).to(torch.int32), init)
+    node, state = scan_rows(tables, cyc, pods,
+                            queue_order(pods).to(torch.int32), init)
     return AssignResult(node=node, feasible=node >= 0, state=state)
 
 

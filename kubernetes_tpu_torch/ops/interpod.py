@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import torch
 
+from ..parallel import axis
 from ..state.arrays import (
     Array,
     LabelSetTable,
@@ -47,12 +48,15 @@ def class_term_membership(term_ids: Array, S: int) -> Array:
 
 def per_node_counts(TM_or_membership: Array, pods: PodArrays, N: int) -> Array:
     """[S, SC] term-matches-class, scattered by each existing pod's node →
-    [S, N] i32 counts of matching existing pods per node."""
+    [S, N] i32 counts of matching existing pods per node. On a sharded
+    node axis N is the shard's row count and only its own nodes' pods
+    count."""
     vals = TM_or_membership
     S = vals.shape[0]
-    on_node = (pods.node_id >= 0) & pods.valid
+    row, inside = axis.current().local_rows(pods.node_id, N)
+    on_node = inside & pods.valid
     per_e = vals[:, pods.cls.clamp(min=0).long()] & on_node[None, :]  # [S, E]
-    idx = torch.where(on_node, pods.node_id, N).long()[None, :].expand(S, -1)
+    idx = torch.where(on_node, row, N).long()[None, :].expand(S, -1)
     out = torch.zeros((S, N + 1), dtype=torch.int32, device=vals.device)
     out.scatter_add_(1, idx, per_e.to(torch.int32))
     return out[:, :N]
@@ -71,7 +75,9 @@ def domain_agg(cnt_rows: Array, dom: Array, D: int, eligible=None) -> Array:
     """Aggregate per-node counts over topology domains: [..., N] → [..., D+1]
     (slot D is the discard bucket). Optionally restrict to eligible nodes.
     Integer rows sum exactly; f32 rows hold integer weights here, so the
-    atomic order of a CUDA scatter-add does not change them."""
+    atomic order of a CUDA scatter-add does not change them — nor does the
+    cross-shard sum of a sharded node axis, which adds the shards' domain
+    partials."""
     vals = cnt_rows
     if eligible is not None:
         vals = torch.where(eligible, vals, 0)
@@ -79,7 +85,7 @@ def domain_agg(cnt_rows: Array, dom: Array, D: int, eligible=None) -> Array:
     vals, idx = torch.broadcast_tensors(vals, idx)
     seg = torch.zeros(vals.shape[:-1] + (D + 1,), dtype=vals.dtype,
                       device=vals.device)
-    return seg.scatter_add_(-1, idx, vals)
+    return axis.current().all_reduce(seg.scatter_add_(-1, idx, vals), "sum")
 
 
 def _at_domain(seg: Array, dom: Array, D: int) -> Array:
@@ -103,7 +109,8 @@ def affinity_rows(
     term_ok = has_key & (cnt > 0)
     active = ats >= 0
     all_terms = (~active[..., None] | term_ok).all(1)   # [B, N]
-    total = torch.where(active[..., None] & has_key, CNT_node[s], 0).sum((1, 2))
+    total = axis.current().sum(
+        torch.where(active[..., None] & has_key, CNT_node[s], 0), (1, 2))
     self_all = (~active | TM[s, cl[:, None]]).all(1)
     escape = (total == 0) & self_all
     has_any = active.any(1)
@@ -147,7 +154,8 @@ def soft_affinity_row(
         from .scores import sym_affinity_contrib
 
         raw = raw + sym_affinity_contrib(cl, TM, WSYM, terms, nodes, D)
-    lo = torch.where(nodes.valid, raw, torch.inf).amin(-1, keepdim=True)
-    hi = torch.where(nodes.valid, raw, -torch.inf).amax(-1, keepdim=True)
+    ax = axis.current()
+    lo = ax.amin(torch.where(nodes.valid, raw, torch.inf), -1, keepdim=True)
+    hi = ax.amax(torch.where(nodes.valid, raw, -torch.inf), -1, keepdim=True)
     return torch.where(
         hi > lo, 100.0 * (raw - lo) / torch.clamp(hi - lo, min=1e-9), 0.0)

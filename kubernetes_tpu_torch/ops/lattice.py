@@ -14,6 +14,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..parallel import axis
 from ..state.arrays import Array, ClusterTables, PodArrays
 from .interpod import class_term_membership, per_node_counts, term_class_matrix
 from .labels import node_term_matrix
@@ -175,7 +176,7 @@ def build_static(
     pref_rows = _safe_row_gather(MT, classes.pterm_ids, False)  # [SC, PT, N]
     w = torch.where(classes.pterm_ids >= 0, classes.pterm_w, 0).float()
     pref_raw = (w[:, :, None] * pref_rows).sum(1)              # [SC, N]
-    mx = pref_raw.amax(1, keepdim=True)
+    mx = axis.current().amax(pref_raw, 1, keepdim=True)
     pref_score = torch.where(
         mx > 0, pref_raw * 100.0 / torch.clamp(mx, min=1e-9), 0.0)
 

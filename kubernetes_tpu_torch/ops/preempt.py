@@ -27,6 +27,8 @@ import torch
 from ..state.arrays import Array, ClusterTables, PodArrays
 from .assign import lexsort, neg_i32
 from .interpod import affinity_rows, domain_of_term, per_node_counts
+from ..parallel import axis
+from ..parallel.axis import Shard
 from .kernels import reprieve_scan
 from .lattice import CycleArrays
 from .topospread import spread_row
@@ -95,7 +97,13 @@ def preempt_batch(
     """The whole preemption burst: every lane's what-if against the same
     cycle lattice, existing-pod arrays and PDB mask. Each lane's result is
     what the single-pod what-if computes against that snapshot; the host
-    commit (sched/preemption.py) resolves victim overlap between lanes."""
+    commit (sched/preemption.py) resolves victim overlap between lanes.
+
+    On a sharded node axis (parallel/axis.py) each shard's K3 launch walks
+    its own nodes' pods (a per-node what-if needs nothing of another
+    node); the node choice ranks every node, on the lead device over the
+    gathered summaries, and the victim flags merge across shards."""
+    ax = axis.current()
     nodes, classes, terms = tables.nodes, tables.classes, tables.terms
     dev = nodes.valid.device
     N = nodes.valid.shape[0]
@@ -111,7 +119,9 @@ def preempt_batch(
     on_node = existing.valid & (node_e >= 0)
     vict_pot = on_node[None, :] & (existing.priority[None, :]
                                    < priority[:, None])          # [B, E]
-    node_e_safe = torch.where(on_node, node_e, N)
+    # this shard's rows; a pod on another shard's node walks nowhere here
+    row_e, inside = ax.local_rows(node_e, N)
+    node_e_safe = torch.where(on_node & inside, row_e, N)
     n_idx = node_e_safe.clamp(max=N - 1).long()                  # [E]
 
     req_e = tables.reqs.vec[classes.rid[cls_e].long()]           # [E, R]
@@ -190,14 +200,22 @@ def preempt_batch(
     key2 = torch.where(cand, k3.sum_p, big)
     key3 = torch.where(cand, k3.num_v, big)
     key4 = torch.where(cand, neg_i32(k3.est), big)  # latest start wins
-    arange_n = torch.arange(N, dtype=i32, device=dev).expand(B, N)
-    best = lexsort((arange_n, key4, key3, key2, key1, key0))[:, 0]
-    any_cand = cand.any(-1)
-    node = torch.where(any_cand, best, -1).to(i32)
+
+    def choose(k0, k1, k2, k3_, k4, cand_f):
+        Nf = cand_f.shape[1]
+        arange_n = torch.arange(Nf, dtype=i32, device=dev).expand(B, Nf)
+        best = lexsort((arange_n, k4, k3_, k2, k1, k0))[:, 0]
+        any_cand = cand_f.any(-1)
+        return (torch.where(any_cand, best, -1).to(i32), any_cand,
+                cand_f.sum(-1, dtype=i32))
+
+    node, any_cand, n_cand = ax.lead(
+        choose, *(Shard(k, 1) for k in (key0, key1, key2, key3, key4, cand)))
+    # each pod's victim flag comes from the one shard that walked it
+    victim = ax.all_reduce(victim, "any")
     victims = victim & (node_e[None] == node[:, None]) & any_cand[:, None]
     nv = (victims & pdb_blocked[None]).sum(-1, dtype=i32)
-    return PreemptResult(node=node, victims=victims,
-                         n_candidates=cand.sum(-1, dtype=i32),
+    return PreemptResult(node=node, victims=victims, n_candidates=n_cand,
                          n_pdb_violations=nv)
 
 

@@ -33,11 +33,13 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..parallel import axis
+from ..parallel.axis import Shard
 from ..state.arrays import Array, ClusterTables, PodArrays
 from ..state.dims import bucket
 from .assign import (AssignResult, AssignState, mask_context_row,
-                     mask_dynamic_row, queue_order, score_combine_row,
-                     score_context_row)
+                     mask_dynamic_row, queue_order, scan_rows,
+                     score_combine_row, score_context_row)
 from .kernels import assign_scan
 
 # floor for the bucketed run capacity (the JAX package's compile-signature
@@ -149,7 +151,7 @@ def _perpod_run(tables, cyc, pods, state, node_out, order_d, order, k,
     `order_d` (int32 on the device; `order` the same as a host list);
     the run's nodes come back once."""
     rows = order_d[start:start + k]
-    node, state = assign_scan(tables, cyc, pods, rows, state)
+    node, state = scan_rows(tables, cyc, pods, rows, state, assign_scan)
     for idx, nd in zip(order[start:start + k], node[rows.long()].tolist()):
         node_out[idx] = nd
     return state
@@ -202,6 +204,7 @@ def _closed_run(tables, cyc, state: AssignState, node_out: list,
     classes = tables.classes
     N = tables.nodes.valid.shape[0]
     dev = state.used.device
+    ax = axis.current()
     cls1 = torch.tensor([c], dtype=torch.int64, device=dev)
     req_vec = tables.reqs.vec[int(classes.rid[c])]  # [R]
     ps, vs = int(classes.portset[c]), int(classes.volset[c])
@@ -246,14 +249,21 @@ def _closed_run(tables, cyc, state: AssignState, node_out: list,
     remaining, consumed = k, 0
     while remaining > 0:
         stats["epochs"] += 1
-        ordn, T = admission_prefix(row_at(j, j > 0), row_at(j + 1, all_placed),
-                                   remaining)
+        # the epoch orders every node: on the lead device of a mesh, each
+        # shard then counts the admitted nodes among its own rows
+        def epoch(cur, plus):
+            ordn, t = admission_prefix(cur, plus, remaining)
+            return ordn[:t], t
+
+        head, T = ax.lead(epoch, Shard(row_at(j, j > 0), 0),
+                          Shard(row_at(j + 1, all_placed), 0))
         if T == 0:
             break
-        # replica (consumed + i) of the run → node ordn[i], i < T
-        for i, nd in enumerate(ordn[:T].tolist()):
+        # replica (consumed + i) of the run → node head[i], i < T
+        for i, nd in enumerate(head.tolist()):
             node_out[order[start + consumed + i]] = nd
-        j[ordn[:T]] += 1
+        row, inside = ax.local_rows(head, N)
+        j[row[inside]] += 1
         remaining -= T
         consumed += T
 
@@ -263,7 +273,7 @@ def _closed_run(tables, cyc, state: AssignState, node_out: list,
     WSYM = state.WSYM
     if wsym:
         w_vec = cyc.WCOLS[:, c]
-        for t in range(int(j.max())):
+        for t in range(int(ax.amax(j, 0))):
             WSYM = WSYM + torch.where((j > t)[None, :], w_vec[:, None], 0.0)
     return AssignState(
         used=state.used + j[:, None] * req_vec[None, :],

@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import torch
 
+from ..parallel import axis
 from ..state.arrays import (
     Array,
     ClusterTables,
@@ -71,9 +72,10 @@ def weighted_per_node(WCOLS: Array, pods: PodArrays, N: int) -> Array:
     symmetric weights, scattered by node (processExistingPod,
     interpod_affinity.go:124-185)."""
     per_e = WCOLS[:, pods.cls.clamp(min=0).long()]        # [S, E]
-    on_node = (pods.node_id >= 0) & pods.valid
+    row, inside = axis.current().local_rows(pods.node_id, N)
+    on_node = inside & pods.valid
     per_e = torch.where(on_node[None, :], per_e, 0.0)
-    idx = torch.where(on_node, pods.node_id, N).long()
+    idx = torch.where(on_node, row, N).long()
     S = WCOLS.shape[0]
     out = torch.zeros((S, N + 1), dtype=torch.float32, device=WCOLS.device)
     out.scatter_add_(1, idx[None, :].expand(S, -1), per_e)
@@ -115,8 +117,11 @@ def even_spread_soft_row(
             & (~soft[..., None] | has_key).all(1))
     any_soft = soft.any(1, keepdim=True)
     rawf = raw.float()
-    total = torch.where(elig, rawf, 0.0).sum(-1, keepdim=True)
-    mn = torch.where(elig, rawf, torch.inf).amin(-1, keepdim=True)
+    # integer-valued f32 terms below 2^24: exact in any summation order,
+    # the cross-shard one included
+    ax = axis.current()
+    total = ax.sum(torch.where(elig, rawf, 0.0), -1, keepdim=True)
+    mn = ax.amin(torch.where(elig, rawf, torch.inf), -1, keepdim=True)
     denom = total - torch.where(torch.isinf(mn), 0.0, mn)
     score = torch.where(
         denom > 0,
@@ -139,7 +144,8 @@ def selector_spread_row(
     has_sel = (s_ids >= 0).any(1, keepdim=True)
 
     valid = nodes.valid
-    max_n = torch.where(valid, cntf, 0.0).amax(-1, keepdim=True)
+    ax = axis.current()
+    max_n = ax.amax(torch.where(valid, cntf, 0.0), -1, keepdim=True)
     node_score = torch.where(
         max_n > 0, MAX_NODE_SCORE * (max_n - cntf) / max_n, MAX_NODE_SCORE)
 
@@ -158,11 +164,12 @@ def selector_spread_row(
                           device=cntf.device)
     zcounts.scatter_add_(1, idx[None, :].expand_as(cntf),
                          torch.where(has_zone, cntf, 0.0))
+    zcounts = ax.all_reduce(zcounts, "sum")  # integer-valued: exact
     zcnt = zcounts[:, idx]                                # [B, N]
     max_z = zcounts[:, : 2 * D].amax(-1, keepdim=True)
     zone_score = torch.where(
         max_z > 0, MAX_NODE_SCORE * (max_z - zcnt) / max_z, MAX_NODE_SCORE)
-    have_zones = has_zone.any()
+    have_zones = ax.any(has_zone)
 
     blended = torch.where(
         have_zones & has_zone,
@@ -184,8 +191,10 @@ def image_locality_static(tables: ClusterTables) -> Array:
     bits = bits * nodes.valid[:, None, None]
     present = bits.bool().permute(1, 2, 0) & has_img[..., None]  # [SC, CI, N]
 
-    total_nodes = torch.clamp(nodes.valid.sum(dtype=torch.int32), min=1).float()
-    num_nodes = bits.sum(0, dtype=torch.int32) * has_img         # [SC, CI]
+    ax = axis.current()
+    total_nodes = torch.clamp(ax.sum(nodes.valid, dtype=torch.int32),
+                              min=1).float()
+    num_nodes = ax.sum(bits, 0, dtype=torch.int32) * has_img     # [SC, CI]
     spread = num_nodes.float() / total_nodes
     size = images.size_kib[safe.long()].float() * has_img
     scaled = size * spread                                       # [SC, CI]

@@ -11,6 +11,7 @@ from __future__ import annotations
 import torch
 
 from ..api.types import TaintEffect, TolerationOp
+from ..parallel import axis
 from ..state.arrays import Array, NodeArrays, TolSetTable
 
 
@@ -60,6 +61,6 @@ def taint_toleration_score(prefer_counts: Array) -> Array:
     """[..., N] i32 counts → 0..100 score per row, reversed max-normalization
     (taint_toleration.go via NormalizeReduce(MaxNodeScore, reverse=true))."""
     c = prefer_counts.float()
-    mx = c.amax(-1, keepdim=True)
+    mx = axis.current().amax(c, -1, keepdim=True)
     return torch.where(mx > 0, 100.0 * (1.0 - c / torch.clamp(mx, min=1.0)),
                        100.0)

@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import torch
 
+from ..parallel import axis
 from ..state.arrays import Array, NodeArrays, PodClassTable, TermTable
 from .interpod import _at_domain, domain_agg, domain_of_term
 
@@ -38,6 +39,7 @@ def eligible_domains(
                       device=node_match.device)
     eld.scatter_reduce_(1, idx, ok.reshape(SC * TS, N).to(torch.int32),
                         reduce="amax", include_self=True)
+    eld = axis.current().all_reduce(eld, "max")
     return eld.reshape(SC, TS, D + 1) > 0
 
 

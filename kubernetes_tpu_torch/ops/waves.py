@@ -15,6 +15,16 @@ count products (CNT, HOLD, the interaction graph) run as float64 GEMMs of
 0/1 matrices with int32 values — every partial sum is an integer below
 2^53, so the result is exact (CUDA has no int32 GEMM), then wraps to int32
 as XLA's int32 product does. The f32 WSYM product runs with TF32 off.
+
+On a sharded node axis (parallel/axis.py) each shard runs this loop on its
+own node columns: the Filter mask and Score rows, K1 and the commit are
+shard-local; the per-class `best`, `infeasible`, the escape count and the
+admitted counts are cross-shard reductions; the steps that order every node
+of a class row — the rotated score sort, the domain quotas (K2, whose
+domains span shards), the top-r cut and the map back to pods — run on the
+lead device over the gathered [SC, N] score and admission rows (as GSPMD
+replicates a sort over a sharded axis), and each shard takes its columns of
+the admission matrix back.
 """
 
 from __future__ import annotations
@@ -23,6 +33,8 @@ from typing import NamedTuple
 
 import torch
 
+from ..parallel import axis
+from ..parallel.axis import Shard
 from ..state.arrays import Array, ClusterTables, PodArrays
 from .assign import (AssignResult, AssignState, I32_MIN, lexsort, neg_i32,
                      pod_mask_row, row_blocks, score_row)
@@ -167,7 +179,8 @@ def _escape_cap(tables, cyc, state, r):
     s = ats.clamp(min=0).long()
     active = ats >= 0
     has_key = (terms.topo_key[s][..., None] >= 0) & nodes.valid  # [SC, AT, N]
-    total = torch.where(active[..., None] & has_key, state.CNT[s], 0).sum((1, 2))
+    total = axis.current().sum(
+        torch.where(active[..., None] & has_key, state.CNT[s], 0), (1, 2))
     escape = active.any(1) & (total == 0)
     return torch.where(escape, torch.clamp(r, max=1), r)
 
@@ -207,13 +220,23 @@ def assign_waves(
     classes, nodes = tables.classes, tables.nodes
     dev = classes.valid.device
     SC = classes.valid.shape[0]
-    N = nodes.valid.shape[0]
     P = pods.valid.shape[0]
     i32 = torch.int32
+    ax = axis.current()
 
     G = interaction_graph(tables, cyc)
     req_by_class = tables.reqs.vec[classes.rid.clamp(min=0).long()]  # [SC, R]
     slots = quota_slots(tables)
+    # what the lead step's domain quotas read of the node axis: the node
+    # planes and the spread eligibility, static per cycle, gathered once
+    tables_q, cyc_q = tables, cyc
+    if ax.sharded and (slots.spread or slots.anti):
+        from ..parallel.mesh import gather_tables
+
+        tables_q = gather_tables(tables)
+        nm = ax.gather(cyc.static.node_match, 1)
+        if ax.rank == 0:
+            cyc_q = cyc._replace(static=cyc.static._replace(node_match=nm))
     # classes whose Filter feasibility only tightens within a cycle (no
     # required pod-affinity, no hard spread): once infeasible everywhere,
     # they stay infeasible
@@ -238,7 +261,6 @@ def assign_waves(
     node_out = torch.full((P + 1,), -1, dtype=i32, device=dev)
     wave_out = torch.full((P + 1,), -1, dtype=i32, device=dev)
     cap = max_waves if max_waves is not None else 2 * P + 2
-    node_ids = torch.arange(N, dtype=i32, device=dev)
     waves = 0
     while waves < cap and bool(((class_total - cursor > 0) & classes.valid).any()):
         remaining = class_total - cursor
@@ -261,7 +283,7 @@ def assign_waves(
         mask, score = _class_mask_score(tables, cyc, state)
         mask = mask & nxt_ok[:, None]
         # score-window admission (EngineConfig.w_window)
-        best = torch.where(mask, score, -torch.inf).amax(1, keepdim=True)
+        best = ax.amax(torch.where(mask, score, -torch.inf), 1, keepdim=True)
         adm_mask = mask & (score >= best - cyc.ecfg.w_window)
         r = _escape_cap(tables, cyc, state, r)
 
@@ -275,15 +297,21 @@ def assign_waves(
         r = torch.where(attempted, r, 0)
 
         # per-class admission: top-r feasible nodes by score, equal scores
-        # rotated by queue rank (generic_scheduler.go:502), domain quotas
-        order_n = score_order(score, crank)                         # [SC, N]
-        feas_sorted = torch.gather(adm_mask, 1, order_n)
-        allowed = _domain_quota_pass(tables, cyc, state, order_n,
-                                     feas_sorted, slots)
-        grank = torch.cumsum(allowed.to(i32), 1) - 1
-        adm_sorted = allowed & (grank < r[:, None])
-        A = torch.zeros((SC, N), dtype=torch.bool, device=dev).scatter_(
-            1, order_n, adm_sorted)
+        # rotated by queue rank (generic_scheduler.go:502), domain quotas —
+        # over every node of the row, so on the lead device of a mesh
+        def admit(score_f, adm_f, cnt_f):
+            order_n = score_order(score_f, crank)                   # [SC, N]
+            feas_sorted = torch.gather(adm_f, 1, order_n)
+            allowed = _domain_quota_pass(
+                tables_q, cyc_q, state._replace(CNT=cnt_f), order_n,
+                feas_sorted, slots)
+            grank = torch.cumsum(allowed.to(i32), 1) - 1
+            adm_sorted = allowed & (grank < r[:, None])
+            return torch.zeros_like(adm_f).scatter_(1, order_n, adm_sorted)
+
+        A = ax.split(ax.lead(admit, Shard(score, 1), Shard(adm_mask, 1),
+                             Shard(state.CNT, 1) if slots.spread
+                             else state.CNT), 1)
 
         # per-node cross-class resolution in queue-rank order (K1)
         cord = rank_key
@@ -301,7 +329,7 @@ def assign_waves(
 
         A_final = torch.zeros_like(A)
         A_final[cord] = keep
-        m = A_final.sum(1, dtype=i32)                               # [SC]
+        m = ax.sum(A_final, 1, dtype=i32)                           # [SC]
         total = int(m.sum())
 
         # ---- commit ----
@@ -315,24 +343,32 @@ def assign_waves(
             vol_any=state.vol_any | orva, vol_rw=state.vol_rw | orvr,
         )
 
-        # ---- map admissions back to pods (rank among kept, score order) ----
-        sck = torch.where(A_final, score, -torch.inf)
-        ordk = torch.argsort(-sck, dim=1, stable=True)
-        kept_sorted = torch.gather(A_final, 1, ordk)
-        rank_sorted = torch.cumsum(kept_sorted.to(i32), 1, dtype=i32) - 1
-        rank = torch.zeros((SC, N), dtype=i32, device=dev).scatter_(
-            1, ordk, rank_sorted)
-        tgt = torch.where(A_final, class_offset[:, None] + cursor[:, None] + rank, P)
-        pod_id = torch.where(A_final, sorted_pods_pad[torch.clamp(tgt, max=P).long()], P)
-        pod_id = pod_id.reshape(-1)
-        node_out[pod_id] = node_ids.expand(SC, N).reshape(-1)
-        wave_out[pod_id] = waves
+        # ---- map admissions back to pods (rank among kept, score order;
+        # the node outputs live on the lead device) ----
+        def map_back(a_f, score_f):
+            N = a_f.shape[1]
+            sck = torch.where(a_f, score_f, -torch.inf)
+            ordk = torch.argsort(-sck, dim=1, stable=True)
+            kept_sorted = torch.gather(a_f, 1, ordk)
+            rank_sorted = torch.cumsum(kept_sorted.to(i32), 1, dtype=i32) - 1
+            rank = torch.zeros((SC, N), dtype=i32, device=dev).scatter_(
+                1, ordk, rank_sorted)
+            tgt = torch.where(a_f, class_offset[:, None] + cursor[:, None]
+                              + rank, P)
+            pod_id = torch.where(
+                a_f, sorted_pods_pad[torch.clamp(tgt, max=P).long()], P)
+            pod_id = pod_id.reshape(-1)
+            node_ids = torch.arange(N, dtype=i32, device=dev)
+            node_out[pod_id] = node_ids.expand(SC, N).reshape(-1)
+            wave_out[pod_id] = waves
+
+        ax.lead(map_back, Shard(A_final, 1), Shard(score, 1))
 
         # failure consumption (see the JAX package's comment at this step):
         # zero progress fails every attempting class's run; an attempted,
         # Filter-infeasible class fails early when monotone or in the
         # failing prefix of the rank order
-        infeasible = attempted & ~mask.any(1)
+        infeasible = attempted & ~ax.any(mask, 1)
         ord_fail = (infeasible | ~nxt_ok)[rank_key]
         prefix = torch.cumprod(ord_fail.to(i32), 0) > 0
         in_prefix = torch.zeros((SC,), dtype=torch.bool, device=dev)
@@ -345,8 +381,8 @@ def assign_waves(
         cursor = cursor + consume
         waves += 1
 
-    node = node_out[:P]
+    node, wave = ax.lead(lambda: (node_out[:P], wave_out[:P]))
     result = AssignResult(node=node, feasible=node >= 0, state=state)
     if return_waves:
-        return result, wave_out[:P]
+        return result, wave
     return result

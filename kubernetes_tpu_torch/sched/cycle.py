@@ -16,7 +16,11 @@ names, and with `explain` the decision attribution of the wave
 (state/cache.py, through `snapshot_with_keys`); the extender verbs
 evaluate one pod through `_feasible`, `_scores` and `_diagnose`.
 
-The port has no mesh yet.
+On a mesh (parallel/mesh.py) `schedule_batch` takes `ShardedTables`: the
+same cycle runs on every shard's node rows under its node axis, with the
+pending and existing pods (and the gang arrays) replicated to the shards'
+devices, and the placements, the final state and the attribution come back
+on the lead device.
 """
 
 from __future__ import annotations
@@ -36,6 +40,9 @@ from ..ops.lattice import (EngineConfig, build_cycle, default_engine_config,
                            f32_scalar, fma_f32, strong_engine_config)
 from ..ops.runs import assign_runs, plan_runs
 from ..ops.waves import assign_waves
+from ..parallel import axis
+from ..parallel.mesh import (ShardedTables, gather_cycle, gather_state,
+                             gather_tables, replicate)
 from ..state.arrays import ClusterTables, PodArrays, tables_to_torch, to_device
 from ..state.dims import Dims
 from ..state.encode import Encoder
@@ -44,19 +51,19 @@ UNSCHEDULABLE_TAINT_KEY = "node.kubernetes.io/unschedulable"  # predicates.go:15
 
 
 def snapshot_with_keys(cache, encoder: Encoder, pending, base_dims,
-                       device=None):
+                       device=None, mesh=None):
     """Snapshot + the interned synthetic-taint key ids every dispatch needs
     — the single home for the UNSCHEDULABLE_TAINT_KEY interning ritual.
     `device` is where the snapshot's tensors live (the CUDA card when
-    None)."""
+    None); with a `mesh` the node planes are resident per shard."""
     snap = cache.snapshot(encoder, pending, base_dims,
                           extra_intern=(UNSCHEDULABLE_TAINT_KEY,),
-                          device=device)
+                          device=device, mesh=mesh)
     return snap, _taint_scalars(encoder)
 
 
 def micro_snapshot_with_keys(cache, encoder: Encoder, pending, base_dims,
-                             micro_p: int, device=None):
+                             micro_p: int, device=None, mesh=None):
     """Micro-wave snapshot: bring the RESIDENT cluster state current through
     the ordinary generation-diffed snapshot — with an EMPTY pending batch,
     so node/existing-pod deltas ride the same patch path as a bulk wave —
@@ -68,14 +75,17 @@ def micro_snapshot_with_keys(cache, encoder: Encoder, pending, base_dims,
     encoder.intern_pods(pending)
     base = cache.snapshot(encoder, [], base_dims,
                           extra_intern=(UNSCHEDULABLE_TAINT_KEY,),
-                          device=device)
-    snap = cache.micro_graft(encoder, pending, base, micro_p, device=device)
+                          device=device, mesh=mesh)
+    snap = cache.micro_graft(encoder, pending, base, micro_p, device=device,
+                             mesh=mesh)
     return snap, _taint_scalars(encoder)
 
 
 def _taint_scalars(encoder: Encoder):
     """The interned synthetic-taint pair every dispatch carries, as the two
-    Python ints `schedule_batch` takes."""
+    Python ints `schedule_batch` takes. The JAX package places its two
+    scalars on its mesh, replicated; here they are host ints that every
+    shard's thread reads, so a mesh needs no branch."""
     encoder.vocabs.label_vals.intern("")
     return (encoder.vocabs.label_keys.get(UNSCHEDULABLE_TAINT_KEY),
             encoder.vocabs.label_vals.get(""))
@@ -181,6 +191,12 @@ def schedule_batch(tables: ClusterTables, pending: PodArrays, keys: tuple,
     be combined."""
     if explain and return_waves:
         raise ValueError("explain and return_waves cannot be combined")
+    if isinstance(tables, ShardedTables):
+        return _schedule_sharded(
+            tables, pending, keys, D, existing, has_node_name=has_node_name,
+            hard_weight=hard_weight, ecfg=ecfg, extra_plugins=extra_plugins,
+            extra_weights=extra_weights, gang=gang,
+            return_waves=return_waves, runs=runs, explain=explain)
     engine = _engine()
     if engine == "waves" and has_node_name:
         engine = "scan"
@@ -214,12 +230,57 @@ def schedule_batch(tables: ClusterTables, pending: PodArrays, keys: tuple,
         if gang is not None and engine == "waves" \
                 and pending.valid.shape[0] >= _GANG_HOST_THRESHOLD:
             return res, None
-        return res, explain_assignments(
-            tables, cyc, pending, res,
-            granularity="pod" if engine == "scan" else "class")
+        gran = "pod" if engine == "scan" else "class"
+        ax = axis.current()
+        if ax.sharded:
+            # the attribution ranks every node of a row: on the lead device,
+            # over the gathered tables, lattice and state
+            ft, fc = gather_tables(tables), gather_cycle(cyc)
+            fs = gather_state(res.state)
+            return res, ax.lead(lambda: explain_assignments(
+                ft, fc, pending, res._replace(state=fs), granularity=gran))
+        return res, explain_assignments(tables, cyc, pending, res,
+                                        granularity=gran)
     return (res, waves) if return_waves else res
 
 
+def _schedule_sharded(st: ShardedTables, pending: PodArrays, keys: tuple,
+                      D: int, existing: PodArrays, **kw):
+    """schedule_batch on a mesh: the cycle on every shard (parallel/mesh.py
+    ShardedTables.run), the pods replicated to the shards' devices; the
+    lead shard's outputs, its result carrying the gathered final state."""
+    mesh = st.mesh
+    gang = kw.pop("gang")
+    pair = kw["explain"] or kw["return_waves"]
+
+    def shard(tables, pe, ex, g):
+        out = schedule_batch(tables, pe, keys, D, ex, gang=g, **kw)
+        res = out[0] if pair else out
+        res = res._replace(state=gather_state(res.state))
+        return (res, out[1]) if pair else res
+
+    return st.run(shard, replicate(pending, mesh), replicate(existing, mesh),
+                  replicate(gang, mesh))[0]
+
+
+def _node_rows(fn):
+    """A [P, N]-valued verb (`fn(tables, pending, keys, D, existing, ...)`)
+    on ShardedTables: every shard evaluates its node columns, the rows come
+    back gathered on the lead device."""
+    def wrapped(tables, pending, keys, D, existing, *args):
+        if not isinstance(tables, ShardedTables):
+            return fn(tables, pending, keys, D, existing, *args)
+        mesh = tables.mesh
+        return tables.run(
+            lambda t, pe, ex: axis.current().gather_tree(
+                fn(t, pe, keys, D, ex, *args), 1),
+            replicate(pending, mesh), replicate(existing, mesh))[0]
+
+    wrapped.__doc__ = fn.__doc__
+    return wrapped
+
+
+@_node_rows
 def _feasible(tables: ClusterTables, pending: PodArrays, keys: tuple, D: int,
               existing: PodArrays, hard_weight: float = 1.0,
               ecfg: Optional[EngineConfig] = None):
@@ -230,6 +291,7 @@ def _feasible(tables: ClusterTables, pending: PodArrays, keys: tuple, D: int,
         pending)
 
 
+@_node_rows
 def _scores(tables: ClusterTables, pending: PodArrays, keys: tuple, D: int,
             existing: PodArrays, hard_weight: float = 1.0,
             ecfg: Optional[EngineConfig] = None, extra_plugins: tuple = (),
@@ -243,6 +305,7 @@ def _scores(tables: ClusterTables, pending: PodArrays, keys: tuple, D: int,
                        extra_plugins, extra_weights), pending)
 
 
+@_node_rows
 def _diagnose(tables: ClusterTables, pending: PodArrays, keys: tuple, D: int,
               existing: PodArrays, hard_weight: float = 1.0,
               ecfg: Optional[EngineConfig] = None):

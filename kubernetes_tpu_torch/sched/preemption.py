@@ -36,6 +36,7 @@ from ..api.types import Pod
 from ..ops.lattice import (build_cycle, default_engine_config, f32_scalar,
                            strong_engine_config)
 from ..ops.preempt import PreemptResult, preempt_batch
+from ..parallel.mesh import ShardedTables, mesh_key, replicate
 from ..state.arrays import to_device
 from ..state.cache import Snapshot
 
@@ -50,6 +51,15 @@ def _preempt(tables, existing, cls, nnr, prio, D, keys,
     """One burst of [B] preemptors: build the cycle lattice once (with the
     configured EngineConfig and hardPodAffinitySymmetricWeight), evaluate
     every lane's five-criteria what-if (ops/preempt.py preempt_batch)."""
+    if isinstance(tables, ShardedTables):
+        # per shard: the lattice and K3 on its nodes, the node choice on
+        # the lead device (ops/preempt.py)
+        mesh = tables.mesh
+        return tables.run(
+            lambda t, ex, c, n, p, pdb: _preempt(t, ex, c, n, p, D, keys, pdb,
+                                                 hard_weight, ecfg),
+            *(replicate(x, mesh) for x in (existing, cls, nnr, prio,
+                                           pdb_blocked)))[0]
     uk, ev = keys
     cyc = build_cycle(tables, existing, uk, ev, D, f32_scalar(hard_weight),
                       strong_engine_config(ecfg if ecfg is not None
@@ -237,8 +247,10 @@ class Preemptor:
                 if hung:
                     raise RuntimeError("preempt fallback: primary tensors "
                                        "unreachable (hung backend)")
+                tables = snap.tables.gather() \
+                    if isinstance(snap.tables, ShardedTables) else snap.tables
                 return _readback(_preempt(
-                    to_device(snap.tables, dev), to_device(snap.existing, dev),
+                    to_device(tables, dev), to_device(snap.existing, dev),
                     lane(cls_b, dev), lane(nnr_b, dev), lane(prio_b, dev),
                     snap.dims.D, keys, pdb_dev.to(dev), hw, ecfg))
 
@@ -251,7 +263,11 @@ class Preemptor:
                 try:
                     nodes_b, victims_b, npdb_b = supervisor.run(
                         "preempt",
-                        (replace(snap.dims, has_node_name=False, P=1), B),
+                        # the burst is keyed by its mesh as well: a sharded
+                        # burst is a different dispatch from a single-device
+                        # one at the same dims
+                        (replace(snap.dims, has_node_name=False, P=1), B,
+                         mesh_key(snap.mesh)),
                         _primary, _fallback)
                 except DispatchAbandonedError:
                     # nothing in this chunk (or the remaining ones) was

@@ -24,6 +24,11 @@ warm separately, one warm in flight at a time (the preemption burst on its
 own slot), a failed warm clears its entry so a later cycle retries, and
 `invalidate()` fences out a warm that started before a backend loss.
 Nothing here blocks the serving loop.
+
+Every key carries the mesh signature (parallel/mesh.py mesh_key, None on
+one device), as the JAX package's keys do (its `_mesh_sig`): a warm on one
+mesh never answers a lookup for another width or for single-device serving,
+and a warm with a mesh runs its probe cycle sharded on that mesh.
 """
 
 from __future__ import annotations
@@ -81,8 +86,17 @@ def _probe_encoder() -> Encoder:
     return enc
 
 
+def _sig(mesh):
+    """A mesh (or an already-computed mesh_key, or None) as its key."""
+    if mesh is None or isinstance(mesh, tuple):
+        return mesh
+    from ..parallel.mesh import mesh_key
+
+    return mesh_key(mesh)
+
+
 def warm_cycle(d: Dims, device: torch.device, gang: bool = False,
-               extras: tuple = ()) -> Dims:
+               extras: tuple = (), mesh=None) -> Dims:
     """One throwaway cycle at dims `d` on the current stream: a fresh
     Encoder's tables at `d` holding the probe node and two probe pods,
     through sched/cycle.py schedule_batch (the engine KTPU_ASSIGN names)
@@ -97,6 +111,10 @@ def warm_cycle(d: Dims, device: torch.device, gang: bool = False,
                                             replace(d, has_node_name=False))
     gang_arrays = enc.build_gang_arrays(pods, dd, {}) if gang else None
     tt, (ext, pet) = tables_to_torch(tables, (ex, pe), device)
+    if mesh is not None:
+        from ..parallel.mesh import shard_tables
+
+        tt = shard_tables(tt, mesh)
     keys = (enc.vocabs.label_keys.get(UNSCHEDULABLE_TAINT_KEY),
             enc.vocabs.label_vals.get(""))
     res = schedule_batch(
@@ -124,7 +142,8 @@ def warm_fleet(d: Dims, K: int, device: torch.device, engine: str = "waves",
     return dd
 
 
-def warm_preempt(d: Dims, burst: int, device: torch.device) -> Dims:
+def warm_preempt(d: Dims, burst: int, device: torch.device,
+                 mesh=None) -> Dims:
     """One throwaway preemption burst of `burst` lanes at dims `d` (P=1) on
     the current stream: the probe node holding one bound probe pod, a
     priority preemptor, through sched/preemption.py's burst (K3)."""
@@ -140,6 +159,10 @@ def warm_preempt(d: Dims, burst: int, device: torch.device) -> Dims:
     tables, ex, pe, dd = enc.encode_cluster(
         [node], [victim], [vip], replace(d, has_node_name=False, P=1))
     tt, (ext, pet) = tables_to_torch(tables, (ex, pe), device)
+    if mesh is not None:
+        from ..parallel.mesh import shard_tables
+
+        tt = shard_tables(tt, mesh)
     keys = (enc.vocabs.label_keys.get(UNSCHEDULABLE_TAINT_KEY),
             enc.vocabs.label_vals.get(""))
     lane = lambda v: torch.full((burst,), int(v), dtype=torch.int32,
@@ -189,9 +212,14 @@ class BucketPrewarmer:
 
     @staticmethod
     def _key(d: Dims, engine: str, extras: tuple, gang: bool, rc: int,
-             fleet=None):
+             fleet=None, mesh=None):
         return (replace(d, has_node_name=False), engine, extras, gang, rc,
-                fleet)
+                fleet, _sig(mesh))
+
+    @staticmethod
+    def _mesh_kw(mesh) -> dict:
+        # compile functions without a mesh keep their mesh-free signature
+        return {} if mesh is None else {"mesh": mesh}
 
     def _on_stream(self):
         """The warm thread's context: the prewarmer's device and its own
@@ -208,7 +236,8 @@ class BucketPrewarmer:
 
     def observe(self, d: Dims, n_nodes: int, n_existing: int,
                 engine: str = "waves", extras: tuple = (),
-                gang: bool = False, rc: int = 0, fleet=None) -> None:
+                gang: bool = False, rc: int = 0, fleet=None,
+                mesh=None) -> None:
         """Call once per cycle with live occupancy (and whether batches are
         gang-bearing — a gang batch runs a different program). Cheap when
         nothing is near a boundary. Warms one target per call; multiple
@@ -229,7 +258,7 @@ class BucketPrewarmer:
         for target in targets:
             if target == d:
                 continue
-            key = self._key(target, engine, extras, gang, rc, fleet)
+            key = self._key(target, engine, extras, gang, rc, fleet, mesh)
             with self._mu:
                 if key in self._warmed:
                     continue
@@ -239,6 +268,7 @@ class BucketPrewarmer:
                 t = threading.Thread(
                     target=self._compile_fn,
                     args=(target, engine, extras, gang, rc, fleet),
+                    kwargs=self._mesh_kw(mesh),
                     name=f"ktpu-prewarm-{target.N}x{target.E}", daemon=True)
                 # start BEFORE publishing: wait() joins _inflight without
                 # the lock, and joining a not-yet-started thread raises
@@ -247,11 +277,12 @@ class BucketPrewarmer:
             return
 
     def _compile(self, d: Dims, engine: str, extras: tuple, gang: bool,
-                 rc: int = 0, fleet=None) -> None:
+                 rc: int = 0, fleet=None, mesh=None) -> None:
         """The warm of one cycle signature (the JAX package's background
         compile): a throwaway dispatch at `d` on the prewarm stream — a
-        fleet dispatch of `fleet` probe tenants when that slot is set."""
-        key = self._key(d, engine, extras, gang, rc, fleet)
+        fleet dispatch of `fleet` probe tenants when that slot is set, a
+        sharded one on `mesh`."""
+        key = self._key(d, engine, extras, gang, rc, fleet, mesh)
         epoch = self._epoch
         try:
             if faultline.should("device.error", "prewarm"):
@@ -261,7 +292,8 @@ class BucketPrewarmer:
                 if fleet is not None:
                     warm_fleet(d, int(fleet), self.device, engine, rc)
                 else:
-                    warm_cycle(d, self.device, gang=gang, extras=extras)
+                    warm_cycle(d, self.device, gang=gang, extras=extras,
+                               mesh=mesh)
             seconds = time.perf_counter() - t0
             with self._mu:
                 if epoch != self._epoch:
@@ -281,9 +313,10 @@ class BucketPrewarmer:
                 self.supervisor.note_compile_failure(e)
 
     def lookup(self, d: Dims, engine: str, extras: tuple, gang: bool,
-               rc: int = 0, fleet=None) -> bool:
-        """Is this cycle signature warm?"""
-        return self._key(d, engine, extras, gang, rc, fleet) in self.warm
+               rc: int = 0, fleet=None, mesh=None) -> bool:
+        """Is this cycle signature warm (on this mesh)?"""
+        return self._key(d, engine, extras, gang, rc, fleet, mesh) \
+            in self.warm
 
     def invalidate(self) -> None:
         """Drop every warm record and fence out in-flight warms (epoch bump:
@@ -295,7 +328,8 @@ class BucketPrewarmer:
             self._warmed.clear()
 
     def rewarm(self, d: Dims, engine: str = "waves", extras: tuple = (),
-               gang: bool = False, rc: int = 0, fleet=None) -> bool:
+               gang: bool = False, rc: int = 0, fleet=None,
+               mesh=None) -> bool:
         """Force a background warm of the CURRENT dims regardless of
         occupancy thresholds — the backend re-admission path. If a warm is
         already in flight the rewarm CHAINS behind it. Returns True when
@@ -304,15 +338,16 @@ class BucketPrewarmer:
             return False
         if max(d.N, d.E) < self.min_axis:
             return False  # small shapes run cold in milliseconds
-        key = self._key(d, engine, extras, gang, rc, fleet)
+        key = self._key(d, engine, extras, gang, rc, fleet, mesh)
         args = (d, engine, extras, gang, rc, fleet)
+        kw = self._mesh_kw(mesh)
         with self._mu:
             self._warmed.add(key)
             prev = self._inflight
             if prev is not None and prev.is_alive():
                 def chained():
                     prev.join()
-                    self._compile_fn(*args)
+                    self._compile_fn(*args, **kw)
 
                 t = threading.Thread(
                     target=chained,
@@ -320,14 +355,15 @@ class BucketPrewarmer:
             else:
                 t = threading.Thread(
                     target=self._compile_fn,
-                    args=args,
+                    args=args, kwargs=kw,
                     name=f"ktpu-prewarm-re-{d.N}x{d.E}", daemon=True)
             t.start()  # before publishing: see observe()
             self._inflight = t
         return True
 
     def ensure_warm(self, d: Dims, engine: str = "waves", extras: tuple = (),
-                    gang: bool = False, rc: int = 0, fleet=None) -> bool:
+                    gang: bool = False, rc: int = 0, fleet=None,
+                    mesh=None) -> bool:
         """The warm-standby beat (Scheduler.warm_standby): warm this exact
         signature in the background IF it is neither warm nor warming —
         idempotent, unlike rewarm. Returns True when a warm was
@@ -335,9 +371,10 @@ class BucketPrewarmer:
         if not self.enabled or max(d.N, d.E) < self.min_axis:
             return False
         with self._mu:
-            if self._key(d, engine, extras, gang, rc, fleet) in self._warmed:
+            if self._key(d, engine, extras, gang, rc, fleet, mesh) \
+                    in self._warmed:
                 return False
-        return self.rewarm(d, engine, extras, gang, rc, fleet)
+        return self.rewarm(d, engine, extras, gang, rc, fleet, mesh)
 
     def ensure_patch_ladder(self, cache, snap) -> bool:
         """Background warm of the resident patch ladder (state/cache.py
@@ -375,12 +412,13 @@ class BucketPrewarmer:
     # ---- preemption burst (sched/preemption.py _preempt, K3) ---- #
 
     @staticmethod
-    def _preempt_key(d: Dims, burst: int):
+    def _preempt_key(d: Dims, burst: int, mesh=None):
         # the burst never sees the pending arrays, so P (and the per-batch
         # has_node_name flag) must not split the key
-        return ("preempt", replace(d, has_node_name=False, P=1), burst)
+        return ("preempt", replace(d, has_node_name=False, P=1), burst,
+                _sig(mesh))
 
-    def observe_preempt(self, d: Dims, burst: int) -> None:
+    def observe_preempt(self, d: Dims, burst: int, mesh=None) -> None:
         """Warm the preemption burst for the CURRENT dims in the background,
         once per (dims, burst) — nothing else runs it before the first
         preemption storm."""
@@ -388,7 +426,7 @@ class BucketPrewarmer:
             return
         if max(d.N, d.E) < self.min_axis:
             return
-        key = self._preempt_key(d, burst)
+        key = self._preempt_key(d, burst, mesh)
         with self._mu:
             if key in self._warmed:
                 return
@@ -397,20 +435,20 @@ class BucketPrewarmer:
                 return  # one preempt warm at a time; retry next cycle
             self._warmed.add(key)
             t = threading.Thread(
-                target=self._compile_preempt, args=(d, burst),
+                target=self._compile_preempt, args=(d, burst, mesh),
                 name=f"ktpu-prewarm-preempt-{d.N}x{d.E}", daemon=True)
             t.start()  # before publishing: see observe()
             self._inflight_preempt = t
 
-    def _compile_preempt(self, d: Dims, burst: int) -> None:
-        key = self._preempt_key(d, burst)
+    def _compile_preempt(self, d: Dims, burst: int, mesh=None) -> None:
+        key = self._preempt_key(d, burst, mesh)
         epoch = self._epoch
         try:
             if faultline.should("device.error", "prewarm"):
                 raise InjectedDeviceError("injected device error at prewarm")
             t0 = time.perf_counter()
             with self._on_stream():
-                warm_preempt(d, burst, self.device)
+                warm_preempt(d, burst, self.device, mesh=mesh)
             seconds = time.perf_counter() - t0
             with self._mu:
                 if epoch != self._epoch:
@@ -424,8 +462,8 @@ class BucketPrewarmer:
             if self.supervisor is not None:
                 self.supervisor.note_compile_failure(e)
 
-    def lookup_preempt(self, d: Dims, burst: int) -> bool:
-        return self._preempt_key(d, burst) in self.warm
+    def lookup_preempt(self, d: Dims, burst: int, mesh=None) -> bool:
+        return self._preempt_key(d, burst, mesh) in self.warm
 
     def wait(self, timeout: Optional[float] = None) -> None:
         """Test/shutdown helper: join the in-flight warms."""

@@ -158,20 +158,45 @@ class CycleStats:
     failed_keys: List[str] = field(default_factory=list)
 
 
-def _mesh_env_on() -> bool:
-    """KTPU_MESH asks for mesh serving when the JAX package would build a
-    mesh from it: "auto" or a device count above 1."""
-    env = os.environ.get("KTPU_MESH", "")
-    if env == "auto":
-        return True
-    try:
-        return int(env) > 1
-    except ValueError:
-        return False
-
-
 def _unported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported yet — ROADMAP {item}")
+
+
+def _make_mesh_state(mesh):
+    """The serving mesh from the `mesh` argument or KTPU_MESH (the JAX
+    package's `_make_mesh_state`): a MeshState as given; a Mesh adopted as
+    the live mesh, its devices the pool; an int n > 1 or "auto" a MeshState
+    over the CUDA devices (n of them, or all), which raises when there are
+    fewer; unset, "0", "off", 1 or an unparseable KTPU_MESH serve on one
+    device."""
+    from ..parallel.mesh import Mesh, MeshState, make_mesh
+
+    if mesh is None:
+        env = os.environ.get("KTPU_MESH", "")
+        if not env or env in ("0", "off"):
+            return None
+        mesh = env
+    if isinstance(mesh, MeshState):
+        return mesh
+    if isinstance(mesh, Mesh):
+        ms = MeshState(mesh.size, devices=mesh.devices)
+        ms.mesh = mesh
+        return ms
+    if isinstance(mesh, str):
+        if mesh == "auto":
+            ms = MeshState(None)
+            return ms if ms.mesh is not None else None
+        try:
+            mesh = int(mesh)
+        except ValueError:
+            return None
+    if isinstance(mesh, int):
+        if mesh <= 1:
+            return None
+        make_mesh(mesh)  # raises, with the virtual-mesh hint, when short
+        return MeshState(mesh)
+    raise TypeError(f"mesh: {mesh!r} is not an int, 'auto', a Mesh or a "
+                    "MeshState")
 
 
 class Scheduler:
@@ -183,7 +208,12 @@ class Scheduler:
     on its own. `fallback_device` names where a timed-out or failed
     dispatch re-runs; unset, or once a kernel launch failed or the CUDA
     context died, a failed wave is abandoned and requeued. `prewarm=True`
-    turns the bucket prewarmer on."""
+    turns the bucket prewarmer on.
+
+    `mesh` (an int, "auto", a parallel/mesh.py Mesh or MeshState; else
+    KTPU_MESH) shards the node axis: the cache keeps the node planes
+    resident per shard and each wave runs sharded (sched/cycle.py); a
+    backend loss drops the mesh until the supervisor re-forms it."""
 
     def __init__(
         self,
@@ -205,10 +235,8 @@ class Scheduler:
         fallback_device=None,
         prewarm: bool = False,
     ) -> None:
-        if mesh is not None or _mesh_env_on():
-            raise _unported("mesh serving (parallel/mesh.py, KTPU_MESH)",
-                            "A13")
         self.device = resolve_device(device)
+        self.mesh_state = _make_mesh_state(mesh)
         self.binder = binder
         # exactly-once binding across crash/restart (sched/ledger.py): with
         # a BindIntentLedger every wave's placements are durably recorded
@@ -281,7 +309,8 @@ class Scheduler:
         # re-admission (sched/supervisor.py)
         self.supervisor = DispatchSupervisor(
             self.device, prewarmer=self.prewarmer,
-            stream=self.dispatch_stream, fallback_device=fallback_device)
+            stream=self.dispatch_stream, fallback_device=fallback_device,
+            mesh_state=self.mesh_state)
         self.prewarmer.supervisor = self.supervisor
         # observability (sched/telemetry.py): watch→bind latency (stamps in
         # THIS scheduler's clock domain via the queue's tracker hook), wave
@@ -407,7 +436,8 @@ class Scheduler:
         # lost backend's tensors
         return snapshot_with_keys(self.cache, self.encoder, pending,
                                   self.base_dims,
-                                  device=self.supervisor.snapshot_device())
+                                  device=self.supervisor.snapshot_device(),
+                                  mesh=self.supervisor.snapshot_mesh())
 
     def _preempt_snapshot(self, pending: List[Pod]):
         """The preemption pass's fresh snapshot: it sees the pods this wave
@@ -415,14 +445,16 @@ class Scheduler:
         return self.cache.snapshot(
             self.encoder, pending, self.base_dims,
             extra_intern=(UNSCHEDULABLE_TAINT_KEY,),
-            device=self.supervisor.snapshot_device())
+            device=self.supervisor.snapshot_device(),
+            mesh=self.supervisor.snapshot_mesh())
 
     def _micro_snapshot_keys(self, pending: List[Pod]):
         # sync the resident tables with an EMPTY pending patch, then graft
         # a small fixed-P pending block for just these deltas
         return micro_snapshot_with_keys(
             self.cache, self.encoder, pending, self.base_dims,
-            self._micro_p, device=self.supervisor.snapshot_device())
+            self._micro_p, device=self.supervisor.snapshot_device(),
+            mesh=self.supervisor.snapshot_mesh())
 
     def _micro_mode(self, now: float) -> str:
         """Micro/bulk arbitration, decided once per wave after the
@@ -609,7 +641,7 @@ class Scheduler:
         self.prewarmer.observe(
             snap.dims, n_nodes=self.cache.node_count,
             n_existing=self.cache.pod_count, engine=wave_engine,
-            extras=extras, gang=gang, rc=rc)
+            extras=extras, gang=gang, rc=rc, mesh=snap.mesh)
         self.supervisor.note_cycle_signature(snap.dims, wave_engine, extras,
                                              gang, rc=rc)
         if self.microwave and not micro and snap.runs is None:
@@ -617,7 +649,7 @@ class Scheduler:
             # delta after a quiet period must not run cold
             self.prewarmer.ensure_warm(
                 replace(snap.dims, P=self._micro_p, has_node_name=False),
-                eng, extras, False, rc=0)
+                eng, extras, False, rc=0, mesh=snap.mesh)
         if self.microwave:
             self.prewarmer.ensure_patch_ladder(self.cache, snap)
         span.mark("prewarm")
@@ -675,8 +707,10 @@ class Scheduler:
             # (hung=True: a copy could block forever) and a dead one's
             # raise — then the wave RE-ENCODES onto the fallback from the
             # cache's host staging (snapshot_device() is the fallback now).
+            # A mesh wave re-encodes too: the mesh is dropped on the loss
+            # and its shards are never read again.
             args = None
-            if not hung:
+            if not hung and snap.mesh is None:
                 try:
                     args = (to_device(snap.tables, dev),
                             to_device(snap.pending, dev),
@@ -694,48 +728,26 @@ class Scheduler:
                 wave_ctx["node_order"] = fsnap.node_order
             return _readback(*_cycle(*args))
 
-        with self.telemetry.device_annotation("cycle"):
-            handle = self.supervisor.submit(
-                "cycle", (replace(snap.dims, has_node_name=False),
-                          wave_engine, extras, gang, rc),
-                _primary, _fallback)
-            # ---- host/device overlap: the dispatch runs on the watchdog
-            # worker, so while the device evaluates THIS wave the serving
-            # thread interns the NEXT wave's backlog — the vocabulary and
-            # class ids (tie-breaks in the wave engine) come out in the JAX
-            # package's order. A micro wave skips it: interning a bulk
-            # backlog would put the bulk cost back on its latency path.
-            if self.preemptor is not None:
-                from .preemption import PREEMPT_BURST
+        from ..parallel.mesh import mesh_key
 
-                # warm the preemption burst at the current dims before the
-                # first storm
-                self.prewarmer.observe_preempt(snap.dims, PREEMPT_BURST)
-            backlog = [] if micro else self.queue.peek_active(self.batch_size)
-            if backlog:
-                self.encoder.intern_pods(backlog)
-            span.mark("dispatch")
-            try:
-                node_idx, wave_exp = handle.result()
-                span.mark("readback")
-            except DispatchAbandonedError:
-                span.mark("readback")
-                # crash-consistent wave abort: nothing was assumed and
-                # nothing may be committed — requeue every popped pod
-                # (attempts preserved, prompt retry: the pods are fine, the
-                # backend wasn't)
-                for pod, attempts in batch + ext_batch:
-                    stats.aborted += 1
-                    self.queue.add_prompt_retry(pod, attempts=attempts,
-                                                now=now)
-                span.mark("requeue")
-                stats.cycle_seconds = time.perf_counter() - t0
-                # the supervisor's "abandoned" event auto-dumps the ring
-                self.telemetry.finish_wave(span, stats=stats,
-                                           engine=wave_engine,
-                                           dims=snap.dims, rc=rc,
-                                           micro=micro)
-                return stats
+        shape_key = (replace(snap.dims, has_node_name=False), wave_engine,
+                     extras, gang, rc)
+        if snap.mesh is not None:
+            shape_key += (None, mesh_key(snap.mesh))
+        # the dispatch worker is about to hold this snapshot's tensors: a
+        # snapshot taken before its readback (the mesh prestage below) takes
+        # the cache's copy path, never the in-place one. Everything up to
+        # the readback sits inside the try, so no path leaks the count.
+        self.cache.mark_dispatch_start()
+        try:
+            wave = self._dispatch_wave(span, now, t0, snap, batch, ext_batch,
+                                       stats, wave_engine, rc, micro,
+                                       shape_key, _primary, _fallback)
+        finally:
+            self.cache.mark_dispatch_done()
+        if wave is None:
+            return stats  # abandoned: every popped pod requeued
+        node_idx, wave_exp = wave
         wave_order = wave_ctx["node_order"]
 
         # ---- decision provenance: render the wave's attribution (events,
@@ -839,6 +851,69 @@ class Scheduler:
             extra={"explain": explain_rec} if explain_rec else None)
         return stats
 
+    def _dispatch_wave(self, span, now, t0, snap, batch, ext_batch, stats,
+                       wave_engine, rc, micro, shape_key, _primary,
+                       _fallback):
+        """Submit the wave's cycle to the dispatch supervisor, overlap the
+        next wave's host work with it, and read it back: (node indices,
+        attribution), or None when the dispatch was abandoned and every
+        popped pod was requeued."""
+        with self.telemetry.device_annotation("cycle"):
+            handle = self.supervisor.submit("cycle", shape_key, _primary,
+                                            _fallback)
+
+            # ---- host/device overlap: the dispatch runs on the watchdog
+            # worker, so while the device evaluates THIS wave the serving
+            # thread interns the NEXT wave's backlog — the vocabulary and
+            # class ids (tie-breaks in the wave engine) come out in the JAX
+            # package's order. A micro wave skips it: interning a bulk
+            # backlog would put the bulk cost back on its latency path.
+            if self.preemptor is not None:
+                from .preemption import PREEMPT_BURST
+
+                # warm the preemption burst at the current dims before the
+                # first storm
+                self.prewarmer.observe_preempt(snap.dims, PREEMPT_BURST,
+                                               mesh=snap.mesh)
+            backlog = [] if micro else self.queue.peek_active(self.batch_size)
+            if backlog:
+                self.encoder.intern_pods(backlog)
+                if snap.mesh is not None:
+                    # the mesh prestage (the JAX package's double buffer):
+                    # scatter the deltas that accrued since the dispatched
+                    # snapshot into NEW resident planes (the copy path —
+                    # the dispatch holds the current ones) while the device
+                    # runs this wave; the post-readback snapshot then ships
+                    # only the wave's own assumes, in place. An
+                    # optimization: a failure leaves that work to it.
+                    try:
+                        self._snapshot_keys(backlog)
+                    except Exception:  # noqa: BLE001 - never fatal
+                        pass
+            span.mark("dispatch")
+            try:
+                out = handle.result()
+                span.mark("readback")
+            except DispatchAbandonedError:
+                span.mark("readback")
+                # crash-consistent wave abort: nothing was assumed and
+                # nothing may be committed — requeue every popped pod
+                # (attempts preserved, prompt retry: the pods are fine, the
+                # backend wasn't)
+                for pod, attempts in batch + ext_batch:
+                    stats.aborted += 1
+                    self.queue.add_prompt_retry(pod, attempts=attempts,
+                                                now=now)
+                span.mark("requeue")
+                stats.cycle_seconds = time.perf_counter() - t0
+                # the supervisor's "abandoned" event auto-dumps the ring
+                self.telemetry.finish_wave(span, stats=stats,
+                                           engine=wave_engine,
+                                           dims=snap.dims, rc=rc,
+                                           micro=micro)
+                return None
+        return out
+
     def _schedule_one_with_extenders(
         self, pod: Pod, attempts: int, now: float, cycle: int,
         stats: CycleStats
@@ -873,7 +948,7 @@ class Scheduler:
 
         def _score_fallback(dev, hung=False):
             args = None
-            if not hung:
+            if not hung and snap.mesh is None:
                 try:
                     args = (to_device(snap.tables, dev),
                             to_device(snap.pending, dev),
@@ -1089,11 +1164,11 @@ class Scheduler:
         # warm the signature the first led wave WILL dispatch (idempotent),
         # and keep the growth-boundary lookahead running
         self.prewarmer.ensure_warm(snap.dims, wave_engine, extras, gang,
-                                   rc=rc)
+                                   rc=rc, mesh=snap.mesh)
         self.prewarmer.observe(
             snap.dims, n_nodes=self.cache.node_count,
             n_existing=self.cache.pod_count, engine=wave_engine,
-            extras=extras, gang=gang, rc=rc)
+            extras=extras, gang=gang, rc=rc, mesh=snap.mesh)
 
     # ------------------------------------------------------------------ #
     # commit path: assume → Reserve → Permit → PreBind → Bind → PostBind

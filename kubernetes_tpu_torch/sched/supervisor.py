@@ -160,8 +160,11 @@ class DispatchSupervisor:
 
     def __init__(self, device: torch.device, prewarmer=None,
                  clock: Callable[[], float] = time.monotonic,
-                 stream=None, fallback_device=None) -> None:
+                 stream=None, fallback_device=None,
+                 mesh_state=None) -> None:
         self.device = torch.device(device)
+        # the serving mesh's lifecycle (parallel/mesh.py MeshState), or None
+        self.mesh_state = mesh_state
         # the stream the worker dispatches on (None on the CPU)
         self.stream = stream
         self.prewarmer = prewarmer
@@ -206,10 +209,13 @@ class DispatchSupervisor:
         if self.prewarmer is None:
             return False
         if kind == "cycle":
-            # a fleet dispatch's key carries the stack count K last
-            dims, engine, extras, gang, rc, *fleet = shape_key
-            return self.prewarmer.lookup(dims, engine, extras, gang, rc=rc,
-                                         fleet=fleet[0] if fleet else None)
+            # a fleet dispatch's key carries the stack count K next, a mesh
+            # dispatch its mesh signature after that
+            dims, engine, extras, gang, rc, *rest = shape_key
+            return self.prewarmer.lookup(
+                dims, engine, extras, gang, rc=rc,
+                fleet=rest[0] if rest else None,
+                mesh=rest[1] if len(rest) > 1 else None)
         if kind == "preempt":
             return self.prewarmer.lookup_preempt(*shape_key)
         return False
@@ -238,6 +244,15 @@ class DispatchSupervisor:
             return self.device
         return self.fallback_device
 
+    def snapshot_mesh(self):
+        """The mesh cache snapshots are sharded on: the live mesh while
+        healthy, None while degraded (a degraded wave runs on one device —
+        a collective over a mesh holding a failed device cannot
+        complete)."""
+        if not self._healthy or self.mesh_state is None:
+            return None
+        return self.mesh_state.mesh
+
     def note_cycle_signature(self, dims, engine: str, extras: tuple,
                              gang: bool, rc: int = 0, fleet=None) -> None:
         """Remember what the live cycle looks like so re-admission can warm
@@ -263,6 +278,13 @@ class DispatchSupervisor:
                 return
             self._healthy = False
             self.stats.unhealthy_since = self.clock()
+            # a mesh holding the failed device is wholly untrusted: drop it
+            # now, so snapshot_mesh() routes the next waves to one device
+            if self.mesh_state is not None:
+                try:
+                    self.mesh_state.on_backend_loss()
+                except Exception:  # noqa: BLE001 - health flip must not die
+                    pass
             # warm state may be tied to the lost backend: drop it; the
             # rewarm on re-admission repopulates
             if self.prewarmer is not None:
@@ -319,6 +341,48 @@ class DispatchSupervisor:
         done.wait(float(os.environ.get("KTPU_PROBE_DEADLINE", "10")))
         return ok[0]
 
+    def _probe_mesh_full(self) -> bool:
+        """Can the mesh come back at full width? One small all-reduce over
+        every shard of the full-width mesh (parallel/axis.py spmd), on a
+        worker under the probe deadline: a device that answers alone but
+        cannot join the collective keeps the mesh narrow. The
+        `mesh.degrade@probe` fault forces the narrow path."""
+        if faultline.should("mesh.degrade", "probe"):
+            return False
+        done = threading.Event()
+        ok = [False]
+
+        def probe() -> None:
+            try:
+                from ..parallel import axis
+                from ..parallel.mesh import make_mesh
+
+                ms = self.mesh_state
+                want = ms._requested or len(ms._pool)
+                if want <= 1:
+                    return
+                m = make_mesh(ms._pow2_floor(min(want, len(ms._pool))),
+                              devices=ms._pool)
+                n = m.size
+
+                def shard(r: int) -> int:
+                    x = torch.tensor([r], dtype=torch.int32,
+                                     device=m.devices[r])
+                    return int(axis.current().all_reduce(x, "sum").item())
+
+                totals = axis.spmd(m.devices, tuple(range(n)), n, shard)
+                ok[0] = all(t == n * (n - 1) // 2 for t in totals)
+            except Exception:  # noqa: BLE001 - probe failure = stay narrow
+                pass
+            finally:
+                done.set()
+
+        t = threading.Thread(target=probe, name="ktpu-mesh-full-probe",
+                             daemon=True)
+        t.start()
+        done.wait(float(os.environ.get("KTPU_PROBE_DEADLINE", "10")))
+        return ok[0]
+
     def _readmit(self) -> None:
         with self._mu:
             if self._healthy or self.stats.lost:
@@ -331,11 +395,22 @@ class DispatchSupervisor:
                     self.clock() - self.stats.unhealthy_since, 3)
             self.stats.unhealthy_since = None
             sig = self._cycle_sig
+        mesh = None
+        if self.mesh_state is not None:
+            # reform from the pool: full width when a whole-mesh collective
+            # answers, else narrower. The Mesh object is new either way, so
+            # the cache re-shards the resident planes from host staging.
+            try:
+                mesh = self.mesh_state.reform(full=self._probe_mesh_full())
+            except Exception:  # noqa: BLE001 - one device is always a
+                mesh = None    # legal landing spot
+            self._emit("mesh_reform", f"width {mesh.size if mesh else 1}")
         if self.prewarmer is not None and sig is not None:
             dims, engine, extras, gang, rc, fleet = sig
             try:
                 if self.prewarmer.rewarm(dims, engine=engine, extras=extras,
-                                         gang=gang, rc=rc, fleet=fleet):
+                                         gang=gang, rc=rc, fleet=fleet,
+                                         mesh=mesh):
                     self.stats.rewarms += 1
                     self._emit("rewarm", f"{engine} rc={rc}")
             except Exception:  # noqa: BLE001 - rewarm is an optimization

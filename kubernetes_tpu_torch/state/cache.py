@@ -29,9 +29,18 @@ every `Snapshot` stays immutable: callers keep old snapshots (micro_graft
 shares `base.tables`, tests compare two), exactly as the JAX package's
 non-donated jit patch leaves its inputs intact.
 
-Not ported: mesh-resident sharding and the donated in-place patch and its
-double buffer (ROADMAP A13). `warm_patch_ladder` drives the patch shapes
-once each (the JAX package compiles them; the port has no compile step).
+Mesh-resident mode (`snapshot(mesh=...)`, parallel/mesh.py): the node
+capacity pads to a multiple of the mesh, the node planes live per shard
+(`ShardedTables`, keyed by the Mesh object: a new mesh re-shards from the
+host staging), and a steady-state patch writes each shard's own dirty rows
+IN PLACE (`index_copy_`) — the port of the JAX package's donated patch —
+while no dispatch holds the resident planes (`mark_dispatch_start/done`);
+a snapshot taken while a dispatch is in flight (the scheduler's prestage)
+takes the out-of-place copy path into new planes instead. The counters
+`resident_full_uploads`, `resident_donated_patches` and
+`resident_copy_patches` count the three. `warm_patch_ladder` drives the
+patch shapes once each (the JAX package compiles them; the port has no
+compile step).
 Under KTPU_ASSIGN=runs every snapshot carries the
 run-collapsed engine's RunPlan (ops/runs.py), counted on the host from the
 same staging columns as the pending tensors.
@@ -48,6 +57,7 @@ import numpy as np
 import torch
 
 from ..api.types import Node, Pod
+from ..parallel.mesh import ShardedTables, padded_node_count, shard_tables
 from .arrays import (ClusterTables, NodeArrays, PodArrays, resolve_device,
                      to_device)
 from .dims import Dims
@@ -64,6 +74,26 @@ def _patch_rows(tree, idx: torch.Tensor, rows):
     snapshot (cache.go:204-255's per-NodeInfo copy). Out of place: returns a
     new tuple of new tensors and leaves `tree` as it was."""
     return type(tree)(*(a.index_copy(0, idx, r) for a, r in zip(tree, rows)))
+
+
+class ResidentDonationError(RuntimeError):
+    """An in-place resident patch did not write the resident planes (the
+    JAX package's donation check: the old buffers must be consumed)."""
+
+
+def _patch_resident(tree, idx: torch.Tensor, rows, donate: bool):
+    """One resident scatter of a mesh snapshot. `donate=True` writes
+    `tree`'s tensors in place (`index_copy_`: the planes keep their storage,
+    as a donated XLA buffer is aliased into the output) and checks that they
+    did; `donate=False` is the out-of-place `_patch_rows`."""
+    if not donate:
+        return _patch_rows(tree, idx, rows)
+    ptrs = [a.data_ptr() for a in tree]
+    out = type(tree)(*(a.index_copy_(0, idx, r) for a, r in zip(tree, rows)))
+    if [a.data_ptr() for a in out] != ptrs:
+        raise ResidentDonationError(
+            "mesh-resident patch did not write the resident planes in place")
+    return out
 
 
 def _patch_index(idx: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -128,6 +158,9 @@ class Snapshot:
     runs: object = None  # ops/runs.py RunPlan when KTPU_ASSIGN=runs: the
                          # host-counted run-length encoding of the pending
                          # wave (run capacity + collapse telemetry)
+    mesh: object = None  # parallel/mesh.py Mesh when `tables` is
+                         # ShardedTables (node planes resident per shard);
+                         # keyed by IDENTITY: a reformed mesh re-shards
 
 
 class SchedulerCache:
@@ -173,6 +206,17 @@ class SchedulerCache:
         self._group_bound: Dict[str, int] = {}
         # (plane shapes, index bucket) rungs warm_patch_ladder has driven
         self._ladder_warmed: Set[Tuple] = set()
+        # ---- mesh-resident accounting (the JAX package's donation
+        # contract): full shard_tables uploads (cold, capacity growth, a
+        # new mesh); steady-state patches written in place; patches that
+        # took the copy path because a dispatch held the planes
+        self.resident_full_uploads: int = 0
+        self.resident_donated_patches: int = 0
+        self.resident_copy_patches: int = 0
+        # dispatches now holding the current snapshot's planes
+        self._dispatch_inflight: int = 0
+        # did the last _pending_block scatter into the resident block
+        self._last_pending_patched = False
 
     # -- dirty-tracking helpers (callers hold self._mu) -- #
 
@@ -408,6 +452,17 @@ class SchedulerCache:
             assumed = sum(1 for s in self._pods.values() if s.assumed)
             return len(self._nodes), len(self._pods), assumed
 
+    def mark_dispatch_start(self) -> None:
+        """A dispatch now holds the current snapshot's tensors (the
+        scheduler calls this before handing them to the dispatch worker).
+        While one is in flight, mesh-resident patches take the copy path."""
+        with self._mu:
+            self._dispatch_inflight += 1
+
+    def mark_dispatch_done(self) -> None:
+        with self._mu:
+            self._dispatch_inflight = max(self._dispatch_inflight - 1, 0)
+
     def snapshot(
         self,
         encoder: Encoder,
@@ -428,11 +483,10 @@ class SchedulerCache:
         object identity, not just pod keys: a spec update flows through the
         queue as a *new* Pod object with the same namespace/name
         (queue.update), and scheduling it against the cached encoding of the
-        old spec would pin it unschedulable forever."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh-resident snapshots: node-axis sharding "
-                "(parallel/mesh.py) is not ported yet — ROADMAP A13")
+        old spec would pin it unschedulable forever.
+
+        With a `mesh` the node planes are resident per shard (see the module
+        docstring); the pod tensors and the gang arrays live on `device`."""
         device = resolve_device(device)
         pending_keys = tuple((p.key, id(p)) for p in pending)
         with self._mu:
@@ -440,7 +494,7 @@ class SchedulerCache:
             snap = self._snapshot
             if snap is not None and snap.generation == gen \
                     and snap.pending_keys == pending_keys \
-                    and snap.device == device \
+                    and snap.device == device and snap.mesh is mesh \
                     and (base_dims is None
                          or snap.dims == snap.dims.union(base_dims)) \
                     and self._reg_sizes == self._registry_sizes(encoder):
@@ -556,6 +610,11 @@ class SchedulerCache:
             # the engine-routing flag is per-batch, not a capacity: it must
             # not force a full re-encode when it flips
             d = replace(d, has_node_name=any(p.node_name for p in pending))
+            if mesh is not None and d.N % mesh.size:
+                # each shard owns N / mesh.size rows: pad the CAPACITY (the
+                # extra slots are inert like any unoccupied slot), so the
+                # staging and resident shapes agree and patches stay stable
+                d = replace(d, N=padded_node_count(d.N, mesh.size))
 
             full = (
                 snap is None
@@ -565,12 +624,15 @@ class SchedulerCache:
                 # placement change: the resident tensors live on the other
                 # device; rebuild from the host staging
                 or snap.device != device
+                # a mesh change (first shard, reform, drop to one device):
+                # the resident planes carry the old layout
+                or snap.mesh is not mesh
                 or replace(d, has_node_name=False)
                 != replace(snap.dims, has_node_name=False)
             )
             if full:
                 return self._full_snapshot(encoder, pending, pending_keys,
-                                           gen, d, base_dims, device)
+                                           gen, d, base_dims, device, mesh)
             return self._patch_snapshot(encoder, pending, pending_keys,
                                         gen, d, snap, released_nodes, device)
 
@@ -589,7 +651,10 @@ class SchedulerCache:
         call — the same count as the JAX package's for the same snapshot;
         repeat calls are memoized on plane shapes."""
         driven = 0
-        for tree in (snap.tables.nodes, snap.existing, snap.pending):
+        node_trees = ([s.nodes for s in snap.tables.shards]
+                      if isinstance(snap.tables, ShardedTables)
+                      else [snap.tables.nodes])
+        for tree in (*node_trees, snap.existing, snap.pending):
             leaves = list(tree)
             if not leaves:
                 continue
@@ -631,7 +696,7 @@ class SchedulerCache:
 
     def micro_graft(self, encoder: Encoder, pending: Sequence[Pod],
                     base: Snapshot, micro_p: int,
-                    device: object = None) -> Snapshot:
+                    device: object = None, mesh: object = None) -> Snapshot:
         """Micro-wave pending graft (streaming admission): an EPHEMERAL
         Snapshot sharing `base`'s resident cluster tables and existing-pod
         tensors (the caller just brought them current via the ordinary
@@ -646,7 +711,8 @@ class SchedulerCache:
         caller must have interned `pending` into `encoder` BEFORE building
         `base` (cycle.micro_snapshot_with_keys does), so any registry or
         capacity growth the new pods cause is already reflected in
-        `base.dims`/`base.tables`."""
+        `base.dims`/`base.tables`. The graft keeps `base`'s mesh (`mesh`
+        names the same one: the caller's snapshot placement)."""
         device = resolve_device(device)
         d = replace(base.dims, P=micro_p, has_node_name=False)
         with self._mu:
@@ -669,6 +735,7 @@ class SchedulerCache:
             gang=gang,
             device=device,
             runs=runs_plan,
+            mesh=base.mesh,
         )
 
     @staticmethod
@@ -725,7 +792,8 @@ class SchedulerCache:
         )
 
     def _full_snapshot(self, encoder, pending, pending_keys, gen, d,
-                       base_dims: Optional[Dims], device) -> Snapshot:
+                       base_dims: Optional[Dims], device,
+                       mesh=None) -> Snapshot:
         """Cold path: rebuild staging + every device table. Runs when
         capacities grow or on first use."""
         self.last_snapshot_mode = "full"
@@ -797,10 +865,15 @@ class SchedulerCache:
         runs_plan = self._run_plan_from_cols(
             pe.cls, pe.priority, pe.creation, pe.valid,
             pe.node_name_req) if self._runs_wanted() else None
+        if mesh is not None:
+            tables_dev = shard_tables(tables, mesh)
+            self.resident_full_uploads += 1
+        else:
+            tables_dev = to_device(tables, device)
         snap = Snapshot(
             generation=gen,
             node_order=list(self._node_names),
-            tables=to_device(tables, device),
+            tables=tables_dev,
             existing=to_device(self._existing_pod_arrays(d), device),
             pending=to_device(pe, device),
             dims=d,
@@ -809,6 +882,7 @@ class SchedulerCache:
             gang=self._gang_arrays(encoder, pending, d, device),
             device=device,
             runs=runs_plan,
+            mesh=mesh,
         )
         self._encoder = encoder
         self._reg_sizes = self._registry_sizes(encoder)
@@ -870,20 +944,28 @@ class SchedulerCache:
                 list(self._by_node.get(name, {}).values()), d)
             node_idx.append(slot)
 
+        # mesh-resident: in place while no dispatch holds the tensors (the
+        # JAX package's donation), else the copy path; one count per patch
+        donate = snap.mesh is not None and self._dispatch_inflight == 0
+        patched = False
         tables = snap.tables
-        if topo_grew:
-            tables = tables._replace(
-                nodes=tables.nodes._replace(
-                    topo=to_device(self._staging_nodes.topo, device),
-                    domain=to_device(self._staging_nodes.domain, device)),
-                zone_keys=to_device(encoder.build_zone_keys(), device))
-        if node_idx:
-            kb = _patch_bucket(len(node_idx))
-            idx = _pad_patch(node_idx, kb)
-            rows = NodeArrays(*[f[idx] for f in self._staging_nodes])
-            tables = tables._replace(
-                nodes=_patch_rows(tables.nodes, _patch_index(idx, device),
-                                  to_device(rows, device)))
+        if snap.mesh is not None:
+            tables, patched = self._patch_sharded_nodes(
+                tables, node_idx, topo_grew, encoder, donate)
+        else:
+            if topo_grew:
+                tables = tables._replace(
+                    nodes=tables.nodes._replace(
+                        topo=to_device(self._staging_nodes.topo, device),
+                        domain=to_device(self._staging_nodes.domain, device)),
+                    zone_keys=to_device(encoder.build_zone_keys(), device))
+            if node_idx:
+                kb = _patch_bucket(len(node_idx))
+                idx = _pad_patch(node_idx, kb)
+                rows = NodeArrays(*[f[idx] for f in self._staging_nodes])
+                tables = tables._replace(
+                    nodes=_patch_rows(tables.nodes, _patch_index(idx, device),
+                                      to_device(rows, device)))
 
         # --- small interned tables: rebuild only the ones whose registry grew
         sizes = self._registry_sizes(encoder)
@@ -899,10 +981,13 @@ class SchedulerCache:
                 "images": encoder.build_image_table,
                 "volsets": encoder.build_volset_table,
             }
-            tables = tables._replace(**{
-                k: to_device(builders[k](d), device)
-                for k in builders if sizes[k] != self._reg_sizes[k]
-            })
+            grown = {k: builders[k](d) for k in builders
+                     if sizes[k] != self._reg_sizes[k]}
+            if snap.mesh is not None:
+                tables = self._replace_replicated(tables, grown)
+            else:
+                tables = tables._replace(**{
+                    k: to_device(v, device) for k, v in grown.items()})
             self._reg_sizes = sizes
 
         # --- existing-pod rows: removals first so a same-window remove+add
@@ -945,8 +1030,9 @@ class SchedulerCache:
             idx = _pad_patch(pod_idx, kb)
             host = self._existing_pod_arrays(d)
             rows = PodArrays(*[f[idx] for f in host])
-            existing = _patch_rows(existing, _patch_index(idx, device),
-                                   to_device(rows, device))
+            existing = _patch_resident(existing, _patch_index(idx, device),
+                                       to_device(rows, device), donate)
+            patched = True
 
         # --- pending: identity-diffed against the previous batch ---
         # The unschedulable/backoff queues feed largely the SAME pod
@@ -956,8 +1042,15 @@ class SchedulerCache:
         if pending_keys == snap.pending_keys:
             pe = snap.pending
         else:
+            self._last_pending_patched = False
             pe = self._pending_block(encoder, pending, pending_keys, d,
-                                     snap.pending, device)
+                                     snap.pending, device, donate)
+            patched = patched or self._last_pending_patched
+        if snap.mesh is not None and patched:
+            if donate:
+                self.resident_donated_patches += 1
+            else:
+                self.resident_copy_patches += 1
         runs_plan = None
         if self._runs_wanted():
             # an identical batch keeps its plan; otherwise the pending stage
@@ -979,6 +1072,7 @@ class SchedulerCache:
             gang=self._gang_arrays(encoder, pending, d, device),
             device=device,
             runs=runs_plan,
+            mesh=snap.mesh,
         )
         self._dirty_nodes.clear()
         self._dirty_pods.clear()
@@ -986,8 +1080,52 @@ class SchedulerCache:
         self._snapshot = new_snap
         return new_snap
 
+    @staticmethod
+    def _replace_replicated(st: ShardedTables, fields: Dict) -> ShardedTables:
+        """Rebuilt replicated tables (host numpy) copied once per distinct
+        device of the mesh and swapped into every shard."""
+        per_dev: Dict[torch.device, Dict] = {}
+        shards = []
+        for sh, dev in zip(st.shards, st.mesh.devices):
+            if dev not in per_dev:
+                per_dev[dev] = {k: to_device(v, dev)
+                                for k, v in fields.items()}
+            shards.append(sh._replace(**per_dev[dev]))
+        return st._replace(shards=tuple(shards))
+
+    def _patch_sharded_nodes(self, st: ShardedTables, node_idx: List[int],
+                             topo_grew: bool, encoder, donate: bool):
+        """The mesh-resident node patch: each shard scatters its OWN dirty
+        rows (global slot − its row offset) from the host staging — in place
+        when `donate`, else into new planes. Returns (tables, whether any
+        resident row was written)."""
+        if topo_grew:
+            st = self._replace_replicated(
+                st, {"zone_keys": encoder.build_zone_keys()})
+        if not node_idx and not topo_grew:
+            return st, False
+        staging = self._staging_nodes
+        n = st.n_nodes // st.mesh.size
+        shards = []
+        for sh, off, dev in zip(st.shards, st.offsets, st.mesh.devices):
+            nodes = sh.nodes
+            if topo_grew:
+                # a new topology key: the [n, K] topo/domain planes of the
+                # shard's rows, shipped whole (new tensors either way)
+                nodes = nodes._replace(
+                    topo=to_device(staging.topo[off:off + n], dev),
+                    domain=to_device(staging.domain[off:off + n], dev))
+            own = [s - off for s in node_idx if off <= s < off + n]
+            if own:
+                idx = _pad_patch(own, _patch_bucket(len(own)))
+                rows = NodeArrays(*[f[idx + off] for f in staging])
+                nodes = _patch_resident(nodes, _patch_index(idx, dev),
+                                        to_device(rows, dev), donate)
+            shards.append(sh._replace(nodes=nodes))
+        return st._replace(shards=tuple(shards)), True
+
     def _pending_block(self, encoder, pending, pending_keys, d: Dims,
-                       prev_device, device):
+                       prev_device, device, donate: bool = False):
         """Pending PodArrays, identity-diffed against the previous batch:
         when the batch largely repeats, only the changed slots re-derive on
         the persistent host stage and scatter into a copy of the resident
@@ -1025,8 +1163,9 @@ class SchedulerCache:
                     node_id=stage.node_id[idx],
                     node_name_req=stage.rows[idx, 5],
                 )
-                return _patch_rows(prev_device, _patch_index(idx, device),
-                                   to_device(rows, device))
+                self._last_pending_patched = True
+                return _patch_resident(prev_device, _patch_index(idx, device),
+                                       to_device(rows, device), donate)
         pe_host = encoder.build_pod_arrays(
             list(pending), d, self._node_slot, capacity=d.P)
         self._pending_stage = _PendingStage.from_pod_arrays(pe_host)

@@ -28,6 +28,7 @@ many pods a package places, and a hash of where.
         --path scan
         --path kubemark [--nodes 500 --pods 500]
         --path cluster [--nodes 100 --pods 300]
+        --path mesh [--devices 4] [--production 4096x8192] [--pods 50000]
 
 `--path batch` (the default) runs `BatchScheduler.schedule` of the JAX
 package (`kubernetes_tpu`) or of the PyTorch port (`kubernetes_tpu_torch`)
@@ -145,6 +146,17 @@ of 200 class runs; on the batch path it also prints the wave's class runs
 and collapse ratio (ops/runs.py plan_runs), on the serving path it drains
 that backlog (chip_smoke.py phase 8c) instead of running phase 5.
 `--engine` sets KTPU_ASSIGN (waves, the default; runs; scan).
+
+`--path mesh` runs the multi-device dryrun's three rungs (chip_smoke.py
+phase 17a) on a mesh of `--devices` shards: the spec rung (both engines,
+max(8·n, 16) nodes × 64 flagship pods), the production rung (waves and gang
+rounds, `--production` nodes x pods of flagship and gang pods) and the bench
+rung (waves, 5,120 nodes × `--pods` flagship pods). The JAX package runs
+each on its own virtual CPU mesh (XLA_FLAGS forces the devices) and against
+its unsharded run; the port runs parallel/dryrun.py run_dryrun on a mesh of
+`--device` repeated. Both print, per rung, the scheduled count, the rejected
+gang groups and the sha256 of the node map (chip_smoke.py node_sha256) —
+the `JAX_MESH` constant.
 
 `--explain` (batch path) dispatches the cycle as BatchScheduler does but
 with explain=True and adds the sha256 of the ExplainResult's integer fields
@@ -637,6 +649,98 @@ def count_gang_rounds(package: str) -> list:
     return n
 
 
+def jax_mesh_reference(args) -> dict:
+    """The JAX package's mesh dryrun rungs (its parallel/dryrun.py shapes
+    and steps), each sharded run held bit-equal to the unsharded one at the
+    same padded N; per rung the count and the node map's sha256."""
+    import jax
+    import numpy as np
+
+    import chip_smoke
+    from kubernetes_tpu.ops.assign import assign_batch, initial_state
+    from kubernetes_tpu.ops.gang import assign_gang
+    from kubernetes_tpu.ops.lattice import build_cycle
+    from kubernetes_tpu.ops.waves import assign_waves
+    from kubernetes_tpu.parallel.dryrun import encode_flagship, encode_mixed
+    from kubernetes_tpu.parallel.mesh import (make_mesh, pad_node_tables,
+                                              replicate, shard_tables)
+
+    n = args.devices
+    mesh = make_mesh(n)
+    out = {}
+
+    def both(fn, tables, rest):
+        ref = jax.tree.map(np.asarray, fn(tables, *rest))
+        st = shard_tables(tables, mesh)
+        got = jax.tree.map(np.asarray, fn(st, *(replicate(r, mesh)
+                                               for r in rest)))
+        for a, b in zip(jax.tree.leaves(ref), jax.tree.leaves(got)):
+            np.testing.assert_array_equal(a, b)
+        return got
+
+    def engine_step(engine, D):
+        @jax.jit
+        def step(tables, pending, existing, uk, ev):
+            cyc = build_cycle(tables, existing, uk, ev, D)
+            res = engine(tables, cyc, pending, initial_state(tables, cyc))
+            return res.node, res.feasible, res.state.used, res.state.CNT
+        return step
+
+    prod_n, prod_p = args.production
+    for rung, n_nodes, n_pods in (("spec", max(8 * n, 16), 64),
+                                  ("production", prod_n, prod_p),
+                                  ("bench", 5120, args.pods)):
+        t0 = time.perf_counter()
+        if rung == "production":
+            tables, pe, ex, gang, keys, d = encode_mixed(n_nodes, n_pods)
+            tables = pad_node_tables(tables, n)
+
+            @jax.jit
+            def gstep(tables, pending, existing, gang, uk, ev, D=d.D):
+                cyc = build_cycle(tables, existing, uk, ev, D)
+                res, dead = assign_gang(tables, cyc, pending,
+                                        initial_state(tables, cyc), gang)
+                return res.node, res.feasible, dead
+
+            node, feas, dead = both(gstep, tables,
+                                    (pe, ex, gang, keys[0], keys[1]))
+            out["production"] = {
+                "engine": "waves+gang", "nodes": n_nodes, "pods": n_pods,
+                "scheduled": int(feas.sum()),
+                "rejected_gangs": int(dead.sum()),
+                "sha256": chip_smoke.node_sha256(node),
+                "seconds": time.perf_counter() - t0}
+            continue
+        tables, pe, ex, keys, d = encode_flagship(n_nodes, n_pods)
+        tables = pad_node_tables(tables, n)
+        engines = (("waves", assign_waves), ("scan", assign_batch)) \
+            if rung == "spec" else (("waves", assign_waves),)
+        for name, engine in engines:
+            node, feas, _u, _c = both(engine_step(engine, d.D), tables,
+                                      (pe, ex, keys[0], keys[1]))
+            out[f"{rung}_{name}" if rung == "spec" else rung] = {
+                "engine": name, "nodes": n_nodes, "pods": n_pods,
+                "scheduled": int(feas.sum()),
+                "sha256": chip_smoke.node_sha256(node),
+                "seconds": time.perf_counter() - t0}
+    return {"package": "jax", "path": "mesh", "devices": n, "mesh": out}
+
+
+def port_mesh_reference(args) -> dict:
+    """The port's dryrun (parallel/dryrun.py) on a mesh of `--device`
+    repeated, in the same shape as jax_mesh_reference's."""
+    import torch
+
+    import chip_smoke
+    from kubernetes_tpu_torch.parallel.dryrun import run_dryrun
+
+    dev = torch.device(args.device)
+    rep = run_dryrun(devices=[dev] * args.devices, device=dev,
+                     production=tuple(args.production), bench_pods=args.pods)
+    return {"package": "port", "path": "mesh", "devices": args.devices,
+            "mesh": chip_smoke.mesh_reference(rep)}
+
+
 def main() -> int:
     import chip_smoke
 
@@ -649,7 +753,7 @@ def main() -> int:
                     choices=("batch", "serving", "preempt", "restart",
                              "framework", "extender", "cosched", "server",
                              "fleet", "scan", "durable", "kubemark",
-                             "cluster"),
+                             "cluster", "mesh"),
                     default="batch")
     ap.add_argument("--nodes", type=int, default=None,
                     help="default 5,000 (chip_smoke.FLEET_NODES for "
@@ -675,8 +779,25 @@ def main() -> int:
     ap.add_argument("--durable", action="store_true",
                     help="--path server: a durable apiserver (batch) over a "
                     "temporary data dir")
+    ap.add_argument("--devices", type=int, default=4,
+                    help="--path mesh: the mesh's shards")
+    ap.add_argument("--production",
+                    type=lambda v: tuple(int(x) for x in v.split("x")),
+                    default=(4096, 8192),
+                    help="--path mesh: the production rung, NODESxPODS")
     args = ap.parse_args()
     os.environ["KTPU_ASSIGN"] = args.engine
+    if args.path == "mesh":
+        args.pods = args.pods or 50000
+        if args.package == "jax":
+            # the virtual CPU devices, before anything imports jax
+            os.environ["XLA_FLAGS"] = (
+                os.environ.get("XLA_FLAGS", "") + " --xla_force_host_platform"
+                f"_device_count={max(args.devices, 8)}").strip()
+            print(json.dumps(jax_mesh_reference(args)))
+        else:
+            print(json.dumps(port_mesh_reference(args)))
+        return 0
     if args.path == "fleet":
         args.tenants = args.tenants or chip_smoke.FLEET_TENANTS
         args.nodes = args.nodes or chip_smoke.FLEET_NODES

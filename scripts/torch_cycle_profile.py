@@ -7,6 +7,7 @@
     python3 scripts/torch_cycle_profile.py --mode preempt
     python3 scripts/torch_cycle_profile.py --mode runs
     python3 scripts/torch_cycle_profile.py --mode resilience
+    python3 scripts/torch_cycle_profile.py --mode mesh [--shards 4]
 
 `--mode batch` (the default) runs the steps of kubernetes_tpu_torch's
 BatchScheduler.schedule on the flagship workload (models/workloads.py
@@ -45,6 +46,13 @@ supervised dispatch run on the calling thread), `no-telemetry`
 (KTPU_TELEMETRY=0) and `bare` (the dispatch inline and telemetry off). Per run: seconds in schedule_pending, pods/s, and the seconds the
 garbage collector ran (gc.callbacks); every run must bind 5b's binder order
 (at another size, the first run's).
+
+`--mode mesh` runs one warm flagship cycle (make_nodes(N) x
+flagship_pods(P), the wave engine) unsharded and then sharded on a mesh of
+`--shards` x the device (parallel/mesh.py), each profiled: per run the
+cycle's seconds, and for the sharded one the collectives it took and their
+bytes, and the lead shard's seconds waiting in them and running lead steps
+(parallel/axis.py LAST_RUN); both runs' placements must be equal.
 
 The profiled window gives device busy time (the union of kernel and copy
 intervals), the idle share of the window, the number of device operations,
@@ -379,14 +387,61 @@ def resilience_profile(args, device, sync, profile, acts) -> dict:
     return {"variants": runs, "top_device_ops": []}
 
 
+def mesh_profile(args, device, sync, profile, acts) -> dict:
+    from kubernetes_tpu_torch.models.workloads import flagship_pods, make_nodes
+    from kubernetes_tpu_torch.parallel import axis
+    from kubernetes_tpu_torch.parallel.mesh import (make_mesh,
+                                                    pad_node_tables,
+                                                    shard_tables)
+    from kubernetes_tpu_torch.sched.cycle import (UNSCHEDULABLE_TAINT_KEY,
+                                                  schedule_batch)
+    from kubernetes_tpu_torch.state.arrays import tables_to_torch
+    from kubernetes_tpu_torch.state.encode import Encoder
+
+    enc = Encoder()
+    enc.vocabs.label_keys.intern(UNSCHEDULABLE_TAINT_KEY)
+    enc.vocabs.label_vals.intern("")
+    keys = (enc.vocabs.label_keys.get(UNSCHEDULABLE_TAINT_KEY),
+            enc.vocabs.label_vals.get(""))
+    tables, ex, pe, d = enc.encode_cluster(make_nodes(args.nodes), [],
+                                           flagship_pods(args.pods))
+    tt, (ext, pet) = tables_to_torch(tables, (ex, pe), device)
+    tt = pad_node_tables(tt, args.shards)
+    st = shard_tables(tt, make_mesh(args.shards,
+                                    devices=[device] * args.shards))
+    out, nodes = {}, {}
+    for name, t in (("unsharded", tt), ("sharded", st)):
+        schedule_batch(t, pet, keys, d.D, ext)   # warm
+        sync()
+        with profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            res = schedule_batch(t, pet, keys, d.D, ext)
+            sync()
+            window_s = time.perf_counter() - t0
+        nodes[name] = res.node.cpu()
+        out[name] = dict({"cycle_s": window_s},
+                         **device_profile(prof, window_s))
+        if name == "sharded":
+            out[name]["collectives"] = dict(axis.LAST_RUN)
+    if not bool((nodes["unsharded"] == nodes["sharded"]).all()):
+        raise SystemExit("torch_cycle_profile: the sharded cycle's "
+                         "placements differ from the unsharded one's")
+    top = out["sharded"].pop("top_device_ops")
+    return dict(out, shards=args.shards,
+                placed=int((nodes["sharded"] >= 0).sum()),
+                top_device_ops=top)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--nodes", type=int, default=5000)
     ap.add_argument("--pods", type=int, default=50000)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--mode", choices=("batch", "serving", "preempt",
-                                       "runs", "resilience"),
+                                       "runs", "resilience", "mesh"),
                     default="batch")
+    ap.add_argument("--shards", type=int, default=4,
+                    help="--mode mesh: the mesh's shards on the device")
     args = ap.parse_args()
 
     import torch
@@ -402,7 +457,8 @@ def main() -> int:
         acts.append(ProfilerActivity.CUDA)
     run = {"batch": batch_profile, "serving": serving_profile,
            "preempt": preempt_profile, "runs": runs_profile,
-           "resilience": resilience_profile}[args.mode]
+           "resilience": resilience_profile,
+           "mesh": mesh_profile}[args.mode]
     body = run(args, device, sync, profile, acts)
     out = dict({"mode": args.mode,
                 "device": (torch.cuda.get_device_name(0)

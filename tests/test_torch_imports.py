@@ -56,8 +56,12 @@ def test_no_module_of_the_port_reaches_jax_or_the_jax_package():
     got = _child(CHILD)
     assert not got["failed"], got["failed"]
     assert got["reached"] == []
-    # the walk saw the whole package, the cluster and CLI slice included
-    for name in ("kubernetes_tpu_torch.cli.cluster",
+    # the walk saw the whole package, the cluster and CLI slice and the
+    # node-axis sharding (parallel/) included
+    for name in ("kubernetes_tpu_torch.parallel.mesh",
+                 "kubernetes_tpu_torch.parallel.axis",
+                 "kubernetes_tpu_torch.parallel.dryrun",
+                 "kubernetes_tpu_torch.cli.cluster",
                  "kubernetes_tpu_torch.cli.kubectl",
                  "kubernetes_tpu_torch.cli.__main__",
                  "kubernetes_tpu_torch.proxy.proxier",

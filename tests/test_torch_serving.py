@@ -533,18 +533,28 @@ def _framework():
     (dict(mesh=lambda: 2), "A13"),
 ])
 def test_unported_arguments_raise(kw, item):
-    """Mesh serving (A13) is refused. The framework and the extenders (the
-    first half of A11), refused until they were ported, are taken now
-    (tests/test_torch_framework.py and test_torch_extender.py drive
-    them)."""
+    """Arguments refused until their slice was ported are taken now: the
+    framework and the extenders (the first half of A11; tests/
+    test_torch_framework.py and test_torch_extender.py drive them) and
+    mesh serving (A13, tests/test_torch_mesh.py). A mesh of n CUDA devices
+    on a machine without them raises, naming the virtual-mesh form, rather
+    than serving on fewer."""
     kw = {k: make() for k, make in kw.items()}
     if item == "A11":
         s = TScheduler(binder=TBinder(), device="cpu", **kw)
         assert s.extenders == list(kw.get("extenders", ()))
         assert s.framework is kw.get("framework")
         return
-    with pytest.raises(NotImplementedError, match=item):
-        TScheduler(binder=TBinder(), device="cpu", **kw)
+    from kubernetes_tpu_torch.parallel.mesh import MeshState
+
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="devices visible") as ei:
+            TScheduler(binder=TBinder(), device="cpu", **kw)
+        assert any("virtual mesh" in n for n in ei.value.__notes__)
+    ms = MeshState(kw["mesh"], devices=[torch.device("cpu")] * kw["mesh"])
+    s = TScheduler(binder=TBinder(), device="cpu", mesh=ms)
+    assert s.mesh_state is ms and s.mesh_state.n_devices == 2
+    assert s.supervisor.snapshot_mesh() is ms.mesh
 
 
 def test_ledger_and_fence_source_are_accepted():
@@ -581,9 +591,20 @@ def test_the_prewarmer_is_opt_in(prewarm):
     ("KTPU_MESH", "4", "A13"),
 ])
 def test_unported_switches_raise(monkeypatch, env, val, item):
+    """KTPU_MESH (A13) is ported: "auto" takes every CUDA device (one
+    device, no mesh, where there is at most one) and a count asks for that
+    many, raising with the virtual-mesh hint where they are missing."""
     monkeypatch.setenv(env, val)
-    with pytest.raises(NotImplementedError, match=item):
-        TScheduler(binder=TBinder(), device="cpu")
+    n_cuda = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if val == "auto":
+        s = TScheduler(binder=TBinder(), device="cpu")
+        assert (s.mesh_state is None) == (n_cuda < 2)
+    elif n_cuda < int(val):
+        with pytest.raises(RuntimeError, match="devices visible"):
+            TScheduler(binder=TBinder(), device="cpu")
+    else:
+        assert TScheduler(binder=TBinder(),
+                          device="cpu").mesh_state.n_devices == int(val)
 
 
 def test_gang_batch_and_runs_engine_raise(monkeypatch):
@@ -614,11 +635,21 @@ def test_gang_batch_and_runs_engine_raise(monkeypatch):
 
 
 def test_cache_refuses_a_mesh():
+    """The cache took no mesh before A13; it takes one now: the snapshot's
+    node planes are sharded across it (tests/test_torch_mesh.py holds the
+    resident path), everything else stays on the snapshot's device."""
+    from kubernetes_tpu_torch.parallel.mesh import ShardedTables, make_mesh
     from kubernetes_tpu_torch.state.cache import SchedulerCache
     from kubernetes_tpu_torch.state.encode import Encoder
 
-    with pytest.raises(NotImplementedError, match="A13"):
-        SchedulerCache().snapshot(Encoder(), [], device="cpu", mesh=object())
+    cache = SchedulerCache()
+    for i in range(5):
+        cache.add_node(TT.Node(name=f"n{i}", allocatable=TT.Resources.make(
+            cpu="4", memory="8Gi", pods=110)))
+    mesh = make_mesh(2, devices=[torch.device("cpu")] * 2)
+    snap = cache.snapshot(Encoder(), [], device="cpu", mesh=mesh)
+    assert isinstance(snap.tables, ShardedTables) and snap.mesh is mesh
+    assert snap.dims.N % 2 == 0 and cache.resident_full_uploads == 1
 
 
 def test_scheduler_and_cache_raise_without_a_gpu(monkeypatch):

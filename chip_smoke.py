@@ -111,7 +111,7 @@ Phases, each fatal on failure (exit code != 0, no result line):
      10d's release order follows the string-hash seed;
  11. the scheduler process over the API at 5,000 nodes (KTPU_OVERLOAD=0):
      every object through the port's client into the port's APIServer.
-     11a flagship_pods(10000) created before a leader-elected
+     11a flagship_pods(5000) created before a leader-elected
      SchedulerServer(device="cuda", ledger=BindIntentLedger) starts and
      drains them over LocalTransport: the waves before the first retried
      pod and the bound count equal JAX_SERVER, every pod bound once (a
@@ -195,6 +195,17 @@ Phases, each fatal on failure (exit code != 0, no result line):
      taint, no thread raised; K1/K2 launched, their first launches equal
      to the plain versions; the phase within 150 s. It prints whether
      PyYAML and cryptography import on the card's machine.
+ 17. (after 14) node-axis sharding on a mesh of MESH_SHARDS × the card
+     (mesh_phase): the dryrun's rungs against JAX_MESH, the serving drain
+     on the mesh against mesh=None and its loss → reform drill, a sharded
+     preemption burst.
+ 18. (after 17) the fleet mesh (fleet_mesh_phase): 18a phase 12a's
+     workload through FleetServer on the 4 × 2 tenant × node-shard grid
+     over 8 × the card, against JAX_FLEET and 12a's one-device run, one
+     dispatch per engine group per tick, K1/K2/K4 launched in the grid's
+     threads with each first launch equal to its plain version; 18b
+     t00–t07 on the 8 × 1 tenant mesh with no collective; 18c the
+     degrade → reform drill under the 2-D signature.
 
 Prints a `kernels` JSON line, the nvidia-smi name/power line, and last
 `{"ok": true, "device": {...}}`. Imports nothing of JAX.
@@ -359,6 +370,9 @@ EXPLAIN_F32_ATOL = 1e-4
 # CLASSES_SCAN_PODS pods of CLASSES_SCAN_DEPLOYMENTS deployments.
 CLASSES_NODES, CLASSES_PODS, CLASSES_DEPLOYMENTS = 5000, 50000, 200
 CLASSES_SCAN_PODS, CLASSES_SCAN_DEPLOYMENTS = 2000, 20
+# 8a's warm cycles after the cold one (each ~20 s on the card; cut from 3
+# for phase 18's time)
+CLASSES_WARM_RUNS = 1
 JAX_CLASSES = {
     "scheduled": 50000,
     "sha256":
@@ -3226,9 +3240,10 @@ def runs_phase(device) -> dict:
     """Phase 8, under KTPU_ASSIGN=runs: 8a BatchScheduler(device) on the
     `classes` shapes against JAX_CLASSES, the runs that took the closed
     form and those that fell back, epochs per dispatch, cold and median of
-    3 warm cycles; 8b the scan and the runs engine on CLASSES_SCAN_PODS
-    pods, placements bit-equal; 8c the Scheduler(device) drain of the
-    backlog against JAX_CLASSES_DRAIN, per-wave times."""
+    CLASSES_WARM_RUNS warm cycles; 8b the scan and the runs engine on
+    CLASSES_SCAN_PODS pods, placements bit-equal; 8c the
+    Scheduler(device) drain of the backlog against JAX_CLASSES_DRAIN,
+    per-wave times."""
     import os
 
     from kubernetes_tpu_torch import BatchScheduler
@@ -3255,7 +3270,7 @@ def runs_phase(device) -> dict:
         cold_s = time.perf_counter() - t0
         stats, launches = dict(RN.assign_runs.stats), K.launch_counts()
         warm = []
-        for _ in range(3):
+        for _ in range(CLASSES_WARM_RUNS):
             t0 = time.perf_counter()
             again = sched.schedule(nodes, [], pods)
             sync(device)
@@ -3901,7 +3916,8 @@ def cosched_phase(device, card: str) -> dict:
 # scripts/flagship_reference.py, which runs it on the JAX package)
 # --------------------------------------------------------------------------- #
 
-SERVER_NODES, SERVER_PODS, SERVER_HTTP_PODS = 5000, 10000, 2000
+# SERVER_PODS cut from 10,000 to 5,000 for phase 18's time
+SERVER_NODES, SERVER_PODS, SERVER_HTTP_PODS = 5000, 5000, 2000
 SERVER_VIPS, SERVER_BATCH = 64, 4096
 SERVER_BATCH_WINDOW = 0.15  # the server's debounce before a wave
 SERVER_BARRIER_S = 120.0     # the longest a wave may wait at the barrier
@@ -3914,7 +3930,8 @@ SERVER_CRASH = "proc.crash@post_bind:2"  # 11c: the leader's 2nd intent wave
 
 # The JAX package's SchedulerServer over its own apiserver on the same
 # script (server_drain with its wave barrier: 5,000 nodes, flagship_pods(
-# 10000) created before start(), LocalTransport; JAX 0.9.0 on the CPU).
+# 5000) created before start(), LocalTransport; JAX 0.9.0 on the CPU; the
+# port's CPU run, `--package port`, gives the same object).
 # Reproduce with `JAX_PLATFORMS=cpu python3 scripts/flagship_reference.py
 # --package jax --path server`; `--transport http --pods 2000` gives
 # JAX_SERVER_HTTP. The barrier makes each wave start from one state (every
@@ -3922,11 +3939,11 @@ SERVER_CRASH = "proc.crash@post_bind:2"  # 11c: the leader's 2nd intent wave
 # node) map is gated. The first wave precedes any retry and any
 # confirmation, so it is gated in the run without the barrier too.
 JAX_SERVER = {
-    "bound": 10000, "waves": [896, 1896, 2696, 4096, 416],
+    "bound": 5000, "waves": [2496, 2504],
     "first_wave_sha256":
-        "256bee7273ef40920f609ee10746b0cbf195b5178867b6cb64db22ab0e2a9663",
+        "cc076fd3e3bdaf04373d878066e0500d00ad86b803e325c8eb69cd4047f9bf7e",
     "bound_sha256":
-        "6fd36fc9e47e75c3c9c3d06bd34d50347b69a0e23d642e1469b58ec785cab226"}
+        "95b27fdfbdce4c6daadbe768e66a78685a9f40b4211f3290fb1de295f503d183"}
 JAX_SERVER_HTTP = {
     "bound": 2000, "waves": [1360, 640],
     "first_wave_sha256":
@@ -4821,13 +4838,14 @@ def rows_sha256(api, res) -> dict:
 
 
 def fleet_run(api, names=None, n_nodes: int = None, n_pods: int = None,
-              after_tick=None) -> dict:
+              after_tick=None, fleet_kw=None) -> dict:
     """Phase 12a on one package: the tenants `names` (default all
     FLEET_TENANTS), each make_nodes(n_nodes) and fleet_pods(n_pods), through
-    one FleetServer ticked until every queue is empty or a tick schedules
-    nothing after the second. Tick 1's dispatch of each engine group is
-    captured (its inputs and DRF rows). `after_tick(i, tk)` runs after each
-    tick. Returns the outcome and its invariants."""
+    one FleetServer (with `fleet_kw` added to its arguments: a fleet mesh)
+    ticked until every queue is empty or a tick schedules nothing after the
+    second. Tick 1's dispatch of each engine group is captured (its inputs
+    and DRF rows). `after_tick(i, tk)` runs after each tick. Returns the
+    outcome and its invariants."""
     n_nodes = n_nodes or FLEET_NODES
     n_pods = n_pods or FLEET_PODS
     names = names or [f"t{k:02d}" for k in range(FLEET_TENANTS)]
@@ -4836,7 +4854,8 @@ def fleet_run(api, names=None, n_nodes: int = None, n_pods: int = None,
     clk = {"t": 0.0}
     srv = api.fleet(batch_size=FLEET_BATCH, base_dims=base,
                     clock=lambda: clk["t"],
-                    engines={n: fleet_engine(n) for n in names})
+                    engines={n: fleet_engine(n) for n in names},
+                    **(fleet_kw or {}))
     srv.prewarmer.enabled = False
     nodes = api.workloads.make_nodes(n_nodes)
     binders = {}
@@ -5224,6 +5243,7 @@ def fleet_phase(device, card: str) -> dict:
     wall = time.perf_counter() - t0
     return dict(a={k: a[k] for k in ("scheduled", "t00_drf_clamped",
                                      "dispatches_per_group", "ingest_s")},
+                tenants=a["tenants"],
                 tick_s=[tk.tick_seconds for tk in ticks],
                 execute_s=[tk.execute_seconds for tk in ticks],
                 steady_pods_per_s=steady.scheduled / steady.tick_seconds,
@@ -5986,7 +6006,7 @@ def phase_child(phase: str) -> int:
 
     os.environ["KTPU_OVERLOAD"] = "0"
     run = {"15": kubemark_phase, "16": cluster_phase,
-           "17": mesh_phase}[phase]
+           "17": mesh_phase, "18": fleet_mesh_phase}[phase]
     code = 1
     try:
         K.build()
@@ -6569,11 +6589,12 @@ MESH_SHARDS = 4
 # 17a's production and bench rungs (the JAX package's dryrun shapes)
 MESH_PRODUCTION = (4096, 8192)
 MESH_BENCH_PODS = 50000
-# 17b: the serving drain on the mesh (5b's cluster, waves of 4,096): 8 full
-# waves and a micro wave; the drill's faults by dispatch of the "cycle"
-# kind (a loss at the 2nd, the first reform forced narrow, a loss at the
-# 5th, whose reform the full-width probe lets back to 4)
-MESH_PODS, MESH_BATCH = 32768, SERVING_BATCH
+# 17b: the serving drain on the mesh (5b's cluster, waves of 4,096): 6 full
+# waves and a micro wave (cut from 8 for phase 18's time); the drill's
+# faults by dispatch of the "cycle" kind (a loss at the 2nd, the first
+# reform forced narrow, a loss at the 5th, whose reform the full-width
+# probe lets back to 4 for the 6th)
+MESH_PODS, MESH_BATCH = 24576, SERVING_BATCH
 MESH_FAULTS = ("device.error@cycle:2,mesh.degrade@probe:1,"
                "device.error@cycle:5")
 # 17c: one preemption burst of PREEMPT_BURST whole-node vips on 17b's
@@ -6612,11 +6633,15 @@ class MeshKernelSpy:
     def __init__(self):
         from kubernetes_tpu_torch.ops import assign as A
         from kubernetes_tpu_torch.ops import preempt as Pr
+        from kubernetes_tpu_torch.ops import runs as RN
         from kubernetes_tpu_torch.ops import waves as W
         from kubernetes_tpu_torch.parallel import axis
 
+        # K4 under both names the engines call it by: ops/assign.py's
+        # (the scan) and ops/runs.py's (the runs engine's fallback runs)
         self.sites = [(W, "contention_scan"), (W, "domain_rank"),
-                      (Pr, "reprieve_scan"), (A, "assign_scan")]
+                      (Pr, "reprieve_scan"), (A, "assign_scan"),
+                      (RN, "assign_scan")]
         self.saved = [(m, n, getattr(m, n)) for m, n in self.sites]
         self.first, self.mesh_launches = {}, {n: 0 for n in MESH_KERNELS}
 
@@ -6637,7 +6662,7 @@ class MeshKernelSpy:
         for m, n, fn in self.saved:
             setattr(m, n, fn)
 
-    def check(self, device) -> dict:
+    def check(self, device, phase: str = "phase 17") -> dict:
         """Each first mesh launch against its plain version on the same
         inputs, exactly; returns the max abs error by kernel (None where
         the kernel did not launch on the mesh)."""
@@ -6658,7 +6683,7 @@ class MeshKernelSpy:
             errs[name] = diff(out, fn(*args))
             sync(device)
             if errs[name] != 0:
-                fail(f"phase 17: {name}'s first mesh launch disagrees with "
+                fail(f"{phase}: {name}'s first mesh launch disagrees with "
                      f"its plain version (max_abs_err={errs[name]})")
         return errs
 
@@ -6917,6 +6942,283 @@ def mesh_phase(device, card: str) -> dict:
     return dict(rungs=rep["rungs"], memory=rep["memory"], dryrun_s=a_s,
                 serving=serving, preempt=pre, launches=launches,
                 total=total, mesh_launches=spy.mesh_launches, errs=errs)
+
+
+# --------------------------------------------------------------------------- #
+# phase 18: the fleet mesh
+# --------------------------------------------------------------------------- #
+
+# 18a: phase 12a's workload on bench.py's fleet-flagship layout, the (4, 2)
+# tenant × node-shard grid over 8 × the card; 18b: the 1-D tenant mesh over
+# the same 8 × the card on t00–t07 (one tenant a device row)
+FLEET_MESH_DEVICES, FLEET_MESH_NODE_SHARDS = 8, 2
+FLEET_1D_TENANTS = 8
+FLEET_MESH_KERNELS = ("contention_scan", "domain_rank", "assign_scan")
+
+
+def fleet_mesh_run(api, pool, node_shards: int, names=None,
+                   after_tick=None, grid_runs=None) -> tuple:
+    """fleet_run on a fleet mesh of len(pool) devices, `node_shards` wide
+    rows, with every grid run's collective tally (parallel/axis.py
+    LAST_RUN after each spmd_grid) appended in order to `grid_runs`.
+    Returns (the outcome, grid_runs)."""
+    from kubernetes_tpu_torch.parallel import axis
+
+    grid_runs = [] if grid_runs is None else grid_runs
+    orig = axis.spmd_grid
+
+    def counted(*a, **kw):
+        try:
+            return orig(*a, **kw)
+        finally:
+            grid_runs.append(dict(axis.LAST_RUN,
+                                  rows=[dict(r) for r in
+                                        axis.LAST_RUN.get("rows", [])]))
+
+    axis.spmd_grid = counted
+    try:
+        out = fleet_run(api, names=names, after_tick=after_tick,
+                        fleet_kw=dict(mesh=len(pool), node_shards=node_shards,
+                                      mesh_devices=pool))
+    finally:
+        axis.spmd_grid = orig
+    return out, grid_runs
+
+
+def row_tally(runs) -> list:
+    """Per tenant row, the collectives of `runs` (grid runs' LAST_RUN
+    copies) summed: [all-reduces, gathers, lead steps, bytes moved]."""
+    if not runs:
+        return []
+    out = []
+    for r in range(len(runs[0]["rows"])):
+        rows = [x["rows"][r] for x in runs]
+        out.append([sum(x[k] for x in rows)
+                    for k in ("all_reduce", "gather", "lead")]
+                   + [sum(x[k] for x in rows
+                          for k in ("all_reduce_bytes", "gather_bytes",
+                                    "lead_bytes"))])
+    return out
+
+
+def fleet_mesh_drill(device, pool) -> dict:
+    """18c: test_fleet.py's degrade → reform drill under the 2-D signature
+    on the card: tenants a and b (2 nodes, 4 pods each) on the (4, 2) grid
+    over `pool` with fallback_device='cpu'; one tick; a backend loss (the
+    re-admission probe pinned to fail) drops the whole grid and the
+    degraded tick serves through the CPU without touching the resident
+    stack; re-admission reforms the grid 2-D and the server adopts it;
+    every pod is bound exactly once."""
+    import os
+
+    import torch
+
+    from kubernetes_tpu_torch.fleet.tables import _leaves
+    from kubernetes_tpu_torch.parallel.mesh import fleet_mesh_shape
+
+    api = port_fleet_api(device)
+    T = api.types
+    clk = {"t": 0.0}
+    saved = os.environ.get("KTPU_PROBE_BACKOFF")
+    os.environ["KTPU_PROBE_BACKOFF"] = "0.05"
+    srv = api.fleet(batch_size=16, clock=lambda: clk["t"], mesh=len(pool),
+                    node_shards=FLEET_MESH_NODE_SHARDS, mesh_devices=pool,
+                    fallback_device="cpu")
+
+    def feed(name, prefix, n):
+        for i in range(n):
+            srv.tenant(name).on_pod_add(T.Pod(
+                name=f"{prefix}-p{i}", creation_index=i,
+                requests=T.Resources.make(cpu="100m", memory="8Mi")))
+
+    def tick():
+        tk = srv.tick()
+        clk["t"] += 1.0
+        return tk
+
+    binders = {}
+    try:
+        for name in ("a", "b"):
+            binders[name] = api.RecordingBinder()
+            srv.add_tenant(name, binder=binders[name])
+            for i in range(2):
+                srv.tenant(name).on_node_add(T.Node(
+                    name=f"n{i}", allocatable=T.Resources.make(
+                        cpu="8", memory="16Gi", pods=110)))
+            feed(name, name, 4)
+        shape0 = fleet_mesh_shape(srv.mesh)
+        tick()
+        held = [(x, x.clone()) for c in srv.stack.block.cells
+                for x in _leaves(c)]
+        api.faultline.install("device.error@probe:1+")
+        try:
+            srv.supervisor._mark_unhealthy("injected backend loss")
+            dropped = srv.mesh_state.mesh is None
+            feed("a", "a2", 3)
+            tk = tick()
+            degraded = dict(mesh=srv.mesh, block=srv.stack.block,
+                            scheduled=tk.per_tenant["a"].scheduled)
+        finally:
+            api.faultline.uninstall()
+        untouched = all(torch.equal(x, y) for x, y in held)
+        srv.supervisor._readmit()
+        if srv.supervisor._prober is not None:
+            srv.supervisor._prober.join(timeout=10)
+        feed("b", "b2", 2)
+        for _ in range(4):
+            tick()
+            if all(t.sched.queue.lengths()[0] == 0
+                   for t in srv.tenants.values()):
+                break
+    finally:
+        if saved is None:
+            os.environ.pop("KTPU_PROBE_BACKOFF", None)
+        else:
+            os.environ["KTPU_PROBE_BACKOFF"] = saved
+    counts = {n: len(b.bound) for n, b in binders.items()}
+    double = sum(len(b.bound) - len({k for k, _ in b.bound})
+                 for b in binders.values())
+    out = dict(shape=list(shape0), dropped=dropped, untouched=untouched,
+               degraded_scheduled=degraded["scheduled"],
+               reformed=list(fleet_mesh_shape(srv.mesh)) if srv.mesh
+               else None, adopted=srv.mesh is srv.mesh_state.mesh,
+               reforms=srv.mesh_state.reforms,
+               degraded_cycles=srv.supervisor.stats.degraded_cycles,
+               bound=counts, double_bound=double)
+    if (shape0 != (4, 2) or not dropped or degraded["mesh"] is not None
+            or degraded["block"] is not None or degraded["scheduled"] < 1
+            or not untouched or out["reformed"] != [4, 2]
+            or not out["adopted"] or counts != {"a": 7, "b": 6} or double):
+        fail(f"18c: the drill {out}")
+    return out
+
+
+def fleet_mesh_phase(device, card: str, ref_tenants=None) -> dict:
+    """Phase 18 on the card: 18a phase 12a's 24 tenants on the (4, 2) grid
+    over FLEET_MESH_DEVICES × the card against JAX_FLEET (and against 12a's
+    one-device run, `ref_tenants`, when this interpreter ran it), one
+    dispatch per engine group per tick, K1, K2 and K4 launched in the grid's
+    threads with each first launch held against its plain version, the
+    per-row collectives per tick; 18b the 1-D tenant mesh on t00–t07, no
+    collective, each tenant against JAX_FLEET; 18c the degrade → reform
+    drill (fleet_mesh_drill)."""
+    from kubernetes_tpu_torch.ops import kernels as K
+    from kubernetes_tpu_torch.parallel.mesh import (fleet_mesh_shape,
+                                                    padded_tenant_count)
+
+    if JAX_FLEET is None:
+        fail("phase 18: JAX_FLEET is not recorded")
+    api = port_fleet_api(device)
+    pool = [device] * FLEET_MESH_DEVICES
+    t0 = time.perf_counter()
+    spy = MeshKernelSpy()
+    marks, runs = [], []
+    K.reset_launch_counts()
+    try:
+        a, runs = fleet_mesh_run(
+            api, pool, FLEET_MESH_NODE_SHARDS, grid_runs=runs,
+            after_tick=lambda i, tk: marks.append(
+                (K.launch_counts(), len(runs))))
+    finally:
+        counts = K.launch_counts()
+        spy.restore()
+    a_s = time.perf_counter() - t0
+    errs = spy.check(device, "18a")
+    check_fleet(a, "18a")
+    for k in ("tenants", "scheduled", "t00_drf_clamped", "tick1_drf"):
+        if a[k] != JAX_FLEET[k]:
+            fail(f"18a: {k} differs from JAX_FLEET: {a[k]} != "
+                 f"{JAX_FLEET[k]}")
+    if ref_tenants is not None and a["tenants"] != ref_tenants:
+        fail("18a: the grid's tenants differ from 12a's one-device run")
+    srv = a["srv"]
+    ks = {e: st.K for e, st in srv.stacks.items()}
+    kt, kn = fleet_mesh_shape(srv.mesh)
+    if (kt, kn) != (4, 2):
+        fail(f"18a: the mesh is {kt} x {kn}, not 4 x 2")
+    # each group's live tenants padded to a multiple of the tenant rows
+    # (8 of 8 at 24 tenants)
+    want_k = {e: padded_tenant_count(
+        sum(fleet_engine(n) == e for n in a["tenants"]), kt)
+        for e in FLEET_ENGINES}
+    if srv.max_engine_groups != 3 or srv.max_dispatches_per_tick != 3 \
+            or ks != want_k:
+        fail(f"18a: groups {srv.max_engine_groups}, dispatches a tick "
+             f"{srv.max_dispatches_per_tick}, stack K by group {ks}")
+    for name in FLEET_MESH_KERNELS:
+        if not spy.mesh_launches[name]:
+            fail(f"18a: {name} never launched in the grid's threads")
+    stacks = srv.stacks.values()
+    patches = dict(full_restacks=sum(st.full_restacks for st in stacks),
+                   in_place=sum(st.donated_patches for st in stacks),
+                   copy=sum(st.copy_patches for st in stacks))
+    ticks = a["ticks"]
+    bounds = [0] + [m[1] for m in marks]
+    per_tick_rows = [row_tally(runs[bounds[i]:bounds[i + 1]])
+                     for i in range(len(ticks))]
+    launches = [{k: c[k] - (marks[i - 1][0][k] if i else 0)
+                 for k in FLEET_MESH_KERNELS}
+                for i, (c, _) in enumerate(marks)]
+    print(f"  18a: {FLEET_TENANTS} tenants x {FLEET_NODES} nodes x "
+          f"{FLEET_PODS} pods on the {kt} x {kn} grid over "
+          f"{FLEET_MESH_DEVICES} x {device}: ticks scheduled "
+          f"{a['scheduled']} in {[round(t.tick_seconds, 3) for t in ticks]}"
+          f" s (the group dispatches' CUDA-event windows "
+          f"{[round(t.execute_seconds, 3) for t in ticks]} s); every "
+          f"tenant's hash, the counts, t00's {a['t00_drf_clamped']} clamped "
+          f"and tick 1's DRF rows equal JAX_FLEET"
+          + (" and 12a's one-device run" if ref_tenants else "")
+          + f"; (dispatches, groups) per tick {a['dispatches_per_group']}, "
+          f"stack K by group {ks}; 0 violations, 0 cross-tenant, 0 lost, "
+          f"0 double ({card})")
+    print(f"    per tick, per tenant row [all-reduces, gathers, lead steps, "
+          f"bytes]: {per_tick_rows}")
+    print(f"    launches per tick {launches}; in the grid's threads "
+          f"{spy.mesh_launches}; first grid launches equal to the plain "
+          f"versions {errs}; stack {patches}")
+    print("    steady tick's split (the fleet-tick spans, s): "
+          + ", ".join(f"{p} {dt:.3f}" for p, dt in tick_split(srv, 1)))
+
+    t1 = time.perf_counter()
+    names = [f"t{k:02d}" for k in range(min(FLEET_1D_TENANTS,
+                                            FLEET_TENANTS))]
+    b, b_runs = fleet_mesh_run(api, pool, 1, names=names)
+    b_s = time.perf_counter() - t1
+    check_fleet(b, "18b")
+    want = {n: JAX_FLEET["tenants"][n] for n in names}
+    if b["tenants"] != want:
+        fail(f"18b: the tenant mesh's tenants differ from JAX_FLEET's: "
+             f"{sorted(n for n in names if b['tenants'][n] != want[n])}")
+    took = sum(x["exchanges"] + x["all_reduce"] + x["gather"] + x["lead"]
+               for x in b_runs)
+    if took or fleet_mesh_shape(b["srv"].mesh) != (FLEET_MESH_DEVICES, 1):
+        fail(f"18b: {took} collectives on the 1-D tenant mesh")
+    print(f"  18b: t00–t{len(names) - 1:02d} on the "
+          f"{FLEET_MESH_DEVICES} x 1 tenant mesh: ticks scheduled "
+          f"{b['scheduled']} in "
+          f"{[round(t.tick_seconds, 3) for t in b['ticks']]} s, every "
+          f"tenant's hash equal to JAX_FLEET's, 0 collectives in "
+          f"{len(b_runs)} grid runs ({b_s:.1f} s)")
+    settle_fleet(api, "18")
+
+    t2 = time.perf_counter()
+    c = fleet_mesh_drill(device, pool)
+    c_s = time.perf_counter() - t2
+    print(f"  18c: loss → narrow → full under the 2-D signature: {c} "
+          f"({c_s:.1f} s)")
+    return dict(a=dict(scheduled=a["scheduled"],
+                       dispatches_per_group=a["dispatches_per_group"],
+                       tick_s=[t.tick_seconds for t in ticks],
+                       execute_s=[t.execute_seconds for t in ticks],
+                       rows_per_tick=per_tick_rows, stack_k=ks,
+                       patches=patches, split=tick_split(srv, 1),
+                       wall_s=a_s),
+                b=dict(scheduled=b["scheduled"],
+                       tick_s=[t.tick_seconds for t in b["ticks"]],
+                       wall_s=b_s),
+                c=dict(c, wall_s=c_s), launches=counts,
+                launches_per_tick=launches, grid_launches=spy.mesh_launches,
+                errs=errs, wall_s=time.perf_counter() - t0)
 
 
 T_START = time.perf_counter()
@@ -7235,6 +7537,26 @@ def main() -> int:
           f"each against the unsharded run and JAX_MESH")
     mesh = mesh_phase(device, card)
     print(f"    phase 17 {time.perf_counter() - t17:.1f} s")
+    t18 = time.perf_counter()
+    print(f"[18] the fleet mesh: 18a phase 12a's {FLEET_TENANTS} tenants x "
+          f"{FLEET_NODES} nodes x {FLEET_PODS} pods through FleetServer("
+          f"mesh={FLEET_MESH_DEVICES}, node_shards={FLEET_MESH_NODE_SHARDS}, "
+          f"mesh_devices=[cuda:0] * {FLEET_MESH_DEVICES}) (the 4 x 2 tenant "
+          f"x node-shard grid), 18b t00–t{FLEET_1D_TENANTS - 1:02d} on the "
+          f"{FLEET_MESH_DEVICES} x 1 tenant mesh, 18c the degrade → reform "
+          f"drill")
+    fmesh = fleet_mesh_phase(device, card, ref_tenants=fleet["tenants"])
+    print(f"    phase 18 {time.perf_counter() - t18:.1f} s")
+    for r in rows:
+        name = r["name"]
+        r["fleet_mesh"] = dict(
+            launches=fmesh["launches"].get(name, 0),
+            launches_per_tick=[t.get(name, 0)
+                               for t in fmesh["launches_per_tick"]],
+            launches_in_grid=fmesh["grid_launches"].get(name, 0),
+            max_abs_err=fmesh["errs"].get(name))
+        if fmesh["errs"].get(name) is not None:
+            r["max_abs_err"] = max(r["max_abs_err"], fmesh["errs"][name])
     for r in rows:
         name = r["name"]
         r["mesh"] = dict(launches=mesh["total"][name],
@@ -7331,7 +7653,8 @@ def main() -> int:
                           for sub in ("a", "at", "b", "c", "d")},
                       "server_wall_s": srvp["wall_s"],
                       "fleet": {k: v for k, v in fleet.items()
-                                if k not in ("errs", "launches")},
+                                if k not in ("errs", "launches",
+                                             "tenants")},
                       "scan": scan, "scan_wall_s": scan_wall,
                       "durable": {
                           "a": {k: v for k, v in dur["a"].items()
@@ -7354,6 +7677,8 @@ def main() -> int:
                                       mesh["serving"].items()
                                       if k != "waves"},
                           "preempt": mesh["preempt"]},
+                      "fleet_mesh": {k: v for k, v in fmesh.items()
+                                     if k not in ("errs", "launches")},
                       "wall_s": time.perf_counter() - T_START}))
     print(card)
     print(line_log.summary())
@@ -7366,6 +7691,6 @@ def main() -> int:
 if __name__ == "__main__":
     pin_hash_seed()
     if sys.argv[1:2] == ["--phase"] and sys.argv[2:] in (["15"], ["16"],
-                                                          ["17"]):
+                                                          ["17"], ["18"]):
         sys.exit(phase_child(sys.argv[2]))
     sys.exit(main())

@@ -14,9 +14,11 @@ admits iff the tenant's pre-tick dominant share plus the cumulative dominant
 demand of pods 0..i stays within quota + DRF_EPS.
 
 `drf_admission_rows` runs once for the whole stack ([K, …] planes, one pass
-for every tenant). The two float32 reductions reproduce the JAX package's
-compiled order on XLA's CPU backend bit for bit, from elementwise float32
-adds that round the same on the CPU and the card:
+for every tenant); on a fleet mesh once per tenant row, over the row's
+node planes gathered on its lead device (fleet/cycle.py). The two float32
+reductions reproduce the JAX package's compiled order on XLA's CPU backend
+bit for bit, from elementwise float32 adds that round the same on the CPU
+and the card:
 
   * the column sums over nodes (`capacity_usage_planes`) follow XLA's tree
     reduction rewrite: windows of 32 consecutive rows, the padding split
@@ -99,11 +101,16 @@ def capacity_usage_planes(tables: ClusterTables) -> Tuple[Array, Array]:
     capacity, [..., R] used), float32 (KiB sums overflow int32 at ~60 nodes
     of 64Gi; the shares these feed are ratios)."""
     nodes = tables.nodes
-    live = nodes.valid[..., None]
-    zero = torch.zeros((), dtype=nodes.alloc.dtype, device=nodes.alloc.device)
-    cap = column_sum_f32(torch.where(live, nodes.alloc, zero).float())
-    used = column_sum_f32(torch.where(live, nodes.used, zero).float())
-    return cap, used
+    return _capacity_usage(nodes.valid, nodes.alloc, nodes.used)
+
+
+def _capacity_usage(valid: Array, alloc: Array, used: Array
+                    ) -> Tuple[Array, Array]:
+    live = valid[..., None]
+    zero = torch.zeros((), dtype=alloc.dtype, device=alloc.device)
+    cap = column_sum_f32(torch.where(live, alloc, zero).float())
+    use = column_sum_f32(torch.where(live, used, zero).float())
+    return cap, use
 
 
 def _share(cap: Array, used: Array) -> Array:
@@ -123,14 +130,35 @@ def drf_admission_rows(tables: ClusterTables, pending: PodArrays,
     """The DRF clamp for a stack of tenants: tables/pending with a leading
     tenant axis [K, …], `quota` [K] float32. Returns (admission mask [K, P],
     pre-tick dominant share [K], per-pod dominant demand [K, P])."""
-    cap, used = capacity_usage_planes(tables)                  # [K, R]
+    nodes = tables.nodes
+    return drf_admission_planes(nodes.valid, nodes.alloc, nodes.used,
+                                tables.classes.rid, tables.reqs.vec,
+                                pending, quota)
+
+
+def drf_admission_planes(valid: Array, alloc: Array, used: Array,
+                         rid_table: Array, vec: Array, pending: PodArrays,
+                         quota: Array) -> Tuple[Array, Array, Array]:
+    """`drf_admission_rows` on the planes it reads: each tenant's node
+    validity [K, N], alloc and used [K, N, R] — every node row of the
+    tenant at once, since the column sums are not exact in any grouping
+    (KiB sums far above 2^24), so a node-sharded row gathers them first
+    (fleet/cycle.py) — its class → request-vector ids [K, SC] and request
+    vectors [K, SR, R]."""
+    cap, use = _capacity_usage(valid, alloc, used)             # [K, R]
+    return clamp_from_totals(cap, use, rid_table, vec, pending, quota)
+
+
+def clamp_from_totals(cap: Array, use: Array, rid_table: Array, vec: Array,
+                      pending: PodArrays, quota: Array
+                      ) -> Tuple[Array, Array, Array]:
+    """The clamp given each tenant's capacity and usage totals [K, R]."""
     safe = torch.clamp(cap, min=1.0)
     live = cap > 0
-    share = _share(cap, used)                                  # [K]
+    share = _share(cap, use)                                   # [K]
 
     cls = torch.clamp(pending.cls, min=0).long()               # [K, P]
-    rid = torch.clamp(torch.gather(tables.classes.rid, 1, cls), min=0).long()
-    vec = tables.reqs.vec                                      # [K, SR, R]
+    rid = torch.clamp(torch.gather(rid_table, 1, cls), min=0).long()
     R = vec.shape[-1]
     req = torch.gather(vec, 1, rid[..., None].expand(-1, -1, R)).float()
     zero = torch.zeros((), dtype=torch.float32, device=req.device)

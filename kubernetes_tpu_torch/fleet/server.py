@@ -1,5 +1,5 @@
 """FleetServer: K virtual tenant clusters behind one resident scheduler (port
-of the JAX package's fleet/server.py, single device).
+of the JAX package's fleet/server.py).
 
 Ownership model:
 
@@ -32,9 +32,24 @@ assume → fenced bind → retire, through each tenant's own Scheduler.
 The server runs on the CUDA device unless `device="cpu"` is asked for; with
 no GPU and no explicit CPU device it raises. A failed or hung dispatch is
 abandoned and every popped pod requeued, unless the constructor names a
-`fallback_device` (sched/supervisor.py). The fleet mesh — the tenant axis
-and the tenant × node-shard grid over the single cluster's sharded cycle —
-is not ported (ROADMAP A13b).
+`fallback_device` (sched/supervisor.py).
+
+The fleet mesh (`mesh=`, `node_shards=` or KTPU_FLEET_NODE_SHARDS): an int n
+builds a fleet-mode MeshState over n CUDA devices, or over the pool the
+caller gives (`mesh_devices`, repeats allowed), raising with the mesh note
+when there are fewer; a FleetMesh or a fleet-mode MeshState is taken as
+given; garbage clamps to no mesh. On the 1-D tenant mesh each device is a
+row of whole tenants; with node_shards = kn > 1 the devices form the
+(n/kn, kn) grid and each tenant's node planes are cut across its row
+(parallel/mesh.py). The stacks live on the mesh (fleet/tables.py), the
+bucket's N grows to a node-shard multiple, each row takes its slice of the
+quota vector at dispatch, and the prewarmer's and the supervisor's keys
+carry the mesh. A backend loss drops the whole mesh: the degraded tick
+never touches the resident stacks, the fallback re-encodes meshless onto
+`fallback_device`, and a reform is adopted at the next tick (the stacks
+restack onto it).
+Gang- and nodeName-bearing tenants take their solo waves meshless, as in
+the reference.
 
 Chaos: the `tenant.storm@<tenant>` seam (utils/faultline.py) simulates a
 per-tenant watch storm — that tenant's snapshot is invalidated (full
@@ -52,7 +67,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from ..sched.scheduler import CycleStats, Scheduler, _unported
+from ..sched.scheduler import CycleStats, Scheduler
 from ..state.arrays import resolve_device
 from ..state.dims import Dims
 from ..utils import faultline
@@ -298,9 +313,11 @@ class FleetTenant:
                  device="cuda", fallback_device=None):
         self.name = name
         self.quota = float(quota)
+        # mesh=0 pins the tenant's own state to one device (KTPU_MESH is
+        # not read): the fleet's stacks carry its residency and sharding
         self.sched = Scheduler(binder=binder, ledger=ledger,
                                fence_source=fence_source, clock=clock,
-                               device=device,
+                               device=device, mesh=0,
                                fallback_device=fallback_device)
         # the fleet's prewarmer owns warm-ahead
         self.sched.prewarmer.enabled = False
@@ -377,7 +394,8 @@ class FleetServer:
                  engines: Optional[Dict[str, str]] = None,
                  clock: Callable[[], float] = time.monotonic,
                  scheduler_name: str = "default-scheduler",
-                 storage=None, device="cuda", fallback_device=None):
+                 storage=None, device="cuda", fallback_device=None,
+                 mesh_devices=None):
         from ..sched.prewarm import BucketPrewarmer
         from ..sched.supervisor import DispatchSupervisor
         from ..sched.telemetry import SchedulerTelemetry
@@ -385,10 +403,10 @@ class FleetServer:
 
         if node_shards is None:
             node_shards = env_int("KTPU_FLEET_NODE_SHARDS", 1, 1, 64)
-        if mesh is not None or int(node_shards) > 1:
-            raise _unported("fleet mesh (parallel/mesh.py make_fleet_mesh, "
-                            "node_shards)", "A13b")
+        self.node_shards = int(node_shards)
         self.device = resolve_device(device)
+        self.mesh, self.mesh_state = self._make_fleet_mesh(
+            mesh, self.node_shards, mesh_devices)
         self.fallback_device = fallback_device
         self.batch_size = batch_size
         self.clock = clock
@@ -411,8 +429,13 @@ class FleetServer:
                                 if self.device.type == "cuda" else None)
         self.supervisor = DispatchSupervisor(
             self.device, prewarmer=self.prewarmer,
-            stream=self.dispatch_stream, fallback_device=fallback_device)
+            stream=self.dispatch_stream, fallback_device=fallback_device,
+            mesh_state=self.mesh_state)
         self.prewarmer.supervisor = self.supervisor
+        # re-admission rewarms under the FLEET mesh's key: a fleet-mode
+        # MeshState reforms the grid itself; the provider answers for a
+        # mesh adopted without one
+        self.supervisor.mesh_provider = lambda: self.mesh
         # fleet-level flight recorder (sched/telemetry.py): per-tick phase
         # spans + per-TENANT stats on each record; storms and abandoned
         # dispatches auto-dump
@@ -441,6 +464,42 @@ class FleetServer:
         st = self.supervisor.stats
         return (st.degraded_cycles, st.abandoned, st.recoveries)
 
+    @staticmethod
+    def _make_fleet_mesh(mesh, node_shards: int = 1, devices=None):
+        """→ (mesh, mesh_state). An int (or int string) n > 1 builds a
+        fleet-mode MeshState over n devices of `devices`, else of the CUDA
+        devices — raising, with the mesh note, when there are fewer — whose
+        node-shard width is `node_shards` clamped to a power of two ≤ n;
+        the degrade → reform ladder owns the mesh from then on. A fleet-mode
+        MeshState is taken as it is; a Mesh is adopted as a fleet mesh over
+        its devices, with no state to reform. None, 0, 1 and garbage clamp
+        to no mesh."""
+        from ..parallel.mesh import (FleetMesh, Mesh, MeshState,
+                                     make_fleet_mesh)
+        from ..utils.envparse import clamped_int
+
+        if mesh is None:
+            return None, None
+        if isinstance(mesh, MeshState):
+            if mesh._fleet_ns is None:
+                raise ValueError("a fleet takes a fleet-mode MeshState "
+                                 "(MeshState(..., fleet_node_shards=k))")
+            return mesh.mesh, mesh
+        if isinstance(mesh, FleetMesh):
+            return mesh, None
+        if isinstance(mesh, Mesh):
+            return make_fleet_mesh(mesh.size, node_shards=node_shards,
+                                   devices=mesh.devices), None
+        n = clamped_int(mesh, 0, 0, 4096)
+        if n <= 1:
+            return None, None
+        make_fleet_mesh(n, devices=devices)  # raises when short
+        ns = clamped_int(node_shards, 1, 1, 64)
+        state = MeshState(n, devices=devices, fleet_node_shards=ns)
+        if state.mesh is None:
+            return None, None
+        return state.mesh, state
+
     # ------------------------------------------------------------------ #
     # per-engine-group residency
     # ------------------------------------------------------------------ #
@@ -453,7 +512,8 @@ class FleetServer:
     def _stack_for(self, engine: str) -> FleetStack:
         st = self.stacks.get(engine)
         if st is None:
-            st = self.stacks[engine] = FleetStack(self.device)
+            st = self.stacks[engine] = FleetStack(self.device,
+                                                  mesh=self.mesh)
         return st
 
     @property
@@ -468,6 +528,22 @@ class FleetServer:
 
     def _invalidate_stacks(self) -> None:
         for st in self.stacks.values():
+            st.invalidate()
+
+    def _node_shard_width(self) -> int:
+        from ..parallel.mesh import fleet_mesh_shape
+
+        return 1 if self.mesh is None else fleet_mesh_shape(self.mesh)[1]
+
+    def _sync_mesh(self) -> None:
+        """Adopt the MeshState's current mesh (a loss dropped it; a reform
+        built a new one, possibly narrower): every group stack re-homes and
+        restacks onto the new placement."""
+        if self.mesh_state is None or self.mesh_state.mesh is self.mesh:
+            return
+        self.mesh = self.mesh_state.mesh
+        for st in self.stacks.values():
+            st.mesh = self.mesh
             st.invalidate()
 
     # ------------------------------------------------------------------ #
@@ -539,6 +615,7 @@ class FleetServer:
         device = device or self.supervisor.snapshot_device()
         snaps: Dict[str, object] = {}
         keys: Dict[str, Tuple] = {}
+        kn = self._node_shard_width()
         for _ in range(4):
             for t in tlist:
                 pending = [p for p, _ in batches[t.name]]
@@ -547,6 +624,13 @@ class FleetServer:
                     self._fleet_dims, device=device)
             union = fleet_dims([snaps[t.name].dims for t in tlist],
                                base=self._fleet_dims)
+            if kn > 1:
+                # the grid: the bucket's N must divide the node-shard row
+                # so the stacked planes split without padding (a no-op for
+                # the bucketed N; the guard covers raw shapes)
+                from ..parallel.mesh import padded_node_count
+
+                union = replace(union, N=padded_node_count(union.N, kn))
             if all(replace(snaps[t.name].dims, has_node_name=False)
                    == union for t in tlist):
                 self._fleet_dims = union
@@ -756,6 +840,9 @@ class FleetServer:
         stack refresh and ONE fleet dispatch per engine group. Raises
         propagate to tick()'s requeue guard — this method never loses a
         popped pod."""
+        # adopt a dropped or reformed mesh BEFORE snapshotting: the bucket's
+        # node-shard divisibility and the stacks' placement follow it
+        self._sync_mesh()
         snaps, keys = self._snapshot_round(tlist, batches)
         span.mark("snapshot")
 
@@ -828,11 +915,12 @@ class FleetServer:
         span.mark("stack-refresh")
 
         fsig = fleet_signature(Kp)
+        mesh = stack.mesh
         self.prewarmer.observe(
             d, n_nodes=max(t.sched.cache.node_count for t in gts),
             n_existing=max(t.sched.cache.pod_count for t in gts),
-            engine=engine, rc=rc, fleet=fsig)
-        self.prewarmer.ensure_warm(d, engine, rc=rc, fleet=fsig)
+            engine=engine, rc=rc, fleet=fsig, mesh=mesh)
+        self.prewarmer.ensure_warm(d, engine, rc=rc, fleet=fsig, mesh=mesh)
         self.supervisor.note_cycle_signature(d, engine, (), False, rc=rc,
                                              fleet=fsig)
         span.mark("prewarm")
@@ -863,8 +951,12 @@ class FleetServer:
             if cuda:
                 ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
                 ev[0].record()
-            res = _run(stack.tables, stack.pending, stack.keys_host,
-                       stack.existing, self.device)
+            stack.mark_dispatch_start()
+            try:
+                res = _run(stack.tables, stack.pending, stack.keys_host,
+                           stack.existing, self.device)
+            finally:
+                stack.mark_dispatch_done()
             if cuda:
                 ev[1].record()
                 ev[1].synchronize()
@@ -894,9 +986,11 @@ class FleetServer:
             tb, pe, ex = stack_blocks(blocks)
             return _run(tb, pe, keys_host, ex, dev)
 
+        from ..parallel.mesh import mesh_key
+
         handle = self.supervisor.submit(
             "cycle", (replace(d, has_node_name=False), engine, (), False,
-                      rc, fsig),
+                      rc, fsig, mesh_key(mesh)),
             _primary, _fallback)
         span.mark("dispatch")
         out, exp = handle.result()

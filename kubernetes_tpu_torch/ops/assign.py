@@ -276,10 +276,9 @@ def scan_rows(tables: ClusterTables, cyc: CycleArrays, pods: PodArrays,
     ax = axis.current()
     if not ax.sharded:
         return scan(tables, cyc, pods, rows, init)
-    from ..parallel.mesh import (gather_cycle, gather_state, gather_tables,
-                                 split_state)
+    from ..parallel.mesh import gather_full, split_state
 
-    ft, fc, fs = gather_tables(tables), gather_cycle(cyc), gather_state(init)
+    ft, fc, fs = gather_full(tables, cyc, init)
     node, full = ax.lead(lambda: scan(ft, fc, pods, rows, fs))
     return node, split_state(full, init)
 

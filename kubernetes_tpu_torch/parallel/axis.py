@@ -18,7 +18,11 @@ instead of reducing locally:
     admission prefix, the sequential scan K4, the preemption node choice)
     run on the mesh's lead device: arguments wrapped in `Shard(x, dim)` are
     gathered there in shard order, `fn` runs once with a local axis, and
-    its result is handed to every shard;
+    its result is handed to every shard. However many tensors one step
+    gathers (`gather_many`, `gather_tree`, the Shard arguments of one
+    `lead`), they cross in one rendezvous: under one interpreter lock
+    every rendezvous costs its waiting threads a wake-up behind the busy
+    ones;
   * `local_rows(ids)`: a global node id as this shard's row (existing pods'
     node ids, the scan's and the runs engine's choices);
   * `split(x, dim)`: this shard's block of a full node-axis tensor.
@@ -32,6 +36,11 @@ the shards' programs take the same collectives in the same order because
 every host decision they make reads replicated values only. A shard that
 raises aborts the group, and the others raise `MeshAborted` at their next
 collective; `spmd` re-raises the first real error.
+
+The fleet's grid (parallel/mesh.py FleetMesh) runs through `spmd_grid`: its
+tenant rows in turn, each row of kn > 1 shards a collective group of its
+own, so no collective crosses rows; a row of one device (the 1-D tenant
+mesh) runs under a `RowAxis`, which takes no collective at all.
 """
 
 from __future__ import annotations
@@ -91,6 +100,7 @@ class LocalAxis:
     rank = 0
     size = 1
     offset = 0
+    group = None
 
     def all_reduce(self, x: Array, op: str) -> Array:
         return x
@@ -118,6 +128,10 @@ class LocalAxis:
 
     def gather(self, x: Array, dim: int) -> Array:
         return x
+
+    def gather_many(self, pairs) -> List[Array]:
+        """`gather` of each (tensor, dim) of `pairs`, in one rendezvous."""
+        return [x for x, _ in pairs]
 
     def gather_tree(self, x, dim: int):
         """`gather` over every tensor of a NamedTuple or tuple."""
@@ -148,7 +162,9 @@ _TLS = threading.local()
 # shard read; gather: the blocks copied to the lead; lead: the results
 # handed to the other shards), and the lead shard's host seconds waiting
 # in collectives (`wait_s`) and running lead steps (`lead_s`). Read by the
-# dryrun, chip_smoke.py and scripts/torch_cycle_profile.py.
+# dryrun, chip_smoke.py and scripts/torch_cycle_profile.py. After a
+# spmd_grid run the keys hold the totals over its rows, `grid` its shape
+# and `rows` each row's own tally.
 LAST_RUN: dict = {}
 
 
@@ -262,24 +278,60 @@ class ShardAxis(LocalAxis):
     def gather(self, x: Array, dim: int) -> Optional[Array]:
         """The full node axis of `x` on the lead device (None on the other
         shards)."""
-        vals = self.group.exchange(self.rank, x)
+        return self.gather_many([(x, dim)])[0]
+
+    def gather_many(self, pairs) -> List[Optional[Array]]:
+        """Each (tensor, dim) of `pairs` gathered on the lead device, all in
+        ONE rendezvous (each still counted as a gather of its own); Nones
+        on the other shards."""
+        vals = self.group.exchange(self.rank, [x for x, _ in pairs])
         if self.rank != 0:
-            return None
-        self.group.count("gather", sum(_nbytes(v) for v in vals[1:]))
-        return torch.cat([v.to(self.lead_device) for v in vals], dim)
+            return [None] * len(pairs)
+        out = []
+        for i, (_, dim) in enumerate(pairs):
+            self.group.count("gather", sum(_nbytes(v[i]) for v in vals[1:]))
+            out.append(torch.cat([v[i].to(self.lead_device) for v in vals],
+                                 dim))
+        return out
 
     def gather_tree(self, x, dim: int):
-        if isinstance(x, tuple) and hasattr(x, "_fields"):
-            return type(x)(*(self.gather_tree(v, dim) for v in x))
-        if isinstance(x, tuple):
-            return tuple(self.gather_tree(v, dim) for v in x)
-        return self.gather(x, dim)
+        return self._gather_trees([(x, dim)])[0]
+
+    def _gather_trees(self, trees) -> list:
+        """Each (tree, dim) of `trees` gathered leaf by leaf, all of them in
+        one rendezvous; the trees rebuilt around the gathered leaves (around
+        Nones on the other shards)."""
+        pairs = []
+
+        def flat(t, dim):
+            if isinstance(t, tuple):
+                for v in t:
+                    flat(v, dim)
+            else:
+                pairs.append((t, dim))
+
+        for t, dim in trees:
+            flat(t, dim)
+        it = iter(self.gather_many(pairs))
+
+        def build(t):
+            if isinstance(t, tuple):
+                kids = [build(v) for v in t]
+                return type(t)(*kids) if hasattr(t, "_fields") else \
+                    tuple(kids)
+            return next(it)
+
+        return [build(t) for t, _ in trees]
 
     def lead(self, fn: Callable, *args, **kwargs):
-        gathered = [self.gather_tree(a.x, a.dim) if isinstance(a, Shard)
-                    else a for a in args]
-        kw = {k: self.gather_tree(v.x, v.dim) if isinstance(v, Shard) else v
-              for k, v in kwargs.items()}
+        keys = list(kwargs)
+        vals = list(args) + [kwargs[k] for k in keys]
+        shards = [i for i, a in enumerate(vals) if isinstance(a, Shard)]
+        full = self._gather_trees([(vals[i].x, vals[i].dim)
+                                   for i in shards])
+        for i, g in zip(shards, full):
+            vals[i] = g
+        gathered, kw = vals[:len(args)], dict(zip(keys, vals[len(args):]))
         out = None
         if self.rank == 0:
             _TLS.axis = _LEAD
@@ -312,45 +364,47 @@ class ShardAxis(LocalAxis):
         return torch.where(inside, ids - self.offset, -1), inside
 
 
-def spmd(devices: Sequence[torch.device], offsets: Sequence[int],
-         n_global: int, fn: Callable[[int], Any]) -> List[Any]:
-    """Run `fn(rank)` once per shard, each in its own thread under that
-    shard's ShardAxis (CUDA shards with their device current). Returns the
-    results in shard order; raises the first shard's error."""
-    size = len(devices)
-    group = _Group(size)
+def _run(axes: Sequence[LocalAxis], groups: Sequence[_Group],
+         fn: Callable[[int], Any]) -> List[Any]:
+    """Run `fn(i)` once per position, each in its own thread under
+    `axes[i]` (CUDA positions with their device current); position 0 runs
+    in the caller's thread. A position that raises fails every group, so
+    the others raise MeshAborted at their next collective. Returns the
+    results in order; raises the first real error."""
+    size = len(axes)
     prev = current()
     results: List[Any] = [None] * size
     errors: List[Optional[BaseException]] = [None] * size
 
-    def body(rank: int) -> None:
-        _TLS.axis = ShardAxis(group, rank, offsets, n_global, devices)
-        dev = devices[rank]
+    def body(i: int) -> None:
+        ax = axes[i]
+        _TLS.axis = ax
+        dev = ax.device
         try:
             if dev.type == "cuda":
                 with torch.cuda.device(dev):
-                    results[rank] = fn(rank)
+                    results[i] = fn(i)
             else:
-                results[rank] = fn(rank)
+                results[i] = fn(i)
         except BaseException as e:  # noqa: BLE001 - re-raised below
-            errors[rank] = e
-            group.fail(f"shard {rank} raised {type(e).__name__}: {e}")
+            errors[i] = e
+            for g in groups:
+                g.fail(f"shard {i} raised {type(e).__name__}: {e}")
         finally:
-            # a shard that finishes while another still waits in a
-            # collective means the programs diverged: that one fails
-            group.finish()
-            _TLS.axis = prev if rank == 0 else LOCAL
+            # a shard that finishes while another of its group still waits
+            # in a collective means the programs diverged: that one fails
+            if ax.group is not None:
+                ax.group.finish()
+            _TLS.axis = prev if i == 0 else LOCAL
 
-    threads = [threading.Thread(target=body, args=(r,), daemon=True,
-                                name=f"ktpu-shard-{r}")
-               for r in range(1, size)]
+    threads = [threading.Thread(target=body, args=(i,), daemon=True,
+                                name=f"ktpu-shard-{i}")
+               for i in range(1, size)]
     for t in threads:
         t.start()
     body(0)
     for t in threads:
         t.join()
-    LAST_RUN.clear()
-    LAST_RUN.update(group.stats, shards=size, exchanges=group.exchanges)
     real = [e for e in errors if e is not None
             and not isinstance(e, MeshAborted)]
     if real:
@@ -358,3 +412,75 @@ def spmd(devices: Sequence[torch.device], offsets: Sequence[int],
     if any(e is not None for e in errors):
         raise next(e for e in errors if e is not None)
     return results
+
+
+def spmd(devices: Sequence[torch.device], offsets: Sequence[int],
+         n_global: int, fn: Callable[[int], Any]) -> List[Any]:
+    """Run `fn(rank)` once per shard, each in its own thread under that
+    shard's ShardAxis (CUDA shards with their device current). Returns the
+    results in shard order; raises the first shard's error."""
+    group = _Group(len(devices))
+    axes = [ShardAxis(group, r, offsets, n_global, devices)
+            for r in range(len(devices))]
+    try:
+        return _run(axes, [group], fn)
+    finally:
+        LAST_RUN.clear()
+        LAST_RUN.update(group.stats, shards=len(devices),
+                        exchanges=group.exchanges)
+
+
+class RowAxis(LocalAxis):
+    """A 1-D tenant mesh's row: one device holding its tenants whole, so
+    every collective is local, but the thread is inside a fleet run."""
+
+    in_mesh = True
+
+    def __init__(self, device: torch.device) -> None:
+        self.device = device
+
+
+def spmd_grid(rows: Sequence[Sequence[torch.device]],
+              offsets: Sequence[int], n_global: int,
+              fn: Callable[[int, int], Any]) -> List[List[Any]]:
+    """Run `fn(r, s)` once per position of a (rows × shards) grid. The rows
+    run in turn: a row of kn > 1 shards in kn threads (the caller's and kn
+    - 1 of its own) under the row's node axis, a ShardAxis group whose
+    collectives never reach another row; a one-shard row (the 1-D tenant
+    mesh) in the calling thread under a RowAxis, with no collective.
+
+    In turn, not all rows at once: every shard thread is host-bound under
+    one interpreter lock, and a rendezvous among all the grid's busy
+    threads waits behind the others' launches — on the card a 4 × 2 grid's
+    runs-engine tick took 19.4 s with every row at once and 7.7 s with
+    the rows in turn, one device 3.4 s (scripts/fleet_grid_layouts.py).
+    A row that raises ends the run there. Returns the results as
+    [row][shard]; LAST_RUN gets the totals over the rows and each row's
+    own tally under "rows"."""
+    kn = len(rows[0])
+    if any(len(row) != kn for row in rows):
+        raise ValueError("spmd_grid: every row needs the same shard count")
+    blank = _Group(1).stats
+    out: List[List[Any]] = []
+    per_row: List[dict] = []
+    try:
+        for r, row in enumerate(rows):
+            if kn == 1:
+                per_row.append(dict(blank, exchanges=0))
+                out.append(_run([RowAxis(torch.device(row[0]))], [],
+                                lambda _i: fn(r, 0)))
+                continue
+            group = _Group(kn)
+            axes = [ShardAxis(group, s, offsets, n_global, row)
+                    for s in range(kn)]
+            try:
+                out.append(_run(axes, [group], lambda s: fn(r, s)))
+            finally:
+                per_row.append(dict(group.stats, exchanges=group.exchanges))
+    finally:
+        LAST_RUN.clear()
+        LAST_RUN.update({k: sum(x[k] for x in per_row) for k in blank},
+                        shards=len(rows) * kn, grid=[len(rows), kn],
+                        exchanges=sum(x["exchanges"] for x in per_row),
+                        rows=per_row)
+    return out

@@ -17,6 +17,18 @@ shard, each on its device, and a copy of every other table per device;
 `ShardedTables.run` runs a cycle over them. `MeshState` is the serving
 scheduler's mesh lifecycle (sched/supervisor.py drives it): drop on a
 backend loss, reform narrower, restore full width after a full probe.
+
+The fleet half (the JAX package's parallel/mesh.py:202-334): K tenant
+clusters stacked on a leading axis (fleet/tables.py) split across the rows
+of a `FleetMesh`. `make_fleet_mesh(n)` is the 1-D tenant mesh, each device
+a row owning K/n whole tenants (no collective); `make_fleet_mesh(n,
+node_shards=kn)` the (TENANT_AXIS, NODE_AXIS) grid of shape (n/kn, kn),
+each row's tenants with their node planes cut into kn row blocks across
+the row — the single-cluster sharding above, per tenant row.
+`shard_fleet` places a stacked tree (`ShardedFleet`), `ShardedFleet.run`
+runs a function on every position of the grid (parallel/axis.py
+spmd_grid: the rows in turn, one collective group per row, none across
+rows).
 """
 
 from __future__ import annotations
@@ -91,13 +103,15 @@ def make_mesh(n_devices: Optional[int] = None,
 
 
 def mesh_key(mesh: Optional[Mesh]) -> Optional[Tuple]:
-    """Hashable signature of a mesh for program and budget keys: its shape
-    and each position's device. Two meshes over different devices never
-    share a key; two built alike do."""
+    """Hashable signature of a mesh for program and budget keys: its axis
+    names, its shape and each position's device. Two meshes over different
+    devices never share a key; two built alike do; and a node mesh, a 1-D
+    tenant mesh and a tenant × node-shard grid over the same devices are
+    three keys."""
     if mesh is None:
         return None
-    return (mesh.shape, tuple((i, d.type, d.index)
-                              for i, d in enumerate(mesh.devices)))
+    return (mesh.axis_names, mesh.shape,
+            tuple((i, d.type, d.index) for i, d in enumerate(mesh.devices)))
 
 
 def padded_node_count(n: int, n_devices: int) -> int:
@@ -240,14 +254,42 @@ STATE_DIMS = dict(used=0, ppa=0, ppw=0, ppt=0, CNT=1, HOLD=1, WSYM=1,
                   vol_any=0, vol_rw=0)
 
 
-def gather_state(state):
-    """The full AssignState on the lead device (None on other shards)."""
+def _state_pairs(state):
+    return [(getattr(state, f), STATE_DIMS[f]) for f in state._fields]
+
+
+def _cycle_pairs(cyc):
+    return [(a, 1) for a in cyc.static] + [
+        (getattr(cyc, f), 1) for f in ("CNT", "HOLD", "WSYM")]
+
+
+def gather_full(tables=None, cyc=None, state=None) -> tuple:
+    """The unsharded ClusterTables, CycleArrays and AssignState (each one
+    given) on the lead device, in ONE rendezvous; Nones on the other
+    shards. The tables' node planes are [N, …], the static lattice and the
+    CNT/HOLD/WSYM seeds [·, N], the state's planes as STATE_DIMS says."""
     ax = axis.current()
     if not ax.sharded:
-        return state
-    parts = [ax.gather(getattr(state, f), STATE_DIMS[f])
-             for f in state._fields]
-    return type(state)(*parts) if ax.rank == 0 else None
+        return tables, cyc, state
+    parts = [[(a, 0) for a in tables.nodes] if tables is not None else [],
+             _cycle_pairs(cyc) if cyc is not None else [],
+             _state_pairs(state) if state is not None else []]
+    got = ax.gather_many([p for part in parts for p in part])
+    if ax.rank != 0:
+        return None, None, None
+    n_t, n_c = len(parts[0]), len(parts[1])
+    t, c, s = got[:n_t], got[n_t:n_t + n_c], got[n_t + n_c:]
+    return (tables._replace(nodes=NodeArrays(*t)) if tables is not None
+            else None,
+            cyc._replace(static=type(cyc.static)(*c[:-3]), CNT=c[-3],
+                         HOLD=c[-2], WSYM=c[-1]) if cyc is not None
+            else None,
+            type(state)(*s) if state is not None else None)
+
+
+def gather_state(state):
+    """The full AssignState on the lead device (None on other shards)."""
+    return gather_full(state=state)[2]
 
 
 def split_state(full, like):
@@ -262,25 +304,13 @@ def split_state(full, like):
 
 def gather_tables(tables: ClusterTables):
     """The unsharded ClusterTables on the lead device (None elsewhere)."""
-    ax = axis.current()
-    if not ax.sharded:
-        return tables
-    nodes = [ax.gather(a, 0) for a in tables.nodes]
-    return tables._replace(nodes=NodeArrays(*nodes)) if ax.rank == 0 \
-        else None
+    return gather_full(tables=tables)[0]
 
 
 def gather_cycle(cyc):
     """The unsharded CycleArrays on the lead device (None elsewhere): the
     static lattice and the CNT/HOLD/WSYM seeds are [·, N]."""
-    ax = axis.current()
-    if not ax.sharded:
-        return cyc
-    static = [ax.gather(a, 1) for a in cyc.static]
-    seeds = {f: ax.gather(getattr(cyc, f), 1) for f in ("CNT", "HOLD", "WSYM")}
-    if ax.rank != 0:
-        return None
-    return cyc._replace(static=type(cyc.static)(*static), **seeds)
+    return gather_full(cyc=cyc)[1]
 
 
 def memory_report(sharded: ShardedTables, single: ClusterTables) -> dict:
@@ -304,6 +334,185 @@ def memory_report(sharded: ShardedTables, single: ClusterTables) -> dict:
     }
 
 
+def tree_map(fn, *trees):
+    """`fn` over the matching tensors of trees of one structure (tensors,
+    tuples and NamedTuples)."""
+    t0 = trees[0]
+    if isinstance(t0, torch.Tensor):
+        return fn(*trees)
+    kids = [tree_map(fn, *xs) for xs in zip(*trees)]
+    return type(t0)(*kids) if hasattr(t0, "_fields") else tuple(kids)
+
+
+def _copy(a: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """`a` (often a slice of a stacked leaf) as its own contiguous tensor on
+    `device`."""
+    return a.to(device, copy=True, memory_format=torch.contiguous_format)
+
+
+# ----------------------------------------------------------------------- #
+# the fleet half: tenant rows × node shards (the JAX package's
+# parallel/mesh.py:202-334)
+# ----------------------------------------------------------------------- #
+
+TENANT_AXIS = "tenants"
+
+
+class FleetMesh(Mesh):
+    """The fleet's mesh: `devices` in row-major order over a grid of
+    (tenant rows, node shards). Row r, devices[r·kn:(r+1)·kn], owns the
+    r-th block of K/kt stacked tenants, each tenant's node planes cut into
+    kn contiguous row blocks across the row. With kn = 1 it is the 1-D
+    tenant mesh (axis names (TENANT_AXIS,), shape (n,)): every device a row
+    of whole tenants, no collective. Otherwise the 2-D grid
+    ((TENANT_AXIS, NODE_AXIS), shape (kt, kn))."""
+
+    def __init__(self, devices: Sequence, node_shards: int = 1) -> None:
+        super().__init__(devices)
+        kn = int(node_shards)
+        if kn < 1 or len(self.devices) % kn:
+            raise ValueError(
+                f"FleetMesh: node_shards={kn} must divide the "
+                f"{len(self.devices)} devices — the grid is a (tenants, "
+                "node-shards) reshape")
+        self.node_shards = kn
+        self.axis_names = ((TENANT_AXIS,) if kn == 1
+                           else (TENANT_AXIS, NODE_AXIS))
+
+    @property
+    def shape(self) -> Tuple[int, ...]:
+        n, kn = len(self.devices), self.node_shards
+        return (n,) if kn == 1 else (n // kn, kn)
+
+    @property
+    def rows(self) -> Tuple[Tuple[torch.device, ...], ...]:
+        kn = self.node_shards
+        return tuple(self.devices[i:i + kn]
+                     for i in range(0, len(self.devices), kn))
+
+    def __repr__(self) -> str:
+        kt, kn = fleet_mesh_shape(self)
+        return (f"FleetMesh({kt} x {kn}: "
+                f"{', '.join(str(d) for d in self.devices)})")
+
+
+def make_fleet_mesh(n_devices: Optional[int] = None, node_shards: int = 1,
+                    devices: Optional[Sequence] = None) -> FleetMesh:
+    """The fleet mesh over `n_devices` of `devices` (repeats allowed), else
+    of cuda:0..n-1: the 1-D tenant mesh when `node_shards` is 1, else the
+    (n/kn, kn) grid. Too few devices raises with the virtual-mesh form in
+    the error's notes, as `make_mesh` does; a node-shard width that does
+    not divide n raises ValueError."""
+    pool = list(devices) if devices is not None else _cuda_devices()
+    n = n_devices or len(pool)
+    if n < 1 or len(pool) < n:
+        err = RuntimeError(
+            f"make_fleet_mesh({n}): only {len(pool)} devices visible")
+        err.__notes__ = [MESH_HINT]
+        raise err
+    kn = int(node_shards or 1)
+    if kn > 1 and (kn > n or n % kn):
+        raise ValueError(
+            f"make_fleet_mesh({n}, node_shards={kn}): node_shards must "
+            "divide the device count — the 2-D mesh is a (tenants, "
+            "node-shards) reshape of the same devices")
+    return FleetMesh(pool[:n], max(kn, 1))
+
+
+def fleet_mesh_shape(mesh: Mesh) -> Tuple[int, int]:
+    """(tenant-axis width, node-shard width) of a fleet mesh: a 1-D tenant
+    mesh reads as (n, 1). The tenant width, not the device count, is what
+    the stack's K pads to (fleet/tables.py FleetStack.padded_k)."""
+    kn = getattr(mesh, "node_shards", 1)
+    return mesh.size // kn, kn
+
+
+def padded_tenant_count(k: int, n_rows: int) -> int:
+    """Smallest multiple of n_rows ≥ k: inert tenants pad the difference,
+    the inert-row rule one axis up."""
+    return padded_node_count(k, n_rows)
+
+
+def pad_fleet_node_tables(tables: ClusterTables,
+                          node_shards: int) -> ClusterTables:
+    """Pad a STACKED [K, N, …] ClusterTables so each tenant's node axis
+    (axis 1) divides `node_shards`, with `_FILL`'s inert rows per tenant.
+    The serving path never needs it (FleetServer grows the bucket's N to a
+    node-shard multiple first); a directly built stack must not crash."""
+    N = int(tables.nodes.valid.shape[1])
+    Np = padded_node_count(N, node_shards)
+    if Np == N:
+        return tables
+    return tables._replace(
+        nodes=_pad_node_arrays(tables.nodes, Np - N, axis_=1))
+
+
+class ShardedFleet(NamedTuple):
+    """A stacked fleet tree (tables, pending, existing; every leaf [K, …])
+    on a FleetMesh. `cells[r·kn + s]` is position (r, s): tenant rows
+    [r·K/kt, (r+1)·K/kt), with each tenant's node rows [offsets[s],
+    offsets[s] + n_local) on mesh.devices[r·kn + s] and the row's copy of
+    every other leaf (one per distinct device of the row: positions on one
+    device share it, and never write it)."""
+
+    mesh: FleetMesh
+    cells: Tuple[Tuple[Any, Any, Any], ...]
+    K: int
+    offsets: Tuple[int, ...]
+    n_nodes: int  # each tenant's (padded) N
+
+    @property
+    def k_row(self) -> int:
+        return self.K // fleet_mesh_shape(self.mesh)[0]
+
+    def run(self, fn: Callable) -> List[List[Any]]:
+        """`fn(r, s, cell)` on every position of the grid under its row's
+        node axis (parallel/axis.py spmd_grid). Returns the results as
+        [row][shard]."""
+        kn = self.mesh.node_shards
+        return axis.spmd_grid(self.mesh.rows, self.offsets, self.n_nodes,
+                              lambda r, s: fn(r, s, self.cells[r * kn + s]))
+
+
+def shard_fleet(tree, mesh: FleetMesh) -> ShardedFleet:
+    """Place a stacked (tables, pending, existing) tree on a fleet mesh,
+    every part COPIED: row r takes tenant block [r·K/kt, (r+1)·K/kt), and on
+    a grid each of that block's node planes is cut into kn contiguous row
+    blocks, one per device of the row; every other leaf gets one copy per
+    distinct device of the row. K must already be a multiple of the tenant
+    width (FleetStack pads with inert tenants); a per-tenant N the
+    node-shard width does not divide is padded with inert rows."""
+    tables, pending, existing = tree
+    kt, kn = fleet_mesh_shape(mesh)
+    K = int(tables.nodes.valid.shape[0])
+    if K % kt:
+        raise ValueError(
+            f"shard_fleet: K={K} is not a multiple of the tenant width "
+            f"{kt} — pad with inert tenants first (fleet/tables.py)")
+    if kn > 1:
+        tables = pad_fleet_node_tables(tables, kn)
+    N = int(tables.nodes.valid.shape[1])
+    n, kr = N // kn, K // kt
+    cells = []
+    for r, row in enumerate(mesh.rows):
+        blk = slice(r * kr, (r + 1) * kr)
+        rest = {}
+        for s, d in enumerate(row):
+            if d not in rest:
+                rest[d] = (
+                    {f: tree_map(lambda a: _copy(a[blk], d),
+                                 getattr(tables, f))
+                     for f in ClusterTables._fields if f != "nodes"},
+                    tree_map(lambda a: _copy(a[blk], d), pending),
+                    tree_map(lambda a: _copy(a[blk], d), existing))
+            fields, pe, ex = rest[d]
+            nodes = NodeArrays(*(_copy(a[blk, s * n:(s + 1) * n], d)
+                                 for a in tables.nodes))
+            cells.append((ClusterTables(nodes=nodes, **fields), pe, ex))
+    return ShardedFleet(mesh, tuple(cells), K,
+                        tuple(s * n for s in range(kn)), N)
+
+
 class MeshState:
     """The serving scheduler's mesh lifecycle (the JAX package's MeshState):
 
@@ -318,14 +527,21 @@ class MeshState:
         reform re-shards from the host staging.
 
     Widths stay powers of two. The pool of available devices is the one the
-    caller gave (`devices`, repeats allowed), else every CUDA device."""
+    caller gave (`devices`, repeats allowed), else every CUDA device.
+
+    Fleet mode (`fleet_node_shards` not None): the meshes are FleetMeshes
+    (`make_fleet_mesh`), the node-shard width a power of two clamped to the
+    mesh width, so a loss drops the whole grid and a reform rebuilds it
+    2-D (narrower after an unproven loss)."""
 
     def __init__(self, n_devices: Optional[int] = None,
-                 devices: Optional[Sequence] = None) -> None:
+                 devices: Optional[Sequence] = None,
+                 fleet_node_shards: Optional[int] = None) -> None:
         self._mu = threading.Lock()
         self._requested = n_devices
         self._pool = list(devices) if devices is not None \
             else _cuda_devices()
+        self._fleet_ns = fleet_node_shards
         self._lost_width: Optional[int] = None
         self.reforms = 0
         self.demotions = 0
@@ -337,7 +553,11 @@ class MeshState:
         self.mesh: Optional[Mesh] = m
 
     def _build(self, width: int) -> Mesh:
-        return make_mesh(width, devices=self._pool)
+        if self._fleet_ns is None:
+            return make_mesh(width, devices=self._pool)
+        ns = self._pow2_floor(max(int(self._fleet_ns), 1))
+        return make_fleet_mesh(width, node_shards=min(ns, width),
+                               devices=self._pool)
 
     @staticmethod
     def _pow2_floor(n: int) -> int:

@@ -41,8 +41,8 @@ from ..ops.lattice import (EngineConfig, build_cycle, default_engine_config,
 from ..ops.runs import assign_runs, plan_runs
 from ..ops.waves import assign_waves
 from ..parallel import axis
-from ..parallel.mesh import (ShardedTables, gather_cycle, gather_state,
-                             gather_tables, replicate)
+from ..parallel.mesh import (ShardedTables, gather_full, gather_state,
+                             replicate)
 from ..state.arrays import ClusterTables, PodArrays, tables_to_torch, to_device
 from ..state.dims import Dims
 from ..state.encode import Encoder
@@ -235,8 +235,7 @@ def schedule_batch(tables: ClusterTables, pending: PodArrays, keys: tuple,
         if ax.sharded:
             # the attribution ranks every node of a row: on the lead device,
             # over the gathered tables, lattice and state
-            ft, fc = gather_tables(tables), gather_cycle(cyc)
-            fs = gather_state(res.state)
+            ft, fc, fs = gather_full(tables, cyc, res.state)
             return res, ax.lead(lambda: explain_assignments(
                 ft, fc, pending, res._replace(state=fs), granularity=gran))
         return res, explain_assignments(tables, cyc, pending, res,

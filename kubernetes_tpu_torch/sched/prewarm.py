@@ -28,7 +28,9 @@ Nothing here blocks the serving loop.
 Every key carries the mesh signature (parallel/mesh.py mesh_key, None on
 one device), as the JAX package's keys do (its `_mesh_sig`): a warm on one
 mesh never answers a lookup for another width or for single-device serving,
-and a warm with a mesh runs its probe cycle sharded on that mesh.
+and a warm with a mesh runs its probe cycle sharded on that mesh — a fleet
+warm (`fleet=K`) its probe dispatch on that fleet mesh, so fleet × mesh is
+a key slot of its own.
 """
 
 from __future__ import annotations
@@ -127,15 +129,23 @@ def warm_cycle(d: Dims, device: torch.device, gang: bool = False,
 
 
 def warm_fleet(d: Dims, K: int, device: torch.device, engine: str = "waves",
-               rc: int = 0) -> Dims:
+               rc: int = 0, mesh=None) -> Dims:
     """One throwaway fleet dispatch (fleet/cycle.py) at dims `d` for a stack
     of `K` probe tenants on the current stream, read back — what a fleet
-    signature's first live tick would otherwise pay."""
+    signature's first live tick would otherwise pay. With a fleet `mesh`
+    the probe stack is placed on it (K is already a multiple of its tenant
+    rows: the key's stack count is the padded one) and the dispatch runs on
+    the grid."""
     from ..fleet.cycle import dispatch_fleet
     from ..fleet.tables import probe_fleet_args
 
     (tables, pending, existing), keys_host, quota, dd = \
         probe_fleet_args(d, K, device)
+    if mesh is not None:
+        from ..parallel.mesh import shard_fleet
+
+        tables = shard_fleet((tables, pending, existing), mesh)
+        pending = existing = None
     res = dispatch_fleet(tables, pending, keys_host, dd.D, existing, engine,
                          quota, rc=rc)
     res.node.cpu()
@@ -290,7 +300,8 @@ class BucketPrewarmer:
             t0 = time.perf_counter()
             with self._on_stream():
                 if fleet is not None:
-                    warm_fleet(d, int(fleet), self.device, engine, rc)
+                    warm_fleet(d, int(fleet), self.device, engine, rc,
+                               mesh=mesh)
                 else:
                     warm_cycle(d, self.device, gang=gang, extras=extras,
                                mesh=mesh)

@@ -165,6 +165,9 @@ class DispatchSupervisor:
         self.device = torch.device(device)
         # the serving mesh's lifecycle (parallel/mesh.py MeshState), or None
         self.mesh_state = mesh_state
+        # the mesh a re-admission rewarms on when there is no MeshState to
+        # reform (the fleet server sets it to its adopted mesh)
+        self.mesh_provider: Optional[Callable[[], Any]] = None
         # the stream the worker dispatches on (None on the CPU)
         self.stream = stream
         self.prewarmer = prewarmer
@@ -405,6 +408,11 @@ class DispatchSupervisor:
             except Exception:  # noqa: BLE001 - one device is always a
                 mesh = None    # legal landing spot
             self._emit("mesh_reform", f"width {mesh.size if mesh else 1}")
+        elif self.mesh_provider is not None:
+            try:
+                mesh = self.mesh_provider()
+            except Exception:  # noqa: BLE001 - rewarm is an optimization
+                mesh = None
         if self.prewarmer is not None and sig is not None:
             dims, engine, extras, gang, rc, fleet = sig
             try:

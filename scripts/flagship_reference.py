@@ -25,6 +25,7 @@ many pods a package places, and a hash of where.
         --path durable
     JAX_PLATFORMS=cpu python3 scripts/flagship_reference.py --package jax \\
         --path fleet [--tenants 24 --nodes 2000 --pods 2000]
+                     [--mesh 8 --node-shards 2]
         --path scan
         --path kubemark [--nodes 500 --pods 500]
         --path cluster [--nodes 100 --pods 300]
@@ -104,7 +105,10 @@ chip_smoke.FLEET_TENANTS) of make_nodes(`--nodes`) and `--pods` pods each
 under the tight DRF quota, ticked until idle. It prints per tenant the
 bound count and the sha256 of its sorted (pod, node) pairs, the per-tick
 scheduled counts, t00's clamped pods and tick 1's DRF rows per engine group
-(sha256 of admitted, share, dom) — the JAX_FLEET constant.
+(sha256 of admitted, share, dom) — the JAX_FLEET constant. With `--mesh N`
+the fleet serves on a fleet mesh of N devices (the JAX package on N
+virtual CPU devices, the port on N × `--device`), `--node-shards K` making
+it the (N/K, K) tenant × node-shard grid of phase 18a.
 
 `--path scan` runs chip_smoke.py's phase 13 batches through the package's
 BatchScheduler: 13a, make_nodes(5000) x flagship_pods(10000) with every
@@ -310,20 +314,27 @@ def fleet_path(args) -> dict:
     os.environ["KTPU_OVERLOAD"] = "0"
     import chip_smoke
 
+    import torch
+
     if args.package == "jax":
         api = jax_fleet_api()
     else:
-        import torch
-
         api = chip_smoke.port_fleet_api(torch.device(args.device))
     names = [f"t{k:02d}" for k in range(args.tenants)]
+    kw = {}
+    if args.mesh:
+        kw = dict(mesh=args.mesh, node_shards=args.node_shards)
+        if args.package == "port":
+            kw["mesh_devices"] = [torch.device(args.device)] * args.mesh
     t0 = time.perf_counter()
     out = chip_smoke.fleet_run(api, names=names, n_nodes=args.nodes,
-                               n_pods=args.pods)
+                               n_pods=args.pods, fleet_kw=kw)
     chip_smoke.check_fleet(out, args.package)
     return {"package": args.package, "path": "fleet",
             "tenants": args.tenants, "nodes": args.nodes,
-            "pods": args.pods, "fleet": chip_smoke.fleet_reference(out),
+            "pods": args.pods, "mesh": args.mesh,
+            "node_shards": args.node_shards,
+            "fleet": chip_smoke.fleet_reference(out),
             "seconds": time.perf_counter() - t0}
 
 
@@ -781,6 +792,12 @@ def main() -> int:
                     "temporary data dir")
     ap.add_argument("--devices", type=int, default=4,
                     help="--path mesh: the mesh's shards")
+    ap.add_argument("--mesh", type=int, default=0,
+                    help="--path fleet: serve on a fleet mesh of this many "
+                    "devices (0: none)")
+    ap.add_argument("--node-shards", type=int, default=1,
+                    help="--path fleet --mesh N: the grid's node-shard "
+                    "width")
     ap.add_argument("--production",
                     type=lambda v: tuple(int(x) for x in v.split("x")),
                     default=(4096, 8192),
@@ -799,6 +816,10 @@ def main() -> int:
             print(json.dumps(port_mesh_reference(args)))
         return 0
     if args.path == "fleet":
+        if args.mesh and args.package == "jax":
+            os.environ["XLA_FLAGS"] = (
+                os.environ.get("XLA_FLAGS", "") + " --xla_force_host_platform"
+                f"_device_count={args.mesh}").strip()
         args.tenants = args.tenants or chip_smoke.FLEET_TENANTS
         args.nodes = args.nodes or chip_smoke.FLEET_NODES
         args.pods = args.pods or chip_smoke.FLEET_PODS

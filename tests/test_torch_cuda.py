@@ -347,6 +347,56 @@ def test_cuda_fleet_ticks_match_cpu_ticks(cuda):
     assert sum(got[1][0].values()) > 0
 
 
+def test_cuda_fleet_grid_tick_matches_cpu_tick(cuda):
+    """A small mixed-engine fleet on the (4, 2) grid over [cuda:0] * 8
+    against the same fleet meshless on the CPU: every tenant's bound list
+    and every tick's clamp counts equal, K1, K2 and K4 launched inside the
+    grid's threads, the grid's rows taking collectives."""
+    from kubernetes_tpu_torch.fleet import FleetServer
+    from kubernetes_tpu_torch.ops import kernels as K
+    from kubernetes_tpu_torch.parallel import axis
+    from kubernetes_tpu_torch.parallel.mesh import fleet_mesh_shape
+    from kubernetes_tpu_torch.state.dims import Dims
+
+    def run(device, **kw):
+        clk = {"t": 0.0}
+        srv = FleetServer(batch_size=64, base_dims=Dims(N=64, P=64, E=256),
+                          clock=lambda: clk["t"], device=device,
+                          engines={"t00": "waves", "t01": "runs",
+                                   "t02": "scan", "t03": "waves"}, **kw)
+        binders, clamped = {}, []
+        for k in range(4):
+            name = f"t{k:02d}"
+            binders[name] = ktt.RecordingBinder()
+            t = srv.add_tenant(name, binder=binders[name],
+                               quota=0.01 if k == 0 else 1.0)
+            for n in make_nodes(48):
+                t.on_node_add(n)
+            for p in flagship_pods(150):
+                t.on_pod_add(p)
+        for _ in range(8):
+            tk = srv.tick()
+            clk["t"] += 1.0
+            clamped.append({n: s.drf_clamped
+                            for n, s in tk.per_tenant.items()})
+            if tk.scheduled == 0:
+                break
+        assert srv.total_drf_violations == 0
+        assert srv.total_cross_tenant == 0
+        return srv, ({n: b.bound for n, b in binders.items()}, clamped)
+
+    K.reset_launch_counts()
+    srv, got = run(cuda, mesh=8, node_shards=2, mesh_devices=[cuda] * 8)
+    counts = K.launch_counts()
+    assert fleet_mesh_shape(srv.mesh) == (4, 2)
+    assert srv.max_dispatches_per_tick == 3
+    assert axis.LAST_RUN["grid"] == [4, 2] and axis.LAST_RUN["all_reduce"]
+    _, want = run("cpu")
+    assert got == want
+    assert counts.get("contention_scan", 0) and counts.get("domain_rank", 0)
+    assert counts.get("assign_scan", 0) > 1
+
+
 def test_assign_scan_matches_plain_version_exactly(cuda):
     """K4 on chip_smoke.py's phase-2 cases (ties, a pod that fits nowhere,
     one pinned to a missing node, invalid rows, each Filter flag off, R =

@@ -5,8 +5,8 @@ compared, plus the DRF clamp's parity at real magnitudes and the float32
 reduction orders it reproduces.
 
 The JAX side runs as its own tests run it on the CPU; the port runs with
-`device="cpu"`. test_fleet.py's mesh cases become one parametrised test that
-the port refuses a mesh, naming ROADMAP A13 (the fleet mesh is not ported).
+`device="cpu"`. test_fleet.py's mesh cases are in test_torch_fleet_mesh.py;
+here one parametrised test holds that the mesh requests are taken.
 """
 
 import importlib
@@ -761,14 +761,33 @@ class TestTenantStorm:
         both(script)
 
 
-@pytest.mark.parametrize("kw", [{"mesh": 8}, {"mesh": 8, "node_shards": 2},
-                                {"node_shards": 2}],
-                         ids=["1d-mesh", "2d-mesh", "node-shards"])
-def test_fleet_mesh_is_refused_naming_a13(kw):
-    """test_fleet.py's TestFleetMesh and TestFleet2DMesh: the fleet mesh is
-    not ported, and asking for it raises rather than serving meshless."""
-    with pytest.raises(NotImplementedError, match="A13"):
+@pytest.mark.parametrize("kw,env,shape", [
+    ({"mesh": 8}, None, (8, 1)),
+    ({"mesh": 8, "node_shards": 2}, None, (4, 2)),
+    ({"mesh": 8}, "2", (4, 2))], ids=["1d-mesh", "2d-mesh", "node-shards"])
+def test_fleet_mesh_is_refused_naming_a13(kw, env, shape, monkeypatch):
+    """test_fleet.py's TestFleetMesh and TestFleet2DMesh requests, which the
+    port refused until it ported the fleet mesh (ROADMAP A13b): `mesh=8`,
+    `mesh=8, node_shards=2` and KTPU_FLEET_NODE_SHARDS=2 are taken over a
+    pool of 8 CPU devices, and the same request on a machine without 8 CUDA
+    devices raises, with the mesh note, rather than serving meshless."""
+    from kubernetes_tpu_torch.parallel.mesh import (MESH_HINT,
+                                                    fleet_mesh_shape)
+
+    if env is not None:
+        monkeypatch.setenv("KTPU_FLEET_NODE_SHARDS", env)
+        assert PORT.FleetServer(device="cpu").mesh is None
+    for garbage in ("eight", 1, 0, -3):     # clamps to no mesh
+        assert PORT.FleetServer(device="cpu", mesh=garbage).mesh is None
+    srv = PORT.FleetServer(device="cpu", mesh_devices=[torch.device("cpu")]
+                           * 8, **kw)
+    assert fleet_mesh_shape(srv.mesh) == shape
+    assert srv.mesh_state.mesh is srv.mesh
+    assert srv.node_shards == (2 if shape[1] == 2 else 1)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError) as e:
         PORT.FleetServer(device="cpu", **kw)
+    assert MESH_HINT in e.value.__notes__
 
 
 def test_fleet_server_takes_the_card_by_default(monkeypatch):

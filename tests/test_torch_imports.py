@@ -56,9 +56,14 @@ def test_no_module_of_the_port_reaches_jax_or_the_jax_package():
     got = _child(CHILD)
     assert not got["failed"], got["failed"]
     assert got["reached"] == []
-    # the walk saw the whole package, the cluster and CLI slice and the
-    # node-axis sharding (parallel/) included
+    # the walk saw the whole package, the cluster and CLI slice, the
+    # node-axis sharding (parallel/) and the fleet with its mesh included
     for name in ("kubernetes_tpu_torch.parallel.mesh",
+                 "kubernetes_tpu_torch.fleet",
+                 "kubernetes_tpu_torch.fleet.server",
+                 "kubernetes_tpu_torch.fleet.tables",
+                 "kubernetes_tpu_torch.fleet.cycle",
+                 "kubernetes_tpu_torch.fleet.quota",
                  "kubernetes_tpu_torch.parallel.axis",
                  "kubernetes_tpu_torch.parallel.dryrun",
                  "kubernetes_tpu_torch.cli.cluster",
